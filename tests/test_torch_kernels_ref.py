@@ -1,0 +1,152 @@
+"""Each CUDA kernel's plain PyTorch version against the TPU kernel it
+replaces, run as the JAX package's own tests run it on the CPU (Mosaic
+interpret mode).  Inputs are made with numpy from a seed and handed to
+both; the plain versions are what the kernel wrappers run on a CPU tensor.
+
+Tolerances (bf16 kernels) follow the JAX kernel tests: GRU states 5e-2
+(tests/test_pallas_gru.py), vfeat h 3e-2 and dist 1e-4
+(tests/test_vfeat_kernel.py), mixture rtol 2e-2 / atol 2e-3
+(tests/test_fused_head.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vqa_counterexamples_tpu.ops.pallas.gru_kernel import (
+    LANE, gru_fwd_pallas, interleave_gates)
+from vqa_counterexamples_tpu.ops.pallas.mixture_kernel import (
+    classify_softmax_pallas)
+from vqa_counterexamples_tpu.ops.pallas.vfeat_kernel import (
+    vfeat_scores_pallas)
+from vqa_counterexamples_tpu_torch.ops.cuda import (
+    gru_kernel, mixture_kernel, vfeat_kernel)
+
+
+def _bf16(a):
+    """numpy f32 values rounded to bf16 (so both sides see equal inputs)."""
+    return torch.from_numpy(np.asarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _to_jax_gates(a, dim_h, hp):
+    """(..., 3H) gate-major -> (..., 3Hp) padded, gate-interleaved."""
+    a3 = a.reshape(a.shape[:-1] + (3, dim_h))
+    pad = [(0, 0)] * (a3.ndim - 1) + [(0, hp - dim_h)]
+    return np.asarray(interleave_gates(jnp.asarray(np.pad(a3, pad))))
+
+
+def _from_jax_gates(a, dim_h, hp):
+    """Inverse of :func:`_to_jax_gates`."""
+    j = hp // LANE
+    a = a.reshape(a.shape[:-1] + (j, 3, LANE))
+    a = np.swapaxes(a, -3, -2).reshape(a.shape[:-3] + (3, hp))
+    return a[..., :dim_h].reshape(a.shape[:-2] + (3 * dim_h,))
+
+
+@pytest.mark.parametrize("seq,batch,dim_h,with_mask", [
+    (5, 4, 20, False), (5, 4, 20, True), (7, 9, 130, True)])
+def test_gru_plain_matches_pallas(seq, batch, dim_h, with_mask):
+    rng = np.random.default_rng(seq * 100 + dim_h)
+    hp = -(-dim_h // LANE) * LANE
+    xp = _bf16(rng.normal(size=(seq, batch, 3 * dim_h)))
+    w_hh = _bf16(rng.normal(size=(dim_h, 3 * dim_h)) * 0.2)  # (H, 3H)
+    b_hh = (rng.normal(size=(3 * dim_h,)) * 0.1).astype(np.float32)
+    mask = (_bf16((rng.random((batch, dim_h)) > 0.3) * 1.25)
+            if with_mask else np.ones((batch, dim_h), np.float32))
+
+    w_j = np.pad(_to_jax_gates(w_hh, dim_h, hp), ((0, hp - dim_h), (0, 0)))
+    states_j, hproj_j = gru_fwd_pallas(
+        jnp.asarray(_to_jax_gates(xp, dim_h, hp), jnp.bfloat16),
+        jnp.asarray(w_j, jnp.bfloat16),
+        jnp.asarray(_to_jax_gates(b_hh, dim_h, hp))[None],
+        jnp.asarray(np.pad(mask, ((0, 0), (0, hp - dim_h))), jnp.bfloat16),
+        interpret=True)
+
+    states_p, hproj_p = gru_kernel.gru_recurrence(
+        torch.from_numpy(xp).to(torch.bfloat16),
+        torch.from_numpy(w_hh.T.copy()).to(torch.bfloat16),
+        torch.from_numpy(b_hh),
+        torch.from_numpy(mask).to(torch.bfloat16) if with_mask else None,
+        want_hproj=True)
+    assert states_p.dtype == torch.bfloat16
+    assert tuple(states_p.shape) == (seq, batch, dim_h)
+    np.testing.assert_allclose(
+        states_p.float().numpy(),
+        np.asarray(states_j[:, :, :dim_h], np.float32), atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(
+        hproj_p.float().numpy(),
+        _from_jax_gates(np.asarray(hproj_j, np.float32), dim_h, hp),
+        atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("n_rows,dim_v,batch,knn,dim_h", [
+    (40, 128, 32, 5, 16), (70, 256, 64, 3, 40)])
+def test_vfeat_plain_matches_pallas(n_rows, dim_v, batch, knn, dim_h):
+    rng = np.random.default_rng(dim_v + knn)
+    table = _bf16(rng.normal(size=(n_rows, dim_v)))
+    idx = rng.integers(0, n_rows, size=(batch, knn + 1)).astype(np.int32)
+    w_o = _bf16(rng.normal(size=(dim_h, dim_v)) * 0.1)  # (H, Dv)
+    w_m = _bf16(rng.normal(size=(dim_h, dim_v)) * 0.1)
+
+    xk3 = np.transpose(table[idx[:, 1:]], (1, 0, 2))   # K-major (K, B, Dv)
+    h_j, d_j = vfeat_scores_pallas(
+        jnp.asarray(xk3, jnp.bfloat16), jnp.asarray(table[idx[:, 0]],
+                                                     jnp.bfloat16),
+        jnp.asarray(w_o, jnp.bfloat16), jnp.asarray(w_m, jnp.bfloat16),
+        0, True)
+
+    h_p, d_p = vfeat_kernel.vfeat_scores(
+        torch.from_numpy(table).to(torch.bfloat16), torch.from_numpy(idx),
+        torch.from_numpy(w_o).to(torch.bfloat16),
+        torch.from_numpy(w_m).to(torch.bfloat16))
+    assert tuple(h_p.shape) == (batch, knn, dim_h)
+    assert h_p.dtype == torch.bfloat16 and d_p.dtype == torch.float32
+    np.testing.assert_allclose(
+        h_p.float().numpy(),
+        np.transpose(np.asarray(h_j, np.float32), (1, 0, 2)),
+        rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(
+        d_p.numpy(), np.transpose(np.asarray(d_j)[..., 0], (1, 0)),
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows,dim_z,n_ans", [(70, 24, 50), (33, 40, 130)])
+def test_mixture_plain_matches_pallas(rows, dim_z, n_ans):
+    rng = np.random.default_rng(rows + n_ans)
+    z = _bf16(rng.normal(size=(rows, dim_z)))
+    w = (rng.normal(size=(dim_z, n_ans)) * 0.3).astype(np.float32)
+    b = rng.normal(size=(n_ans,)).astype(np.float32)
+    out_j = classify_softmax_pallas(jnp.asarray(z, jnp.bfloat16),
+                                    jnp.asarray(w), jnp.asarray(b), 32, True)
+    out_p = mixture_kernel.classify_softmax(
+        torch.from_numpy(z).to(torch.bfloat16),
+        torch.from_numpy(w.T.copy()), torch.from_numpy(b))
+    assert out_p.dtype == torch.bfloat16
+    np.testing.assert_allclose(out_p.float().numpy(),
+                               np.asarray(out_j, np.float32),
+                               rtol=2e-2, atol=2e-3)
+    np.testing.assert_allclose(out_p.float().numpy().sum(1), np.ones(rows),
+                               rtol=2e-2)
+
+
+def test_wrappers_count_only_kernel_launches():
+    """On CPU tensors the wrappers take the plain version and count no
+    launch (the count is of kernel launches only)."""
+    before = (gru_kernel.gru_recurrence.launches,
+              vfeat_kernel.vfeat_scores.launches,
+              mixture_kernel.classify_softmax.launches)
+    gru_kernel.gru_recurrence(torch.zeros(2, 3, 6, dtype=torch.bfloat16),
+                              torch.zeros(6, 2, dtype=torch.bfloat16),
+                              torch.zeros(6))
+    vfeat_kernel.vfeat_scores(torch.zeros(4, 8, dtype=torch.bfloat16),
+                              torch.zeros(2, 3, dtype=torch.int32),
+                              torch.zeros(5, 8, dtype=torch.bfloat16),
+                              torch.zeros(5, 8, dtype=torch.bfloat16))
+    mixture_kernel.classify_softmax(torch.zeros(3, 4, dtype=torch.bfloat16),
+                                    torch.zeros(7, 4, dtype=torch.bfloat16),
+                                    torch.zeros(7, dtype=torch.bfloat16))
+    assert before == (gru_kernel.gru_recurrence.launches,
+                      vfeat_kernel.vfeat_scores.launches,
+                      mixture_kernel.classify_softmax.launches)

@@ -1,0 +1,17 @@
+"""vqa_counterexamples_tpu_torch — the PyTorch / CUDA port of
+``vqa_counterexamples_tpu`` for one NVIDIA H100.
+
+The JAX package beside it is the reference; this package mirrors its layout
+(``core/``, ``data/``, ``ops/``, ``models/``, ``engines/``, ``cli/``) so each
+module's counterpart is found under the same name.  It imports ``torch`` and
+numpy and never ``jax``.
+
+What is ported so far is the scoring half of the main path: NeuralCX over a
+frozen MutanNoAtt + BayesianUniSkip backbone with the q/v/z frozen-backbone
+caches (``cli/counterexamples.py --synthetic N --z_cache --epochs 0 --test``).
+The three TPU kernels that path reaches are hand-written CUDA C++ for
+``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use and bound with
+``ctypes`` (``ops/cuda/``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,216 @@
+"""CX CLI (port of ``cli/counterexamples.py``): same flags, same run-dir
+layout (``logs/cx/<run>/{ckpt,best}``, ``runs/<run>/{train,val}``).
+
+This slice of the port runs the scoring path: build the frozen-backbone
+q/v/z caches, then score every test example's candidates and report loss,
+recall@5 and recall@1 in ``final_results.txt``::
+
+    python -m vqa_counterexamples_tpu_torch.cli.counterexamples \\
+        --cx_model NeuralModel --synthetic 2048 --z_cache --epochs 0 --test
+
+Training (``--epochs > 0``), ``--pairwise``, ``--mesh``, ``--distributed``,
+``--resume``, ``--init_params``, ``--viz`` and non-synthetic data raise
+``NotImplementedError`` (see ROADMAP.md for when they come).  The device is
+``cuda`` when a card is visible; ``--device cpu`` forces the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from datetime import datetime
+
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--path_opt",
+                        default="configs/cx/counterexamples_default.yaml",
+                        type=str, help="path to a yaml options file")
+    parser.add_argument("-cx", "--cx_model", required=True, type=str,
+                        help="Counterexample model type")
+    parser.add_argument("-lr", "--learning_rate", type=float,
+                        help="initial learning rate")
+    parser.add_argument("-lb", "--sb_lambda", type=float,
+                        help="semantic baseline lambda")
+    parser.add_argument("-b", "--batch_size", type=int, help="mini-batch size")
+    parser.add_argument("--epochs", type=int,
+                        help="number of total epochs to run")
+    parser.add_argument("--project_dir", default=".", type=str,
+                        help="path to project root whose data to use")
+    parser.add_argument("--resume", default="", type=str,
+                        help="run name to resume")
+    parser.add_argument("--best", action="store_true",
+                        help="whether to resume best checkpoint")
+    parser.add_argument("-c", "--comment", type=str, default="")
+    parser.add_argument("-p", "--print_freq", default=100, type=int)
+    parser.add_argument("-v", "--eval_freq", default=-1, type=int)
+    parser.add_argument("-t", "--test", action="store_true",
+                        help="Run eval on full testset after training")
+    parser.add_argument("--viz", action="store_true",
+                        help="Run viz on valset after training")
+    parser.add_argument("--pairwise", action="store_true",
+                        help="Pairwise training")
+    group = parser.add_mutually_exclusive_group(required=False)
+    group.add_argument("--pretrained_vqa", dest="pretrained_vqa",
+                       action="store_true")
+    group.add_argument("--untrained_vqa", dest="pretrained_vqa",
+                       action="store_false")
+    parser.set_defaults(pretrained_vqa=True)
+    parser.add_argument("--trainable_vqa", action="store_true",
+                        help="If true, backprop through VQA model")
+    parser.add_argument("-dev", "--dev_mode", action="store_true")
+    parser.add_argument("--synthetic", type=int, default=0, metavar="N",
+                        help="run on N synthetic examples instead of COCO")
+    parser.add_argument("--no_q_cache", action="store_true",
+                        help="disable the precomputed frozen-encoder q_emb "
+                             "cache")
+    parser.add_argument("--z_cache", action="store_true",
+                        help="precompute the fused embedding z per "
+                             "(example, candidate); needs a frozen backbone "
+                             "and the q and v caches")
+    parser.add_argument("--scan_steps", type=int, default=0,
+                        help="train steps per dispatch (training only)")
+    parser.add_argument("--no_v_cache", action="store_true",
+                        help="disable the precomputed per-image fusion "
+                             "v-projection cache")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="data-parallel mesh spec, e.g. 'data=8'")
+    parser.add_argument("--distributed", action="store_true",
+                        help="multi-host bootstrap")
+    parser.add_argument("--init_params", type=str, default=None,
+                        help="params file to graft over the initialized CX "
+                             "params")
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: cuda when available)")
+    return parser
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        "%s is not ported to the PyTorch package yet (ROADMAP.md, %s)"
+        % (what, item))
+
+
+def load_synthetic_data(args, n_examples):
+    from ..data import synthetic
+
+    trainset, store = synthetic.make_synthetic_cx(
+        n_examples=n_examples, n_images=max(128, n_examples // 4),
+        dim_v=2048, knn_size=24, n_answers=100, seed=args.seed, split="train")
+    valset, val_store = synthetic.make_synthetic_cx(
+        n_examples=max(n_examples // 4, 64),
+        n_images=max(128, n_examples // 8), dim_v=2048, knn_size=24,
+        n_answers=100, seed=args.seed + 1, split="val")
+    # synthetic shares one answer/word vocab
+    valset["vocab_words"] = trainset["vocab_words"]
+    valset["vocab_answers"] = trainset["vocab_answers"]
+    return trainset, valset, valset, store, val_store
+
+
+def main(argv=None):
+    from ..core import config as config_lib
+    from ..core.experiment import ScalarWriter
+    from ..data import vqacx
+    from ..engines import cx_engine
+    from ..models import factory
+
+    args = build_parser().parse_args(argv)
+    # ---- options (CLI non-None > YAML > defaults) ----
+    cli_overrides = {
+        "optim": {"lr": args.learning_rate, "batch_size": args.batch_size,
+                  "epochs": args.epochs},
+        "cx_model": {"pretrained_vqa": args.pretrained_vqa,
+                     "trainable_vqa": args.trainable_vqa},
+    }
+    options = config_lib.resolve_options({}, args.path_opt, cli_overrides)
+    options["vgenome"] = None
+
+    if options["optim"]["epochs"] > 0:
+        _not_ported("training (--epochs > 0)", "Queue 1 #4")
+    for flag, item in (("pairwise", "Queue 1 #8"), ("mesh", "Queue 1 #12"),
+                       ("distributed", "Queue 1 #12"),
+                       ("resume", "Queue 1 #6"), ("init_params", "Queue 1 #6"),
+                       ("viz", "Queue 1 #13")):
+        if getattr(args, flag):
+            _not_ported("--" + flag, item)
+    if not args.synthetic:
+        _not_ported("loading the real VQA-CX data", "Queue 1 #7")
+
+    device = torch.device(args.device or
+                          ("cuda" if torch.cuda.is_available() else "cpu"))
+
+    # ---- run-dir bookkeeping ----
+    if args.cx_model == "NeuralModel" and not args.comment:
+        args.comment = options["cx_model"]["name"]
+    run_name = datetime.now().strftime("%b%d-%H-%M-%S")
+    if args.comment:
+        run_name += "_" + args.comment
+    save_dir = os.path.join(args.project_dir, "logs", "cx", run_name)
+    os.makedirs(os.path.join(save_dir, "ckpt"), exist_ok=True)
+    os.makedirs(os.path.join(save_dir, "best"), exist_ok=True)
+    log_dir = os.path.join(args.project_dir, "runs", run_name)
+    train_writer = ScalarWriter(os.path.join(log_dir, "train"))
+    val_writer = ScalarWriter(os.path.join(log_dir, "val"))
+    config_lib.save_options(options, save_dir)
+    print("Saving model to {}".format(save_dir))
+
+    # ---- data ----
+    print("=> Loading VQA-CX dataset...")
+    trainset, valset, testset, f_train, f_val = load_synthetic_data(
+        args, args.synthetic)
+    train_arrays = vqacx.CXArrays.from_examples(trainset["examples_list"],
+                                                f_train.name_to_index)
+
+    # ---- model ----
+    print("=> Building model...")
+    knn_size = train_arrays.knn_size
+    trainable_vqa = options["cx_model"]["trainable_vqa"]
+    vqa_model = factory.factory_vqa(options["model"],
+                                    trainset["vocab_words"],
+                                    trainset["vocab_answers"])
+    cx_model = factory.factory_cx(args.cx_model, vqa_model,
+                                  knn_size=knn_size,
+                                  trainable_vqa=trainable_vqa,
+                                  model_spec=dict(options["cx_model"]))
+    cx_engine.init_cx_params(cx_model, seed=args.seed)
+    cx_model.to(device)
+    print("Built {} on {}".format(args.cx_model, device))
+
+    use_q_cache = not trainable_vqa and not args.no_q_cache
+    use_v_cache = not trainable_vqa and not args.no_v_cache
+    use_z_cache = args.z_cache and use_q_cache and use_v_cache
+    if args.z_cache and not use_z_cache:
+        print("=> z-emb cache needs a frozen backbone with q+v caches; "
+              "disabled")
+    eval_step = cx_engine.make_cx_eval_step(cx_model, recall_k=5,
+                                            use_z_cache=use_z_cache)
+    batch_size = options["optim"]["batch_size"]
+
+    # ---- final test (no epochs ran: best_epoch 0) ----
+    if args.test:
+        features_val = f_val.to_device(device)
+        test_arrays = vqacx.CXArrays.from_examples(
+            testset["examples_list"], f_val.name_to_index)
+        q_test, v_val, z_test, stage_s = cx_engine.build_frozen_caches(
+            cx_model, features_val, test_arrays, use_q=use_q_cache,
+            use_v=use_v_cache, use_z=use_z_cache)
+        print("=> Frozen-backbone caches built: %s"
+              % {k: round(v, 3) for k, v in stage_s.items()})
+        test_results = cx_engine.eval_model(
+            eval_step, features_val, test_arrays, batch_size,
+            q_table=q_test, v_table=v_val, z_table=z_test)
+        test_results["best_epoch"] = 0
+        with open(os.path.join(save_dir, "final_results.txt"), "w") as f:
+            f.write(json.dumps(test_results))
+        print("FINAL RESULTS ON BEST EPOCH 0", test_results)
+    train_writer.close()
+    val_writer.close()
+    return []
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,209 @@
+"""CX scoring engine over the frozen-backbone caches (port of the scoring
+half of ``engines/cx_engine.py``).
+
+With the VQA backbone frozen, its outputs are constants of the CX model:
+the question embedding per example (``precompute_q_emb``, the GRU kernel),
+the image side of the fusion per image (``precompute_v_proj``) and the whole
+fused embedding per (example, candidate) (``precompute_z_emb``).  Scoring
+then gathers rows of those tables by index; z subsumes v in the step.  The
+tables are written in place into preallocated tensors.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..data import vqacx
+from ..ops.metrics import nll, recall_at_k
+
+
+def init_cx_params(model: torch.nn.Module, seed: int = 42
+                   ) -> torch.nn.Module:
+    """The port's seeded init (the JAX initializer families, drawn from a
+    CPU ``torch.Generator``); returns ``model`` in eval mode."""
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model.eval()
+
+
+def _device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.no_grad()
+def precompute_q_emb(model, question_wids, batch_size: int = 2048
+                     ) -> torch.Tensor:
+    """Encode every question once through the frozen encoder -> (N, dim_q)
+    on the model's device, indexed by ``batch['example_idxs']``."""
+    wids = torch.from_numpy(np.asarray(question_wids)).to(_device(model))
+    n = wids.shape[0]
+    table = None
+    for s in range(0, n, batch_size):
+        out = model.vqa_model.encode_question(wids[s:s + batch_size])
+        if table is None:
+            table = out.new_empty((n,) + tuple(out.shape[1:]))
+        table[s:s + out.shape[0]] = out
+    return table
+
+
+@torch.no_grad()
+def precompute_v_proj(model, features: torch.Tensor,
+                      batch_size: int = 8192) -> torch.Tensor:
+    """Project every image through the frozen fusion image side once ->
+    (n_images, R, dim_mm) f32, aligned with the feature-matrix rows."""
+    n = features.shape[0]
+    table = None
+    for s in range(0, n, batch_size):
+        out = model.vqa_model.project_image(features[s:s + batch_size])
+        if table is None:
+            table = out.new_empty((n,) + tuple(out.shape[1:]))
+        table[s:s + out.shape[0]] = out
+    return table
+
+
+@torch.no_grad()
+def precompute_z_emb(model, image_idxs, q_table: torch.Tensor,
+                     v_table: torch.Tensor, batch_size: int = 2048
+                     ) -> torch.Tensor:
+    """Fuse every (example, candidate) pair through the frozen backbone once
+    -> (n_examples, K+1, dim_mm), aligned with example order.  ``v_table``
+    (from :func:`precompute_v_proj`) turns the fusion's image side into a
+    gather."""
+    idxs = torch.from_numpy(np.asarray(image_idxs)).long().to(q_table.device)
+    n = idxs.shape[0]
+    table = None
+    for s in range(0, n, batch_size):
+        out = model.vqa_model.fuse_candidates(
+            None, q_table[s:s + batch_size],
+            v_proj=v_table[idxs[s:s + batch_size]])
+        if table is None:
+            table = out.new_empty((n,) + tuple(out.shape[1:]))
+        table[s:s + out.shape[0]] = out
+    return table
+
+
+def build_frozen_caches(model, features: torch.Tensor,
+                        arrays: vqacx.CXArrays, *, use_q: bool = True,
+                        use_v: bool = False, use_z: bool = True):
+    """Build the cache tables in dependency order (q -> v -> z).
+
+    The z build needs q and the per-image v projection, so v is built
+    whenever z is; with the z cache on, ``v_table`` is then dropped (z
+    subsumes v in the step).  Returns ``(q_table, v_table, z_table,
+    stage_s)`` with each stage's synchronised wall seconds.
+    """
+    if use_z and not use_q:
+        raise ValueError("the z cache is built from the q cache")
+    device = features.device
+    stage_s = {}
+    q_table = v_table = z_table = None
+    if use_q:
+        t = time.perf_counter()
+        q_table = precompute_q_emb(model, arrays.question_wids)
+        _sync(device)
+        stage_s["q"] = time.perf_counter() - t
+    if use_v or use_z:
+        t = time.perf_counter()
+        v_table = precompute_v_proj(model, features)
+        _sync(device)
+        stage_s["v"] = time.perf_counter() - t
+    if use_z:
+        t = time.perf_counter()
+        z_table = precompute_z_emb(model, arrays.image_idxs, q_table,
+                                   v_table)
+        _sync(device)
+        stage_s["z"] = time.perf_counter() - t
+        v_table = None  # z subsumes v in the step
+    return q_table, v_table, z_table, stage_s
+
+
+def make_tables_bf16_resident(features, q_table=None, v_table=None,
+                              z_table=None):
+    """Cast the feature matrix and cache tables to bf16 (the step casts its
+    GEMM inputs to bf16 anyway under the bf16 policy).  Returns
+    ``(features, q_table, v_table, z_table)``."""
+    def cast(t):
+        return None if t is None else t.to(torch.bfloat16)
+
+    return cast(features), cast(q_table), cast(v_table), cast(z_table)
+
+
+def cache_kwargs(batch: dict, q_table=None, v_table=None,
+                 z_table=None) -> dict:
+    """Model kwargs for the caches: q/z rows per example
+    (``batch['example_idxs']``), v rows per image (``batch['image_idxs']``)."""
+    kw = {}
+    if q_table is not None:
+        kw["q_emb"] = q_table[batch["example_idxs"].long()]
+    if v_table is not None:
+        kw["v_proj"] = v_table[batch["image_idxs"].long()]
+    if z_table is not None:
+        kw["z_emb"] = z_table[batch["example_idxs"].long()]
+    return kw
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
+            for k, v in batch.items()}
+
+
+def make_cx_eval_step(model, *, recall_k: int = 5, use_z_cache: bool = False):
+    """Returns ``eval_step(features, batch, n_valid, q_table=None,
+    v_table=None, z_table=None)`` -> summed CE loss and recall@K / @1 hit
+    counts over the first ``n_valid`` rows, as 0-d device tensors.  The
+    tables passed in select the caches.
+
+    Whether the model takes the feature table + row indices (the
+    candidate image-feature kernel, which needs the z cache) is resolved
+    here, at build time."""
+    pass_table = bool(use_z_cache and model.wants_table_features())
+
+    @torch.no_grad()
+    def eval_step(features, batch, n_valid, q_table=None, v_table=None,
+                  z_table=None):
+        comp = batch["comp_idxs"]
+        mask = (torch.arange(comp.shape[0], device=comp.device)
+                < n_valid).float()
+        kw = cache_kwargs(batch, q_table, v_table, z_table)
+        if pass_table:
+            image_features = None
+            kw.update(features_table=features,
+                      image_idxs=batch["image_idxs"])
+        else:
+            image_features = features[batch["image_idxs"].long()]
+        scores = model(image_features, batch["question_wids"],
+                       batch["answer_aids"], **kw)
+        k = min(recall_k, scores.shape[-1])
+        return {"loss_sum": torch.sum(nll(scores, comp) * mask),
+                "correct": torch.sum(recall_at_k(scores, comp, k=k) * mask),
+                "correct1": torch.sum(recall_at_k(scores, comp, k=1) * mask)}
+
+    return eval_step
+
+
+def eval_model(eval_step, features, arrays: vqacx.CXArrays,
+               batch_size: int, *, q_table=None, v_table=None,
+               z_table=None) -> dict:
+    """Full-dataset eval -> {'loss', 'recall', 'recall_1'}.  The per-batch
+    sums stay on the device; one synchronisation at the end."""
+    sums = []
+    n_total = 0
+    for idx, n_valid in vqacx.batch_indices(arrays.size, batch_size,
+                                            shuffle=False):
+        batch = batch_to_device(vqacx.gather_batch(arrays, idx),
+                                features.device)
+        sums.append(eval_step(features, batch, n_valid, q_table=q_table,
+                              v_table=v_table, z_table=z_table))
+        n_total += n_valid
+    totals = {key: float(sum(s[key] for s in sums).item())
+              for key in ("loss_sum", "correct", "correct1")}
+    return {"loss": totals["loss_sum"] / n_total,
+            "recall": totals["correct"] / n_total,
+            "recall_1": totals["correct1"] / n_total}

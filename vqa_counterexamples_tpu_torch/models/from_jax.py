@@ -1,0 +1,74 @@
+"""Carry weights from the JAX package's param trees into this port (the
+counterpart of ``vqa_counterexamples_tpu/models/port_torch.py``).
+
+The input is a flax param tree with numpy (or array-like) leaves; the
+output is a ``state_dict`` with the reference attribute names this port's
+modules use, so ``module.load_state_dict(...)`` takes it as is, and
+``port_torch.port_cx_state_dict`` reads it back into the flax tree.
+
+Layout conversions: flax ``Dense`` kernel (in, out) -> ``nn.Linear.weight``
+(out, in); the fused MUTAN ``w_hv`` (din, R*dmm) -> per-rank
+``list_linear_hv.{r}`` Linears; GRU ``w_ih`` (D, 3H) / ``w_hh`` (H, 3H)
+-> ``gru_cell.weight_ih`` (3H, D) / ``weight_hh`` (3H, H), gate order
+r, z, n unchanged.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _field(tree, name):
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def _linear(sd: dict, prefix: str, kernel, bias) -> None:
+    sd[prefix + ".weight"] = _t(kernel).t().contiguous()
+    sd[prefix + ".bias"] = _t(bias)
+
+
+def vqa_state_dict_from_jax(params: dict, prefix: str = "") -> dict:
+    """MutanNoAtt (skip-thoughts encoder) param tree -> state_dict."""
+    sd = {}
+    s2v = params["seq2vec"]
+    sd[prefix + "seq2vec.embedding.weight"] = _t(s2v["embedding"])
+    gru = s2v["gru"]
+    cell = prefix + "seq2vec.gru_cell."
+    sd[cell + "weight_ih"] = _t(_field(gru, "w_ih")).t().contiguous()
+    sd[cell + "bias_ih"] = _t(_field(gru, "b_ih"))
+    sd[cell + "weight_hh"] = _t(_field(gru, "w_hh")).t().contiguous()
+    sd[cell + "bias_hh"] = _t(_field(gru, "b_hh"))
+
+    fus = params["fusion_module"]
+    for side in ("v", "q"):
+        lin = fus["linear_" + side]
+        _linear(sd, prefix + "fusion.linear_" + side, lin["kernel"],
+                lin["bias"])
+        w, b = np.asarray(fus["w_h" + side]), np.asarray(fus["b_h" + side])
+        dmm = np.asarray(params["linear_classif"]["kernel"]).shape[0]
+        for r in range(w.shape[1] // dmm):
+            cols = slice(r * dmm, (r + 1) * dmm)
+            _linear(sd, prefix + "fusion.list_linear_h%s.%d" % (side, r),
+                    w[:, cols], b[cols])
+    cls = params["linear_classif"]
+    _linear(sd, prefix + "linear_classif", cls["kernel"], cls["bias"])
+    return sd
+
+
+def cx_state_dict_from_jax(params: dict) -> dict:
+    """NeuralModel param tree (with the nested ``vqa_model``) ->
+    state_dict."""
+    sd = vqa_state_dict_from_jax(params["vqa_model"], prefix="vqa_model.")
+    sd["answer_embedding.weight"] = _t(params["answer_embedding"])
+    layer = 1
+    while "linear_%d_w" % layer in params:
+        _linear(sd, "linear_%d" % layer, params["linear_%d_w" % layer],
+                params["linear_%d_b" % layer])
+        layer += 1
+    _linear(sd, "out", params["out_w"], params["out_b"])
+    return sd

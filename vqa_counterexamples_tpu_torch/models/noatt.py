@@ -1,0 +1,63 @@
+"""MutanNoAtt VQA backbone, eval mode (port of ``models/noatt.py``).
+
+question -> seq2vec -> MUTAN fusion with the pooled visual features ->
+classifier over the answer vocabulary.  The pieces are exposed as methods
+because the CX models drive them separately.  Attribute names follow the
+reference checkpoint: ``seq2vec``, ``fusion``, ``linear_classif``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..core.policy import cast_in, pdot
+from . import fusion as fusion_mod
+from . import seq2vec as seq2vec_mod
+
+
+class MutanNoAtt(nn.Module):
+    def __init__(self, opt: dict, vocab_words, vocab_answers):
+        super().__init__()
+        self.opt = opt
+        self.vocab_words = tuple(vocab_words)
+        self.vocab_answers = tuple(vocab_answers)
+        self.seq2vec = seq2vec_mod.factory(self.vocab_words, opt["seq2vec"])
+        self.fusion = fusion_mod.MutanFusion(opt["fusion"])
+        self.linear_classif = nn.Linear(opt["fusion"]["dim_mm"],
+                                        len(self.vocab_answers))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.seq2vec.reset_parameters(generator)
+        self.fusion.reset_parameters(generator)
+        fusion_mod.lecun_normal_(self.linear_classif.weight, generator)
+        self.linear_classif.bias.zero_()
+
+    def encode_question(self, input_q: torch.Tensor) -> torch.Tensor:
+        return self.seq2vec(input_q)
+
+    def project_image(self, input_v: torch.Tensor) -> torch.Tensor:
+        """Image-only half of the fusion: a constant per image under a
+        frozen backbone (``engines/cx_engine.precompute_v_proj``)."""
+        return self.fusion.v_project(input_v)
+
+    def fuse_candidates(self, input_v, x_q: torch.Tensor,
+                        v_proj: torch.Tensor | None = None) -> torch.Tensor:
+        return self.fusion.fuse_candidates(input_v, x_q, hv=v_proj)
+
+    def classify(self, z: torch.Tensor) -> torch.Tensor:
+        """Answer logits (f32).  The head follows the compute policy: bf16
+        GEMM and bias add under bf16 (flax ``Dense(dtype=policy)``)."""
+        opt_c = self.opt["classif"]
+        x = z
+        if "activation" in opt_c:
+            x = fusion_mod.activation(opt_c["activation"])(x)
+        out = pdot(x, self.linear_classif.weight.t()) \
+            + cast_in(self.linear_classif.bias)
+        return out.float()
+
+    def classif_params(self):
+        """(weight (A, dz), bias (A,)) of the answer head, for the fused
+        classify + softmax kernel."""
+        return self.linear_classif.weight, self.linear_classif.bias

@@ -1,0 +1,36 @@
+"""Metrics: recall@K over candidate rankings, CE sums, distances (port of
+``ops/metrics.py``).  All return tensors on the input's device."""
+
+from __future__ import annotations
+
+import torch
+
+
+def recall_at_k(scores: torch.Tensor, ground_truth: torch.Tensor,
+                k: int = 5) -> torch.Tensor:
+    """Per-example 0/1 (f32): is the ground-truth index within the top-k
+    scores?  scores (B, C); ground_truth (B,) int."""
+    top_idx = torch.topk(scores, k, dim=1).indices
+    hit = (top_idx == ground_truth[:, None].long()).any(dim=1)
+    return hit.to(torch.float32)
+
+
+def cross_entropy_sum(logits: torch.Tensor,
+                      labels: torch.Tensor) -> torch.Tensor:
+    """Summed (not averaged) softmax cross-entropy (reference
+    ``nn.CrossEntropyLoss(size_average=False)``)."""
+    return nll(logits, labels).sum()
+
+
+def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row negative log-likelihood of ``labels`` under softmax(logits)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels[:, None].long())[:, 0]
+
+
+def pairwise_distance(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-6,
+                      keepdims: bool = True) -> torch.Tensor:
+    """Euclidean distance along the last axis (torch F.pairwise_distance
+    semantics: eps inside the norm)."""
+    d = torch.sqrt(torch.sum((a - b + eps) ** 2, dim=-1))
+    return d[..., None] if keepdims else d
