@@ -4,22 +4,32 @@
 
 Run from the root of a checkout.  It imports only the port
 (``vqa_counterexamples_tpu_torch``), never JAX, and runs under the bf16
-policy, where the port's three CUDA kernels are on the path.  Any failure
+policy, where the port's four CUDA kernels are on the path.  Any failure
 ends the run with a nonzero exit and no result line.
 
-1. Kernels vs plain: builds every kernel from ``csrc/`` (nvcc, sm_90a),
-   runs it at the shapes the slice gives it and holds it against its plain
-   PyTorch version on the same inputs, with the stated tolerances; times
-   both with CUDA events after a warm-up.
-2. The slice at the flagship width (bench.py's configuration: dim_v 2048,
+1. Kernels vs plain: builds every kernel library from ``csrc/`` (nvcc,
+   sm_90a, one process per source, all at once), runs each kernel at the
+   shapes the main path gives it and holds it against its plain PyTorch
+   version on the same inputs, with the stated tolerances (the vfeat
+   backward also against itself: reruns are bit-equal); times both with
+   CUDA events after a warm-up.
+2. Scoring at the flagship width (bench.py's configuration: dim_v 2048,
    K 24, BayesianUniSkip 620 -> 2400, MUTAN R 10 at 360, 2000 answers,
    NeuralCX 300 x 2, B 768; synthetic 2048 examples over 1024 images, random
    weights from a seed): builds the q/v/z caches, makes the tables
    bf16-resident and scores every example.  The kernels' launch counters
    are zeroed just before and must all have moved; one batch's scores are
    held against the same computation through the plain versions.
-3. The CLI: ``cli.counterexamples.main([... --synthetic 2048 --z_cache
-   --epochs 0 --test])`` in a temporary directory.
+3. Training at the flagship width (dropout 0.25, Adam at 1e-4): the
+   caches, then 2 epochs of ``train_epoch`` with a per-epoch
+   ``eval_model``, counted: the vfeat forward, vfeat backward and mixture
+   counters must move once per step (plus the eval batches), every loss
+   must be finite; one step's gradients through the kernels are held
+   against the same step through the plain versions (dropout off); then
+   the warm train rate.
+4. The CLI: ``cli.counterexamples.main([... --synthetic 2048 --z_cache
+   --epochs 1 --test -b 768])`` in a temporary directory: the checkpoint
+   files and ``best_epoch``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -31,6 +41,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 os.environ["VQACX_COMPUTE_DTYPE"] = "bfloat16"
 
@@ -44,16 +55,31 @@ TOL = {
     # vfeat: bf16 GEMM outputs (tests/test_vfeat_kernel.py); dist is f32
     "vfeat_h": dict(atol=3e-2, rtol=3e-2),
     "vfeat_dist": dict(atol=1e-4, rtol=1e-4),
+    # vfeat backward: f32 sums over B*K = 18432 rows, in another order
+    # than the plain f32 GEMM (g ~ 1e-2, |dW| up to about 6)
+    "vfeat_bwd": dict(atol=1e-4, rtol=1e-4),
     # mixture probs (tests/test_fused_head.py)
     "mixture": dict(atol=2e-3, rtol=2e-2),
     # NeuralCX scores, kernel path vs plain path (tests/test_fused_head.py)
     "scores": dict(atol=5e-2, rtol=5e-2),
+    # one train step's grads, kernel path vs plain path, relative to each
+    # tensor's largest entry: the vfeat weight grads are f32 sums rounded
+    # once to bf16 on both paths, in another order (one bf16 step, 2^-8)
+    "grads_rel": 2e-2,
 }
+KERNELS = ("gru", "vfeat", "vfeat_bwd", "mixture")
+SOURCES = {"gru": "gru", "vfeat": "vfeat", "vfeat_bwd": "vfeat",
+           "mixture": "mixture"}
 REPLACES = {
     "gru": "vqa_counterexamples_tpu/ops/pallas/gru_kernel.py:183",
     "vfeat": "vqa_counterexamples_tpu/ops/pallas/vfeat_kernel.py:203",
+    "vfeat_bwd": "vqa_counterexamples_tpu/ops/pallas/vfeat_kernel.py:166",
     "mixture": "vqa_counterexamples_tpu/ops/pallas/mixture_kernel.py:58",
 }
+# H100 SXM5 published peaks (NVIDIA data sheet): dense bf16 tensor cores,
+# HBM3 bandwidth
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def log(*args):
@@ -85,6 +111,14 @@ def check_close(name, got, ref, tol):
     return max_abs
 
 
+def bound(flops, nbytes):
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over the bf16 peak and the bytes over the HBM rate."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def time_ms(fn, reps=5):
     fn()
     torch.cuda.synchronize()
@@ -98,19 +132,30 @@ def time_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def phase_kernels(dev, card):
-    from vqa_counterexamples_tpu_torch.ops.cuda import (
-        build, gru_kernel, mixture_kernel, vfeat_kernel)
+def build_all():
+    """Build every kernel library from the sources, one nvcc each, all at
+    once."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import build
 
-    log("== phase 1: kernels vs plain at the slice's shapes")
-    for name in ("gru", "vfeat", "mixture"):
-        t0 = time.perf_counter()
-        path = build.build(name)
-        log("  built %s in %.1f s: %s" % (name, time.perf_counter() - t0,
-                                         path.name))
+    names = sorted(set(SOURCES.values()))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = dict(zip(names, pool.map(build.build, names)))
+    log("  built %s in %.1f s (in parallel)"
+        % (", ".join(p.name for p in paths.values()),
+           time.perf_counter() - t0))
+    for name, path in paths.items():
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
-                log("    " + line.strip())
+                log("    %s: %s" % (name, line.strip()))
+
+
+def phase_kernels(dev, card):
+    from vqa_counterexamples_tpu_torch.ops.cuda import (
+        gru_kernel, mixture_kernel, vfeat_kernel)
+
+    log("== phase 1: kernels vs plain at the main path's shapes")
+    build_all()
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
@@ -118,19 +163,22 @@ def phase_kernels(dev, card):
                 * scale).to(dtype)
 
     rows = {}
-    # A: GRU recurrence, q-cache build chunk
+    # A: GRU recurrence, the q-cache build (one call for 2048 questions)
     T, B, H = 26, 2048, 2400
     xp, w_hh = randn(T, B, 3 * H), randn(3 * H, H, scale=H ** -0.5)
     b_hh = randn(3 * H, scale=0.1, dtype=torch.float32)
     got, _ = gru_kernel.gru_recurrence(xp, w_hh, b_hh)
     ref, _ = gru_kernel.gru_recurrence_plain(xp, w_hh, b_hh)
     err = check_close("gru", got, ref, TOL["gru"])
-    rows["gru"] = (err,
-                   time_ms(lambda: gru_kernel.gru_recurrence(xp, w_hh, b_hh)),
-                   time_ms(lambda: gru_kernel.gru_recurrence_plain(
-                       xp, w_hh, b_hh)))
+    rows["gru"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: gru_kernel.gru_recurrence(xp, w_hh, b_hh)),
+        plain_ms=time_ms(lambda: gru_kernel.gru_recurrence_plain(
+            xp, w_hh, b_hh)),
+        work=(2 * T * B * H * 3 * H,
+              (T * B * 3 * H + 3 * H * H + T * B * H) * 2 + 3 * H * 4))
     del xp, got, ref
-    # B: candidate image features, one scoring batch
+    # B: candidate image features, one train / eval batch, both directions
     N, DV, B, K, HID = 1024, 2048, 768, 24, 300
     table = randn(N, DV)
     idx = torch.randint(0, N, (B, K + 1), generator=gen, device=dev,
@@ -141,25 +189,49 @@ def phase_kernels(dev, card):
     h2, d2 = vfeat_kernel.vfeat_scores_plain(table, idx, w_o, w_m)
     err = max(check_close("vfeat h", h1, h2, TOL["vfeat_h"]),
               check_close("vfeat dist", d1, d2, TOL["vfeat_dist"]))
-    rows["vfeat"] = (err,
-                     time_ms(lambda: vfeat_kernel.vfeat_scores(
-                         table, idx, w_o, w_m)),
-                     time_ms(lambda: vfeat_kernel.vfeat_scores_plain(
-                         table, idx, w_o, w_m)))
+    rows["vfeat"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: vfeat_kernel.vfeat_scores(table, idx, w_o, w_m)),
+        plain_ms=time_ms(lambda: vfeat_kernel.vfeat_scores_plain(
+            table, idx, w_o, w_m)),
+        work=(4 * B * K * DV * HID,
+              N * DV * 2 + B * (K + 1) * 4 + 2 * HID * DV * 2
+              + B * K * HID * 2 + B * K * 4))
+    g = randn(B, K, HID, scale=1e-2)
+    dwo, dwm = vfeat_kernel.vfeat_weight_grads(table, idx, g)
+    ro, rm = vfeat_kernel.vfeat_weight_grads_plain(table, idx, g)
+    err = max(check_close("vfeat dWo", dwo, ro, TOL["vfeat_bwd"]),
+              check_close("vfeat dWm", dwm, rm, TOL["vfeat_bwd"]))
+    again = vfeat_kernel.vfeat_weight_grads(table, idx, g)
+    if not (torch.equal(dwo, again[0]) and torch.equal(dwm, again[1])):
+        raise AssertionError("vfeat_bwd: a rerun on the same inputs "
+                             "differs")
+    log("  vfeat_bwd  rerun on the same inputs: bit-equal")
+    rows["vfeat_bwd"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: vfeat_kernel.vfeat_weight_grads(table, idx, g)),
+        plain_ms=time_ms(lambda: vfeat_kernel.vfeat_weight_grads_plain(
+            table, idx, g)),
+        work=(4 * B * K * DV * HID,
+              N * DV * 2 + B * (K + 1) * 4 + B * K * HID * 2
+              + 2 * HID * DV * 4))
     # C: answer head + softmax over every candidate row of a batch
-    M, DZ, A = 18432, 360, 2000
+    M, DZ, A = B * K, 360, 2000
     z, w_cls, b_cls = randn(M, DZ), randn(A, DZ, scale=DZ ** -0.5), randn(A)
     p1 = mixture_kernel.classify_softmax(z, w_cls, b_cls)
     p2 = mixture_kernel.classify_softmax_plain(z, w_cls, b_cls)
     err = check_close("mixture", p1, p2, TOL["mixture"])
-    rows["mixture"] = (err,
-                       time_ms(lambda: mixture_kernel.classify_softmax(
-                           z, w_cls, b_cls)),
-                       time_ms(lambda: mixture_kernel.classify_softmax_plain(
-                           z, w_cls, b_cls)))
-    for name, (_, ms, plain_ms) in rows.items():
-        log("  %-8s kernel %.3f ms  plain %.3f ms  (%s)"
-            % (name, ms, plain_ms, card))
+    rows["mixture"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: mixture_kernel.classify_softmax(z, w_cls, b_cls)),
+        plain_ms=time_ms(lambda: mixture_kernel.classify_softmax_plain(
+            z, w_cls, b_cls)),
+        work=(2 * M * DZ * A, (M * DZ + A * DZ + A + M * A) * 2))
+    for name, row in rows.items():
+        row["bound_ms"], row["bound_by"] = bound(*row.pop("work"))
+        log("  %-9s kernel %.3f ms  plain %.3f ms  bound %.4f ms (%s)  (%s)"
+            % (name, row["ms"], row["plain_ms"], row["bound_ms"],
+               row["bound_by"], card))
     return rows
 
 
@@ -169,6 +241,7 @@ def counters():
 
     return {"gru": gru_kernel.gru_recurrence,
             "vfeat": vfeat_kernel.vfeat_scores,
+            "vfeat_bwd": vfeat_kernel.vfeat_weight_grads,
             "mixture": mixture_kernel.classify_softmax}
 
 
@@ -206,21 +279,11 @@ class plain_kernels:
 
 
 def flagship_model(dataset, dev):
-    from vqa_counterexamples_tpu_torch.data import synthetic
     from vqa_counterexamples_tpu_torch.engines import cx_engine
     from vqa_counterexamples_tpu_torch.models import factory
 
-    opt = synthetic.tiny_vqa_options(dim_v=2048, nans=2000, dim_q=2400)
-    opt["seq2vec"] = {"arch": "skipthoughts", "type": "BayesianUniSkip",
-                      "dropout": 0.25, "fixed_emb": False}
-    opt["fusion"].update(dim_hv=360, dim_hq=360, dim_mm=360, R=10)
-    vqa = factory.factory_vqa(opt, dataset["vocab_words"],
-                              dataset["vocab_answers"])
-    spec = dict(dim_h=300, n_layers=2, drop_p=0.25, v_emb=True, v_mult=True,
-                v_dist=True, v_rank=True, q_emb=True, a_emb=True, z_emb=True,
-                pretrained_emb=False, trainable_vqa=False)
-    model = factory.factory_cx("NeuralModel", vqa, knn_size=24,
-                               model_spec=spec)
+    model = factory.flagship_cx(dataset["vocab_words"],
+                                dataset["vocab_answers"])
     return cx_engine.init_cx_params(model, seed=SEED).to(dev)
 
 
@@ -257,8 +320,8 @@ def phase_slice(dev, card):
                                q_table=q, z_table=z)
     eval_s = time.perf_counter() - t1
     launches = read_counters()
-    log("  launches on the main path: %s" % launches)
-    if min(launches.values()) <= 0:
+    log("  launches on the scoring path: %s" % launches)
+    if min(launches[k] for k in ("gru", "vfeat", "mixture")) <= 0:
         raise AssertionError("a kernel of the path never launched: %s"
                              % launches)
     log("  results: %s" % res)
@@ -303,28 +366,148 @@ def phase_slice(dev, card):
     log("  eval %.1f examples/s (warm, mean of %d passes over %d examples,"
         " B=%d; %s)" % (arrays.size / warm_s, reps, arrays.size, batch_size,
                         card))
+    return launches, (arrays, model, features)
+
+
+def step_grads(model, feats, batch, n_valid, q, z):
+    """One train step's loss and gradients (no update) -> {name: grad}."""
+    from vqa_counterexamples_tpu_torch.core import rng
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+    from vqa_counterexamples_tpu_torch.ops.metrics import nll
+
+    gens = rng.step_generators(SEED, 0, ("dropout", "lesion"), feats.device)
+    model.train()
+    scores = model(None, batch["question_wids"], batch["answer_aids"],
+                   features_table=feats, image_idxs=batch["image_idxs"],
+                   dropout_gen=gens["dropout"], lesion_gen=gens["lesion"],
+                   **cx_engine.cache_kwargs(batch, q, None, z))
+    mask = (torch.arange(scores.shape[0], device=scores.device)
+            < n_valid).float()
+    loss = torch.sum(nll(scores, batch["comp_idxs"]) * mask) / n_valid
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    return {n: p.grad.detach().clone()
+            for n, p in cx_engine.trainable_parameters(model)}
+
+
+def phase_train(dev, card, ctx):
+    from vqa_counterexamples_tpu_torch.data import vqacx
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+    log("== phase 3: training at the flagship width")
+    arrays, model, features = ctx
+    batch_size, epochs = 768, 2
+    val = vqacx.CXArrays(*(a[:batch_size] for a in arrays))
+    state = cx_engine.init_cx_state(model, lr=1e-4)
+    train_step = cx_engine.make_cx_train_step(model, state.optimizer,
+                                              base_seed=SEED,
+                                              use_z_cache=True)
+    eval_step = cx_engine.make_cx_eval_step(model, use_z_cache=True)
+    losses, evals = [], []
+    torch.cuda.synchronize()
+
+    # --- the main path, counted ---
+    reset_counters()
+    q, _, z, _ = cx_engine.build_frozen_caches(
+        model, features, arrays, use_q=True, use_v=False, use_z=True)
+    feats_bf, q, _, z = cx_engine.make_tables_bf16_resident(features, q,
+                                                           None, z)
+
+    def run_eval(_state):
+        evals.append(cx_engine.eval_model(eval_step, feats_bf, val,
+                                          batch_size, q_table=q, z_table=z))
+        return evals[-1]
+
+    rng = np.random.default_rng(SEED)
+    for epoch in range(1, epochs + 1):
+        state, res = cx_engine.train_epoch(
+            train_step, state, feats_bf, arrays, batch_size, rng=rng,
+            log_fn=lambda b, m: losses.append(m["loss"]), print_freq=1,
+            eval_fn=run_eval, q_table=q, z_table=z)
+        log("  epoch %d: val %s" % (epoch, res))
+    torch.cuda.synchronize()
+    launches = read_counters()
+    steps = state.step
+    eval_batches = len(evals) * -(-val.size // batch_size)
+    log("  %d steps, %d eval batches; launches on the training path: %s"
+        % (steps, eval_batches, launches))
+    want = {"gru": 1, "vfeat": steps + eval_batches, "vfeat_bwd": steps,
+            "mixture": steps + eval_batches}
+    if launches != want:
+        raise AssertionError("launch counts %s, expected %s"
+                             % (launches, want))
+    log("  losses: %s" % ["%.4f" % x for x in losses])
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError("non-finite or missing losses %s" % losses)
+
+    # --- one step's grads: kernel path vs the plain versions, dropout off ---
+    idx, n_valid = next(vqacx.batch_indices(arrays.size, batch_size,
+                                            shuffle=False))
+    batch = cx_engine.batch_to_device(vqacx.gather_batch(arrays, idx), dev)
+    model.drop_p, drop_p = 0.0, model.drop_p
+    got = step_grads(model, feats_bf, batch, n_valid, q, z)
+    with plain_kernels():
+        ref = step_grads(model, feats_bf, batch, n_valid, q, z)
+    model.drop_p = drop_p
+    worst = 0.0
+    # out.bias shifts all K scores alike, which the K-way CE cannot see:
+    # its gradient is 0 up to rounding on both paths
+    for name in (n for n in got if n != "out.bias"):
+        scale = ref[name].abs().max().item()
+        err = (got[name] - ref[name]).abs().max().item() / max(scale, 1e-30)
+        worst = max(worst, err)
+        if not (torch.isfinite(got[name]).all() and err <= TOL["grads_rel"]):
+            raise AssertionError("grad %s: kernel path vs plain path, max "
+                                 "error %.3e of the largest entry" % (name,
+                                                                      err))
+    log("  grads of %d tensors: kernel path vs plain path, worst max error "
+        "%.3e of the largest entry (bound %g): ok"
+        % (len(got) - 1, worst, TOL["grads_rel"]))
+
+    # --- the warm train rate ---
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        state, _ = cx_engine.train_epoch(train_step, state, feats_bf, arrays,
+                                         batch_size, rng=rng, q_table=q,
+                                         z_table=z)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_steps = reps * -(-arrays.size // batch_size)
+    log("  train %.1f examples/s, %.3f ms per step (warm, %d epochs of %d "
+        "examples, B=%d, dropout %.2f; %s)"
+        % (reps * arrays.size / secs, secs / n_steps * 1e3, reps,
+           arrays.size, batch_size, drop_p, card))
     return launches
 
 
 def phase_cli(dev):
     from vqa_counterexamples_tpu_torch.cli import counterexamples
 
-    log("== phase 3: the CLI")
+    log("== phase 4: the CLI")
     reset_counters()
     with tempfile.TemporaryDirectory() as tmp:
         counterexamples.main(["--cx_model", "NeuralModel", "--synthetic",
-                              "2048", "--z_cache", "--epochs", "0", "--test",
+                              "2048", "--z_cache", "--epochs", "1", "--test",
                               "-b", "768", "--seed", str(SEED),
                               "--device", str(dev), "--project_dir", tmp])
         (run,) = os.listdir(os.path.join(tmp, "logs", "cx"))
-        path = os.path.join(tmp, "logs", "cx", run, "final_results.txt")
-        with open(path) as f:
+        run_dir = os.path.join(tmp, "logs", "cx", run)
+        files = sorted(os.path.join(sub, name) for sub in ("ckpt", "best")
+                       for name in os.listdir(os.path.join(run_dir, sub)))
+        with open(os.path.join(run_dir, "final_results.txt")) as f:
             res = json.load(f)
     launches = read_counters()
-    log("  final_results.txt: %s; launches %s" % (res, launches))
+    log("  checkpoint files %s; final_results.txt: %s; launches %s"
+        % (files, res, launches))
+    if files != ["best/info.ckpt", "best/model.ckpt", "ckpt/info.ckpt",
+                 "ckpt/model.ckpt"]:
+        raise AssertionError("checkpoint files %s" % files)
     if min(launches.values()) <= 0:
         raise AssertionError("the CLI run missed a kernel: %s" % launches)
-    if not (np.isfinite(res["loss"]) and 0.0 <= res["recall"] <= 1.0):
+    if not (np.isfinite(res["loss"]) and 0.0 <= res["recall"] <= 1.0
+            and res["best_epoch"] == 1):
         raise AssertionError("bad CLI results %s" % res)
 
 
@@ -339,15 +522,16 @@ def main():
                                           torch.version.cuda))
     t0 = time.perf_counter()
     rows = phase_kernels(dev, card)
-    launches = phase_slice(dev, card)
+    _, ctx = phase_slice(dev, card)
+    launches = phase_train(dev, card, ctx)
     phase_cli(dev)
     log("total %.1f s" % (time.perf_counter() - t0))
-    kernels = [{"name": name, "route": "cuda",
-                "source": "vqa_counterexamples_tpu_torch/csrc/%s.cu" % name,
-                "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": rows[name][0], "ms": rows[name][1],
-                "plain_ms": rows[name][2]} for name in ("gru", "vfeat",
-                                                        "mixture")]
+    # launches: the training path's (phase 3), which runs all four
+    kernels = [dict(name=name, route="cuda",
+                    source="vqa_counterexamples_tpu_torch/csrc/%s.cu"
+                    % SOURCES[name], replaces=REPLACES[name],
+                    launches=launches[name], library_ms=None, **rows[name])
+               for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small ragged shapes (edges that the slice's shapes do not reach: batch
-and hidden sizes off the tile multiples, unaligned widths, a dropout mask).
+and hidden sizes off the tile multiples, unaligned widths, a dropout mask)
+and, for the vfeat backward, at the flagship shape too.
 
 Marked ``cuda``: they skip where no card is visible.  On a host with a card
 and no JAX (the tests' conftest imports jax), run them as
@@ -60,6 +61,80 @@ def test_vfeat_kernel_matches_plain(dev, n_rows, dim_v, batch, knn, dim_h):
     torch.cuda.synchronize()
     torch.testing.assert_close(h1.float(), h2.float(), atol=3e-2, rtol=3e-2)
     torch.testing.assert_close(d1, d2, atol=1e-4, rtol=1e-4)
+
+
+def _vfeat_bwd_inputs(dev, n_rows, dim_v, batch, knn, dim_h):
+    gen = torch.Generator().manual_seed(dim_v + batch)
+    table = _randn(gen, dev, n_rows, dim_v)
+    idx = torch.randint(0, n_rows, (batch, knn + 1), generator=gen).to(
+        torch.int32).to(dev)
+    g = _randn(gen, dev, batch, knn, dim_h, scale=1e-2)
+    return table, idx, g
+
+
+# f32 sums over B*K rows in another order than the plain f32 GEMM: the
+# bound is relative to the largest gradient entry
+def _assert_grads_close(got, ref, rel=1e-4):
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    assert err <= rel * scale, (err, scale)
+
+
+@pytest.mark.parametrize("n_rows,dim_v,batch,knn,dim_h", [
+    (40, 40, 5, 6, 20), (50, 36, 3, 24, 70), (100, 128, 71, 23, 300),
+    (1024, 2048, 768, 24, 300)])
+def test_vfeat_bwd_kernel_matches_plain(dev, n_rows, dim_v, batch, knn,
+                                        dim_h):
+    table, idx, g = _vfeat_bwd_inputs(dev, n_rows, dim_v, batch, knn, dim_h)
+    before = vfeat_kernel.vfeat_weight_grads.launches
+    dwo, dwm = vfeat_kernel.vfeat_weight_grads(table, idx, g)
+    ro, rm = vfeat_kernel.vfeat_weight_grads_plain(table, idx, g)
+    torch.cuda.synchronize()
+    assert vfeat_kernel.vfeat_weight_grads.launches == before + 1
+    assert dwo.dtype == torch.float32 and dwo.shape == (dim_h, dim_v)
+    _assert_grads_close(dwo, ro)
+    _assert_grads_close(dwm, rm)
+    # a fixed reduction order: the same inputs give the same bits
+    dwo2, dwm2 = vfeat_kernel.vfeat_weight_grads(table, idx, g)
+    assert torch.equal(dwo, dwo2) and torch.equal(dwm, dwm2)
+
+
+def test_vfeat_function_grads_match_plain_autograd(dev):
+    """The autograd Function (both kernels) against autograd through the
+    plain forward: the weight grads reach the f32 leaves the same way.
+    Both round an f32 sum to bf16 once; the sums' order differs, so an
+    entry may land one bf16 step apart."""
+    table, idx, g = _vfeat_bwd_inputs(dev, 100, 256, 33, 24, 300)
+    gen = torch.Generator().manual_seed(3)
+    leaves = [(torch.randn(300, 256, generator=gen) * 0.05).to(dev)
+              .requires_grad_() for _ in range(2)]
+    grads = []
+    for fn in (vfeat_kernel.vfeat_scores, vfeat_kernel.vfeat_scores_plain):
+        h, dist = fn(table, idx, *(w.to(torch.bfloat16) for w in leaves))
+        assert not dist.requires_grad
+        (h.float() * g.float()).sum().backward()
+        grads.append([w.grad.clone() for w in leaves])
+        for w in leaves:
+            w.grad = None
+    torch.cuda.synchronize()
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, atol=1e-2 * ref.abs().max(),
+                                   rtol=1e-2)
+
+
+def test_forward_only_wrappers_refuse_grad(dev):
+    w = torch.zeros(6, 2, dtype=torch.bfloat16, device=dev,
+                    requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        gru_kernel.gru_recurrence(
+            torch.zeros(2, 3, 6, dtype=torch.bfloat16, device=dev), w,
+            torch.zeros(6, device=dev))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        mixture_kernel.classify_softmax(
+            torch.zeros(3, 4, dtype=torch.bfloat16, device=dev),
+            torch.zeros(7, 4, dtype=torch.bfloat16, device=dev,
+                        requires_grad=True),
+            torch.zeros(7, dtype=torch.bfloat16, device=dev))
 
 
 @pytest.mark.parametrize("rows,dim_z,n_ans", [

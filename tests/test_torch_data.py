@@ -109,6 +109,8 @@ def test_port_import_leaves_jax_out():
             "import vqa_counterexamples_tpu_torch.models.factory\n"
             "import vqa_counterexamples_tpu_torch.models.from_jax\n"
             "import vqa_counterexamples_tpu_torch.core.config\n"
+            "import vqa_counterexamples_tpu_torch.core.rng\n"
+            "import vqa_counterexamples_tpu_torch.core.checkpoint\n"
             "import vqa_counterexamples_tpu_torch.data.synthetic\n"
             "c.build_parser()\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

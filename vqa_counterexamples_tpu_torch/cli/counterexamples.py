@@ -1,17 +1,21 @@
 """CX CLI (port of ``cli/counterexamples.py``): same flags, same run-dir
 layout (``logs/cx/<run>/{ckpt,best}``, ``runs/<run>/{train,val}``).
 
-This slice of the port runs the scoring path: build the frozen-backbone
-q/v/z caches, then score every test example's candidates and report loss,
-recall@5 and recall@1 in ``final_results.txt``::
+Trains NeuralCX over the frozen backbone: build the frozen-backbone q/v/z
+caches, run ``--epochs`` epochs (per-epoch val, the best epoch by recall
+kept in ``best/``, the last in ``ckpt/``), then with ``--test`` load the
+best checkpoint and score every test example's candidates, writing loss,
+recall@5, recall@1 and ``best_epoch`` to ``final_results.txt``::
 
     python -m vqa_counterexamples_tpu_torch.cli.counterexamples \\
-        --cx_model NeuralModel --synthetic 2048 --z_cache --epochs 0 --test
+        --cx_model NeuralModel --synthetic 2048 --z_cache --epochs 2 --test
 
-Training (``--epochs > 0``), ``--pairwise``, ``--mesh``, ``--distributed``,
-``--resume``, ``--init_params``, ``--viz`` and non-synthetic data raise
-``NotImplementedError`` (see ROADMAP.md for when they come).  The device is
-``cuda`` when a card is visible; ``--device cpu`` forces the CPU.
+``--resume <run>`` continues a run from its ``ckpt/`` (``--best``: from
+``best/``).  ``--epochs 0 --test`` only scores.  ``--scan_steps > 1``,
+``--pairwise``, ``--mesh``, ``--distributed``, ``--init_params``,
+``--viz`` and non-synthetic data raise ``NotImplementedError`` (see
+ROADMAP.md for when they come).  The device is ``cuda``; with no card
+visible the CLI refuses to run unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import json
 import os
 from datetime import datetime
 
+import numpy as np
 import torch
 
 
@@ -84,8 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="params file to graft over the initialized CX "
                              "params")
     parser.add_argument("--seed", type=int, default=42)
-    parser.add_argument("--device", type=str, default=None,
-                        help="torch device (default: cuda when available)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device (default cuda; cpu must be asked "
+                             "for)")
     return parser
 
 
@@ -112,6 +118,7 @@ def load_synthetic_data(args, n_examples):
 
 
 def main(argv=None):
+    from ..core import checkpoint as ckpt_lib
     from ..core import config as config_lib
     from ..core.experiment import ScalarWriter
     from ..data import vqacx
@@ -129,29 +136,37 @@ def main(argv=None):
     options = config_lib.resolve_options({}, args.path_opt, cli_overrides)
     options["vgenome"] = None
 
-    if options["optim"]["epochs"] > 0:
-        _not_ported("training (--epochs > 0)", "Queue 1 #4")
+    if args.scan_steps > 1:
+        _not_ported("--scan_steps > 1", "Queue 1: --scan_steps")
     for flag, item in (("pairwise", "Queue 1 #8"), ("mesh", "Queue 1 #12"),
                        ("distributed", "Queue 1 #12"),
-                       ("resume", "Queue 1 #6"), ("init_params", "Queue 1 #6"),
+                       ("init_params", "Queue 1: the msgpack bridge"),
                        ("viz", "Queue 1 #13")):
         if getattr(args, flag):
             _not_ported("--" + flag, item)
     if not args.synthetic:
         _not_ported("loading the real VQA-CX data", "Queue 1 #7")
 
-    device = torch.device(args.device or
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible: the port runs on the "
+                           "card; pass --device cpu to run on the CPU")
 
     # ---- run-dir bookkeeping ----
     if args.cx_model == "NeuralModel" and not args.comment:
         args.comment = options["cx_model"]["name"]
-    run_name = datetime.now().strftime("%b%d-%H-%M-%S")
-    if args.comment:
-        run_name += "_" + args.comment
-    save_dir = os.path.join(args.project_dir, "logs", "cx", run_name)
-    os.makedirs(os.path.join(save_dir, "ckpt"), exist_ok=True)
-    os.makedirs(os.path.join(save_dir, "best"), exist_ok=True)
+    if args.resume:
+        run_name = args.resume
+        save_dir = os.path.join(args.project_dir, "logs", "cx", run_name)
+        if not os.path.isdir(save_dir):
+            raise FileNotFoundError("no run to resume at %s" % save_dir)
+    else:
+        run_name = datetime.now().strftime("%b%d-%H-%M-%S")
+        if args.comment:
+            run_name += "_" + args.comment
+        save_dir = os.path.join(args.project_dir, "logs", "cx", run_name)
+        os.makedirs(os.path.join(save_dir, "ckpt"), exist_ok=True)
+        os.makedirs(os.path.join(save_dir, "best"), exist_ok=True)
     log_dir = os.path.join(args.project_dir, "runs", run_name)
     train_writer = ScalarWriter(os.path.join(log_dir, "train"))
     val_writer = ScalarWriter(os.path.join(log_dir, "val"))
@@ -164,6 +179,10 @@ def main(argv=None):
         args, args.synthetic)
     train_arrays = vqacx.CXArrays.from_examples(trainset["examples_list"],
                                                 f_train.name_to_index)
+    val_arrays = vqacx.CXArrays.from_examples(valset["examples_list"],
+                                              f_val.name_to_index)
+    features_train = f_train.to_device(device)
+    features_val = f_val.to_device(device)
 
     # ---- model ----
     print("=> Building model...")
@@ -178,38 +197,102 @@ def main(argv=None):
                                   model_spec=dict(options["cx_model"]))
     cx_engine.init_cx_params(cx_model, seed=args.seed)
     cx_model.to(device)
+    state = cx_engine.init_cx_state(cx_model, lr=options["optim"]["lr"])
     print("Built {} on {}".format(args.cx_model, device))
 
+    info = []
+    start_epoch = 1
+    best_recall = 0.0
+    if args.resume:
+        state, info, start_epoch, best_recall = ckpt_lib.load_cx_checkpoint(
+            state, save_dir, resume_best=args.best)
+
+    # ---- frozen-backbone caches ----
     use_q_cache = not trainable_vqa and not args.no_q_cache
     use_v_cache = not trainable_vqa and not args.no_v_cache
     use_z_cache = args.z_cache and use_q_cache and use_v_cache
     if args.z_cache and not use_z_cache:
         print("=> z-emb cache needs a frozen backbone with q+v caches; "
               "disabled")
+    n_epochs = options["optim"]["epochs"]
+    q_train = v_train = z_train = None
+    if start_epoch <= n_epochs:
+        q_train, v_train, z_train, stage_s = cx_engine.build_frozen_caches(
+            cx_model, features_train, train_arrays, use_q=use_q_cache,
+            use_v=use_v_cache, use_z=use_z_cache)
+        print("=> Train caches built: %s"
+              % {k: round(v, 3) for k, v in stage_s.items()})
+    q_val, v_val, z_val, _ = cx_engine.build_frozen_caches(
+        cx_model, features_val, val_arrays, use_q=use_q_cache,
+        use_v=use_v_cache, use_z=use_z_cache)
+
+    # ---- engines ----
+    batch_size = options["optim"]["batch_size"]
+    train_step = cx_engine.make_cx_train_step(
+        cx_model, state.optimizer, recall_k=5, base_seed=args.seed,
+        use_z_cache=use_z_cache)
     eval_step = cx_engine.make_cx_eval_step(cx_model, recall_k=5,
                                             use_z_cache=use_z_cache)
-    batch_size = options["optim"]["batch_size"]
 
-    # ---- final test (no epochs ran: best_epoch 0) ----
+    def run_eval(st):
+        return cx_engine.eval_model(eval_step, features_val, val_arrays,
+                                    batch_size, q_table=q_val, v_table=v_val,
+                                    z_table=z_val)
+
+    # ---- train loop ----
+    print("=> Starting training...")
+    rng = np.random.default_rng(args.seed)
+    epoch = None
+    for epoch in range(start_epoch, n_epochs + 1):
+        def log_fn(b, metrics, _epoch=epoch):
+            step = (_epoch - 1) * 10000 + b
+            for k, v in metrics.items():
+                train_writer.add_scalar(k, v, step)
+            print("Epoch {} train: {}".format(
+                _epoch, {k: round(v, 4) for k, v in metrics.items()}))
+
+        state, eval_results = cx_engine.train_epoch(
+            train_step, state, features_train, train_arrays, batch_size,
+            rng=rng, log_fn=log_fn, print_freq=args.print_freq,
+            eval_fn=run_eval, eval_freq=args.eval_freq, q_table=q_train,
+            v_table=v_train, z_table=z_train)
+        for k, v in eval_results.items():
+            val_writer.add_scalar(k, v, epoch)
+        print("Epoch {} val: {}".format(
+            epoch, {k: round(float(v), 4) for k, v in eval_results.items()}))
+        info.append({k: float(v) for k, v in eval_results.items()})
+        is_best = info[-1]["recall"] > best_recall
+        if is_best:
+            best_recall = info[-1]["recall"]
+        ckpt_lib.save_cx_checkpoint(state, info, save_dir, is_best=is_best)
+        print("{}Saved checkpoint to {}".format("* " if is_best else "",
+                                                save_dir))
+
+    # ---- final test on the best checkpoint ----
     if args.test:
-        features_val = f_val.to_device(device)
+        best_epoch = 0
+        if epoch is not None:
+            # the epoch the best checkpoint was taken at (the JAX CLI
+            # writes the epoch after it)
+            state, best_info, _, _ = ckpt_lib.load_cx_checkpoint(
+                state, save_dir, resume_best=True)
+            best_epoch = len(best_info)
         test_arrays = vqacx.CXArrays.from_examples(
             testset["examples_list"], f_val.name_to_index)
-        q_test, v_val, z_test, stage_s = cx_engine.build_frozen_caches(
+        q_test, _, z_test, _ = cx_engine.build_frozen_caches(
             cx_model, features_val, test_arrays, use_q=use_q_cache,
-            use_v=use_v_cache, use_z=use_z_cache)
-        print("=> Frozen-backbone caches built: %s"
-              % {k: round(v, 3) for k, v in stage_s.items()})
+            use_v=False, use_z=use_z_cache)
         test_results = cx_engine.eval_model(
             eval_step, features_val, test_arrays, batch_size,
             q_table=q_test, v_table=v_val, z_table=z_test)
-        test_results["best_epoch"] = 0
+        test_results["best_epoch"] = best_epoch
         with open(os.path.join(save_dir, "final_results.txt"), "w") as f:
             f.write(json.dumps(test_results))
-        print("FINAL RESULTS ON BEST EPOCH 0", test_results)
+        print("FINAL RESULTS ON BEST EPOCH {}".format(best_epoch),
+              test_results)
     train_writer.close()
     val_writer.close()
-    return []
+    return info
 
 
 if __name__ == "__main__":

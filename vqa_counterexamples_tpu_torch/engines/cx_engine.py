@@ -1,21 +1,31 @@
-"""CX scoring engine over the frozen-backbone caches (port of the scoring
-half of ``engines/cx_engine.py``).
+"""CX training and scoring engine over the frozen-backbone caches (port of
+``engines/cx_engine.py``).
 
 With the VQA backbone frozen, its outputs are constants of the CX model:
 the question embedding per example (``precompute_q_emb``, the GRU kernel),
 the image side of the fusion per image (``precompute_v_proj``) and the whole
-fused embedding per (example, candidate) (``precompute_z_emb``).  Scoring
-then gathers rows of those tables by index; z subsumes v in the step.  The
-tables are written in place into preallocated tensors.
+fused embedding per (example, candidate) (``precompute_z_emb``).  Training
+and scoring then gather rows of those tables by index; z subsumes v in the
+step.  The tables are written in place into preallocated tensors.
+
+Training (``make_cx_train_step``, ``train_epoch``) updates the model's
+trainable parameters in place with ``torch.optim.Adam`` (optax's defaults);
+the frozen backbone holds no grads and no Adam state.  Each step's dropout
+and lesion draws come from generators seeded from (seed, step, name)
+(``core/rng``), so a run is reproducible and a resumed run redraws the
+same masks.  A step returns its metrics as 0-d device tensors: nothing in
+it waits for the card.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..core import rng as rng_lib
 from ..data import vqacx
 from ..ops.metrics import nll, recall_at_k
 
@@ -26,6 +36,38 @@ def init_cx_params(model: torch.nn.Module, seed: int = 42
     CPU ``torch.Generator``); returns ``model`` in eval mode."""
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.eval()
+
+
+def frozen_param_keys(model) -> tuple:
+    """Top-level submodules held frozen during CX training: the backbone,
+    unless it is trainable (reference ``cx.py:80`` sets
+    ``requires_grad=False`` on it)."""
+    return () if getattr(model, "trainable_vqa", True) else ("vqa_model",)
+
+
+def trainable_parameters(model) -> list:
+    """``(name, param)`` of every parameter outside the frozen keys."""
+    frozen = frozen_param_keys(model)
+    return [(n, p) for n, p in model.named_parameters()
+            if n.split(".")[0] not in frozen]
+
+
+@dataclass
+class CXTrainState:
+    """The model (its parameters updated in place), the Adam over its
+    trainable parameters, and the number of steps taken."""
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def init_cx_state(model, lr: float = 1e-4) -> CXTrainState:
+    """Adam at ``lr`` with optax's defaults (betas 0.9 / 0.999, eps 1e-8)
+    over the trainable parameters only."""
+    params = [p for _, p in trainable_parameters(model)]
+    optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
+                                 eps=1e-8)
+    return CXTrainState(model, optimizer, 0)
 
 
 def _device(model) -> torch.device:
@@ -154,11 +196,74 @@ def batch_to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def make_cx_eval_step(model, *, recall_k: int = 5, use_z_cache: bool = False):
-    """Returns ``eval_step(features, batch, n_valid, q_table=None,
+def _model_inputs(model, features, batch, pass_table, q_table, v_table,
+                  z_table):
+    """(image_features, kwargs) for the model: the table form or the
+    materialized gather, plus the cache rows."""
+    kw = cache_kwargs(batch, q_table, v_table, z_table)
+    if pass_table:
+        kw.update(features_table=features, image_idxs=batch["image_idxs"])
+        return None, kw
+    return features[batch["image_idxs"].long()], kw
+
+
+def _valid_mask(comp, n_valid):
+    """1.0 for the first ``n_valid`` rows, 0.0 for the padded tail."""
+    return (torch.arange(comp.shape[0], device=comp.device)
+            < n_valid).float()
+
+
+def make_cx_train_step(model, optimizer, *, recall_k: int = 5,
+                       base_seed: int = 42, use_z_cache: bool = False):
+    """Returns ``train_step(state, features, batch, n_valid, q_table=None,
+    v_table=None, z_table=None)`` -> ``(state, metrics)``.
+
+    One step: the model in training mode over the batch, loss =
+    ``sum(CE(scores, comp) * mask) / n_valid`` (the reference's
+    ``counterexamples.py:333-334``; ``n_valid`` masks the padded tail of
+    the last batch), one backward, one Adam step, and the recall@k hit
+    count.  ``metrics`` holds ``loss`` and ``correct`` as 0-d device
+    tensors and ``n`` as a float.  The dropout and lesion generators are
+    seeded from (``base_seed``, ``state.step``).
+
+    Whether the model takes the feature table + row indices (the vfeat
+    kernels, which need the z cache) is resolved here, at build time."""
+    pass_table = bool(use_z_cache and model.wants_table_features())
+
+    def train_step(state: CXTrainState, features, batch, n_valid,
+                   q_table=None, v_table=None, z_table=None):
+        gens = rng_lib.step_generators(base_seed, state.step,
+                                       ("dropout", "lesion"), features.device)
+        model.train()
+        image_features, kw = _model_inputs(model, features, batch,
+                                           pass_table, q_table, v_table,
+                                           z_table)
+        scores = model(image_features, batch["question_wids"],
+                       batch["answer_aids"], dropout_gen=gens["dropout"],
+                       lesion_gen=gens["lesion"], **kw)
+        comp = batch["comp_idxs"]
+        mask = _valid_mask(comp, n_valid)
+        loss = torch.sum(nll(scores, comp) * mask) / n_valid
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        state.step += 1
+        k = min(recall_k, scores.shape[-1])
+        hits = recall_at_k(scores.detach(), comp, k=k) * mask
+        return state, {"loss": loss.detach(), "correct": torch.sum(hits),
+                       "n": float(n_valid)}
+
+    return train_step
+
+
+def make_cx_eval_step(model, *, recall_k: int = 5, base_seed: int = 123,
+                      use_z_cache: bool = False):
+    """Returns ``eval_step(features, batch, n_valid, step, q_table=None,
     v_table=None, z_table=None)`` -> summed CE loss and recall@K / @1 hit
     counts over the first ``n_valid`` rows, as 0-d device tensors.  The
-    tables passed in select the caches.
+    tables passed in select the caches.  The model runs in eval mode; the
+    lesion generator (the reference draws its placeholders in eval too) is
+    seeded from (``base_seed``, ``step``), the batch's index in the pass.
 
     Whether the model takes the feature table + row indices (the
     candidate image-feature kernel, which needs the z cache) is resolved
@@ -166,20 +271,18 @@ def make_cx_eval_step(model, *, recall_k: int = 5, use_z_cache: bool = False):
     pass_table = bool(use_z_cache and model.wants_table_features())
 
     @torch.no_grad()
-    def eval_step(features, batch, n_valid, q_table=None, v_table=None,
-                  z_table=None):
-        comp = batch["comp_idxs"]
-        mask = (torch.arange(comp.shape[0], device=comp.device)
-                < n_valid).float()
-        kw = cache_kwargs(batch, q_table, v_table, z_table)
-        if pass_table:
-            image_features = None
-            kw.update(features_table=features,
-                      image_idxs=batch["image_idxs"])
-        else:
-            image_features = features[batch["image_idxs"].long()]
+    def eval_step(features, batch, n_valid, step, q_table=None,
+                  v_table=None, z_table=None):
+        gens = rng_lib.step_generators(base_seed, step, ("lesion",),
+                                       features.device)
+        model.eval()
+        image_features, kw = _model_inputs(model, features, batch,
+                                           pass_table, q_table, v_table,
+                                           z_table)
         scores = model(image_features, batch["question_wids"],
-                       batch["answer_aids"], **kw)
+                       batch["answer_aids"], lesion_gen=gens["lesion"], **kw)
+        comp = batch["comp_idxs"]
+        mask = _valid_mask(comp, n_valid)
         k = min(recall_k, scores.shape[-1])
         return {"loss_sum": torch.sum(nll(scores, comp) * mask),
                 "correct": torch.sum(recall_at_k(scores, comp, k=k) * mask),
@@ -195,15 +298,52 @@ def eval_model(eval_step, features, arrays: vqacx.CXArrays,
     sums stay on the device; one synchronisation at the end."""
     sums = []
     n_total = 0
-    for idx, n_valid in vqacx.batch_indices(arrays.size, batch_size,
-                                            shuffle=False):
+    for step, (idx, n_valid) in enumerate(vqacx.batch_indices(
+            arrays.size, batch_size, shuffle=False)):
         batch = batch_to_device(vqacx.gather_batch(arrays, idx),
                                 features.device)
-        sums.append(eval_step(features, batch, n_valid, q_table=q_table,
-                              v_table=v_table, z_table=z_table))
+        sums.append(eval_step(features, batch, n_valid, step,
+                              q_table=q_table, v_table=v_table,
+                              z_table=z_table))
         n_total += n_valid
     totals = {key: float(sum(s[key] for s in sums).item())
               for key in ("loss_sum", "correct", "correct1")}
     return {"loss": totals["loss_sum"] / n_total,
             "recall": totals["correct"] / n_total,
             "recall_1": totals["correct1"] / n_total}
+
+
+def train_epoch(train_step, state: CXTrainState, features,
+                arrays: vqacx.CXArrays, batch_size: int, *, rng=None,
+                log_fn=None, print_freq: int = 100, eval_fn=None,
+                eval_freq: int = -1, q_table=None, v_table=None,
+                z_table=None):
+    """One epoch over shuffled batches (reference counterexamples.py:
+    312-361) -> ``(state, eval_results)``.
+
+    ``log_fn(step_in_epoch, metrics)`` fires every ``print_freq`` batches
+    (and synchronises, to read the loss); ``eval_fn(state)`` fires every
+    ``eval_freq`` batches and at the end of the epoch, and its last result
+    is returned.  The batch order comes from the numpy ``rng``."""
+    rng = rng or np.random.default_rng()
+    n_batches = (arrays.size + batch_size - 1) // batch_size
+    eval_results = None
+    t0 = time.time()
+    n_seen = 0
+    for b, (idx, n_valid) in enumerate(
+            vqacx.batch_indices(arrays.size, batch_size, shuffle=True,
+                                rng=rng), start=1):
+        batch = batch_to_device(vqacx.gather_batch(arrays, idx),
+                                features.device)
+        state, metrics = train_step(state, features, batch, n_valid,
+                                    q_table=q_table, v_table=v_table,
+                                    z_table=z_table)
+        n_seen += n_valid
+        if log_fn is not None and b % print_freq == 0:
+            log_fn(b, {"loss": float(metrics["loss"]),
+                       "recall": float(metrics["correct"]) / n_valid,
+                       "examples_per_sec": n_seen / (time.time() - t0)})
+        if eval_fn is not None and ((eval_freq > 0 and b % eval_freq == 0)
+                                    or b == n_batches):
+            eval_results = eval_fn(state)
+    return state, eval_results

@@ -1,5 +1,6 @@
 """Model factories (port of ``models/factory.py``): ``factory_vqa`` for
-MutanNoAtt and ``factory_cx`` for NeuralModel."""
+MutanNoAtt and ``factory_cx`` for NeuralModel, and ``flagship_cx``, the
+flagship configuration at full width."""
 
 from __future__ import annotations
 
@@ -34,4 +35,28 @@ def factory_cx(cx_name: str, vqa_model: nn.Module, *, knn_size: int = 24,
     return cx_mod.NeuralModel(
         vqa_model, knn_size=knn_size, trainable_vqa=trainable_vqa,
         model_spec=spec, dim_h=spec.get("dim_h", 300),
-        n_layers=spec.get("n_layers", 2), dim_a=spec.get("dim_a", 2400))
+        n_layers=spec.get("n_layers", 2), drop_p=spec.get("drop_p", 0.25),
+        dim_a=spec.get("dim_a", 2400))
+
+
+def flagship_cx(vocab_words: Sequence[str], vocab_answers: Sequence[str],
+                drop_p: float = 0.25) -> nn.Module:
+    """NeuralCX at the flagship width (bench.py's configuration): dim_v
+    2048, K 24, BayesianUniSkip 620 -> 2400, MUTAN R 10 with every dim
+    360, the answer head over ``vocab_answers``, NeuralCX 300 x 2 with
+    dim_a 2400.  Weights are left at torch's defaults: call
+    ``engines.cx_engine.init_cx_params``."""
+    from ..data import synthetic
+
+    opt = synthetic.tiny_vqa_options(dim_v=2048, nans=len(vocab_answers),
+                                     dim_q=2400)
+    opt["seq2vec"] = {"arch": "skipthoughts", "type": "BayesianUniSkip",
+                      "dropout": 0.25, "fixed_emb": False}
+    opt["fusion"].update(dim_hv=360, dim_hq=360, dim_mm=360, R=10)
+    spec = dict(dim_h=300, n_layers=2, drop_p=drop_p, v_emb=True,
+                v_mult=True, v_dist=True, v_rank=True, q_emb=True,
+                a_emb=True, z_emb=True, pretrained_emb=False,
+                trainable_vqa=False)
+    return factory_cx("NeuralModel",
+                      factory_vqa(opt, vocab_words, vocab_answers),
+                      knn_size=24, model_spec=spec)

@@ -10,7 +10,8 @@ Layout conversions: flax ``Dense`` kernel (in, out) -> ``nn.Linear.weight``
 (out, in); the fused MUTAN ``w_hv`` (din, R*dmm) -> per-rank
 ``list_linear_hv.{r}`` Linears; GRU ``w_ih`` (D, 3H) / ``w_hh`` (H, 3H)
 -> ``gru_cell.weight_ih`` (3H, D) / ``weight_hh`` (3H, H), gate order
-r, z, n unchanged.
+r, z, n unchanged.  The same conversions carry optax's Adam moments into
+``torch.optim.Adam`` (:func:`adam_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -60,15 +61,43 @@ def vqa_state_dict_from_jax(params: dict, prefix: str = "") -> dict:
     return sd
 
 
+def cx_trainable_state_dict_from_jax(tree: dict) -> dict:
+    """The trainable (non-backbone) part of a NeuralModel tree ->
+    state_dict.  Serves the params and any tree shaped like them (grads,
+    Adam moments)."""
+    sd = {"answer_embedding.weight": _t(tree["answer_embedding"])}
+    layer = 1
+    while "linear_%d_w" % layer in tree:
+        _linear(sd, "linear_%d" % layer, tree["linear_%d_w" % layer],
+                tree["linear_%d_b" % layer])
+        layer += 1
+    _linear(sd, "out", tree["out_w"], tree["out_b"])
+    return sd
+
+
 def cx_state_dict_from_jax(params: dict) -> dict:
     """NeuralModel param tree (with the nested ``vqa_model``) ->
     state_dict."""
     sd = vqa_state_dict_from_jax(params["vqa_model"], prefix="vqa_model.")
-    sd["answer_embedding.weight"] = _t(params["answer_embedding"])
-    layer = 1
-    while "linear_%d_w" % layer in params:
-        _linear(sd, "linear_%d" % layer, params["linear_%d_w" % layer],
-                params["linear_%d_b" % layer])
-        layer += 1
-    _linear(sd, "out", params["out_w"], params["out_b"])
+    sd.update(cx_trainable_state_dict_from_jax(params))
     return sd
+
+
+def adam_state_from_jax(opt_state, model: torch.nn.Module,
+                        optimizer: torch.optim.Optimizer) -> None:
+    """Carry optax's Adam state (``ScaleByAdamState``: ``count``, ``mu``,
+    ``nu`` over the trainable subtree) into ``optimizer``'s state for
+    ``model``'s trainable parameters (``step``, ``exp_avg``,
+    ``exp_avg_sq``), in place.  Leaves are numpy (or array-like)."""
+    adam = next(s for s in (opt_state if isinstance(opt_state, (tuple, list))
+                            else (opt_state,)) if hasattr(s, "mu"))
+    mu = cx_trainable_state_dict_from_jax(adam.mu)
+    nu = cx_trainable_state_dict_from_jax(adam.nu)
+    step = float(np.asarray(adam.count))
+    for name, param in model.named_parameters():
+        if name not in mu:
+            continue
+        optimizer.state[param] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(param.device, param.dtype),
+            "exp_avg_sq": nu[name].to(param.device, param.dtype)}

@@ -96,6 +96,19 @@ def stream_of(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if grad mode is on and an operand requires grad: a
+    forward-only kernel (its TPU original had no VJP either) would drop
+    that gradient without a word."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError("%s is forward-only: an operand requires grad "
+                           "(detach it, or run under torch.no_grad())"
+                           % what)
+
+
 def require_cuda(what: str, *tensors) -> None:
     """Every tensor on one CUDA device and contiguous, or raise."""
     dev = tensors[0].device

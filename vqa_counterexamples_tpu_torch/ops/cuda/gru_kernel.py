@@ -80,8 +80,10 @@ def gru_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     """The recurrence over a whole sequence (see the module docstring).
 
     On a CPU tensor this is :func:`gru_recurrence_plain`; on a CUDA tensor
-    it launches the kernel (T launches) or raises.
+    it launches the kernel (T launches) or raises.  Forward only: an
+    operand that requires grad (with grad mode on) raises.
     """
+    build.refuse_grad("gru_recurrence", xp, w_hh, b_hh, mask)
     if xp.device.type == "cpu":
         return gru_recurrence_plain(xp, w_hh, b_hh, mask, want_hproj)
     seq_len, batch, h3 = xp.shape

@@ -24,7 +24,8 @@ sweep 1, and a warp walks a row's columns contiguously, so the re-reads
 are coalesced and mostly served from L2.  The ragged answer edge is masked
 instead of padded with a -1e9 bias.
 
-Forward only: the head is frozen, so callers treat probs as a constant.
+Forward only: the head is frozen, so callers treat probs as a constant,
+and the wrapper refuses an operand that requires grad.
 """
 
 from __future__ import annotations
@@ -53,7 +54,9 @@ def classify_softmax(z: torch.Tensor, w_cls: torch.Tensor,
                      b_cls: torch.Tensor) -> torch.Tensor:
     """softmax(z @ W_cls^T + b) per row (see the module docstring).  On a
     CPU tensor this is :func:`classify_softmax_plain`; on a CUDA tensor it
-    launches the kernel or raises."""
+    launches the kernel or raises.  Forward only: an operand that requires
+    grad (with grad mode on) raises."""
+    build.refuse_grad("classify_softmax", z, w_cls, b_cls)
     if z.device.type == "cpu":
         return classify_softmax_plain(z, w_cls, b_cls)
     rows, dim_z = z.shape

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import rng
 from ..core.policy import cast_in, dot_f32, pdot
 from .cuda.mixture_kernel import classify_softmax
 
@@ -54,19 +55,23 @@ class FeatureSlices(NamedTuple):
 
 def first_layer_decomposed(w1, b1, slices: FeatureSlices, *, v_orig,
                            v_knns, v_mult, v_dist, q_emb, z_orig, z_knns,
-                           a_emb_gt, a_emb_knns_factored,
+                           a_emb_gt, a_emb_knns_factored=None,
+                           a_emb_knns=None, v_rank=None,
                            h_v_fused=None) -> torch.Tensor:
     """Pre-activation of linear_1 for all candidates at once -> (B, K, H).
 
     Shapes: v_orig (B, Dv); v_knns / v_mult (B, K, Dv); v_dist (B, K);
     q_emb (B, Dq); z_orig (B, Dz); z_knns (B, K, Dz); a_emb_gt (B, Da).
-    The rank feature is the identity one-hot (its lesion is not ported).
+    ``v_rank``: None for the identity one-hot rank feature, or a dense
+    (B, K, K) block (the lesion's random placeholder).
 
     ``a_emb_knns_factored`` is the soft answer-embedding mixture in
     factored form: ``(logits (B, K, A), table (A, Da))``, contracted as
     ``softmax(logits) @ (table @ W_a)``; or ``("fused", z_knns, w_cls,
     b_cls, table)``, whose probs come from the fused answer-head kernel
-    (``ops/cuda/mixture_kernel.py``) and never need the logits.
+    (``ops/cuda/mixture_kernel.py``) and never need the logits.  When it is
+    None, ``a_emb_knns`` (B, K, Da) is a dense candidate feature (the
+    a_emb lesion's placeholder).
 
     ``h_v_fused``: the v_other + v_mult contribution (B, K, H) from the
     candidate image-feature kernel (``ops/cuda/vfeat_kernel.py``); when
@@ -88,9 +93,12 @@ def first_layer_decomposed(w1, b1, slices: FeatureSlices, *, v_orig,
     else:
         cand = [("z_other", z_knns)]
 
-    ew = pdot(a_emb_knns_factored[-1], wslice("a_emb_other"))  # (A, H)
-    if isinstance(a_emb_knns_factored[0], str):
-        _, zk, w_cls, b_cls, _ = a_emb_knns_factored
+    h_aemb = None
+    if a_emb_knns_factored is None:
+        cand.append(("a_emb_other", a_emb_knns))
+    elif isinstance(a_emb_knns_factored[0], str):
+        _, zk, w_cls, b_cls, table = a_emb_knns_factored
+        ew = pdot(table, wslice("a_emb_other"))  # (A, H)
         bk, kk = zk.shape[:2]
         probs = classify_softmax(
             cast_in(zk.reshape(bk * kk, -1)).contiguous(),
@@ -98,7 +106,8 @@ def first_layer_decomposed(w1, b1, slices: FeatureSlices, *, v_orig,
             b_cls.to(torch.bfloat16).contiguous())
         h_aemb = pdot(probs, ew).reshape(bk, kk, -1)
     else:
-        logits, _ = a_emb_knns_factored
+        logits, table = a_emb_knns_factored
+        ew = pdot(table, wslice("a_emb_other"))  # (A, H)
         lt = cast_in(logits)
         bk, kk = logits.shape[:2]
         if lt.dtype == torch.bfloat16:
@@ -118,24 +127,38 @@ def first_layer_decomposed(w1, b1, slices: FeatureSlices, *, v_orig,
     # one dot per feature block, summed in the JAX order
     h_cand = h_aemb
     for name, feat in cand:
-        h_cand = h_cand + pdot(feat, wslice(name))
+        h_blk = pdot(feat, wslice(name))
+        h_cand = h_blk if h_cand is None else h_cand + h_blk
     if h_v_fused is not None:
         h_cand = h_cand + h_v_fused
 
-    # rank one-hot: the identity GEMM selects per-candidate rows of W
-    h_rank = cast_in(wslice("v_rank"))[None]
+    if v_rank is None:
+        # rank one-hot: the identity GEMM selects per-candidate rows of W
+        h_rank = cast_in(wslice("v_rank"))[None]
+    else:
+        h_rank = cast_in(torch.einsum("bkr,rh->bkh", v_rank,
+                                      wslice("v_rank")))
     # scalar distance feature: rank-1 outer product
     h_dist = cast_in(v_dist[..., None] * wslice("v_dist")[0][None, None, :])
     return h_static[:, None, :] + h_cand + h_rank + h_dist + cast_in(b1)
 
 
 def mlp_tail(h: torch.Tensor, hidden_ws, hidden_bs, w_out: torch.Tensor,
-             b_out: torch.Tensor) -> torch.Tensor:
-    """Eval ReLU stack over (B, K, H) then the scalar head -> (B, K) f32.
-    ``hidden_ws`` / ``w_out`` are (in, out) views; dropout is the identity
-    in eval."""
-    h = torch.relu(h)
+             b_out: torch.Tensor, *, drop_p: float = 0.0,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+    """ReLU + dropout stack over (B, K, H) then the scalar head -> (B, K)
+    f32.  ``h`` is the pre-activation of linear_1; ``hidden_ws`` / ``w_out``
+    are (in, out) views.  Dropout follows every ReLU, as in the reference
+    (cx.py:322-326), with masks drawn from ``generator`` in that order; with
+    no generator or ``drop_p == 0`` it is the identity (eval)."""
+    def drop(x):
+        if generator is None or drop_p == 0.0:
+            return x
+        keep, scale = rng.keep_mask(x.shape, 1.0 - drop_p, generator)
+        return torch.where(keep, x * scale, x.new_zeros(()))
+
+    h = drop(torch.relu(h))
     for w, b in zip(hidden_ws, hidden_bs):
-        h = torch.relu(pdot(h, w) + cast_in(b))
+        h = drop(torch.relu(pdot(h, w) + cast_in(b)))
     # the scalar head stays f32: the 24-way CE loss reads these scores
     return (dot_f32(h, w_out) + b_out)[..., 0]
