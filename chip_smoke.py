@@ -4,15 +4,15 @@
 
 Run from the root of a checkout.  It imports only the port
 (``vqa_counterexamples_tpu_torch``), never JAX, and runs under the bf16
-policy, where the port's four CUDA kernels are on the path.  Any failure
+policy, where the port's seven CUDA kernels are on the paths.  Any failure
 ends the run with a nonzero exit and no result line.
 
 1. Kernels vs plain: builds every kernel library from ``csrc/`` (nvcc,
    sm_90a, one process per source, all at once), runs each kernel at the
-   shapes the main path gives it and holds it against its plain PyTorch
-   version on the same inputs, with the stated tolerances (the vfeat
-   backward also against itself: reruns are bit-equal); times both with
-   CUDA events after a warm-up.
+   shapes its path gives it and holds it against its plain PyTorch
+   version on the same inputs, with the stated tolerances (the two
+   backwards also against themselves: reruns are bit-equal); times both
+   with CUDA events after a warm-up.
 2. Scoring at the flagship width (bench.py's configuration: dim_v 2048,
    K 24, BayesianUniSkip 620 -> 2400, MUTAN R 10 at 360, 2000 answers,
    NeuralCX 300 x 2, B 768; synthetic 2048 examples over 1024 images, random
@@ -30,6 +30,19 @@ ends the run with a nonzero exit and no result line.
 4. The CLI: ``cli.counterexamples.main([... --synthetic 2048 --z_cache
    --epochs 1 --test -b 768])`` in a temporary directory: the checkpoint
    files and ``best_epoch``.
+5. VQA pretraining at full width through ``engines/vqa_engine``
+   (``configs/vqa2/mutan_noatt_train.yaml``: dim_v 2048, BayesianUniSkip
+   620 -> 2400 with per-gate masks, MUTAN R 10 at 360, 2000 answers, B 512,
+   Adam at 1e-4; 2048 synthetic examples): 2 epochs with a per-epoch
+   ``validate``, counted: the per-gate GRU forward, the GRU backward and
+   MUTAN once per train step, the GRU forward and MUTAN once per val
+   batch; every loss finite; one step's gradients of every parameter
+   through the kernels against the same step through the plain versions,
+   dropout on (both draw the same masks); then the warm train and val
+   rates.
+6. The pretraining CLI: ``cli.train.main([... --synthetic 2048 --epochs 1
+   -b 512])`` in a temporary directory: the checkpoint files,
+   ``logger.json`` and the val result rows.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -60,21 +73,34 @@ TOL = {
     "vfeat_bwd": dict(atol=1e-4, rtol=1e-4),
     # mixture probs (tests/test_fused_head.py)
     "mixture": dict(atol=2e-3, rtol=2e-2),
+    # GRU backward (dxp, dW, db) relative to each tensor's largest entry:
+    # bf16 cotangents from f32 carries summed in another order
+    "gru_bwd_rel": 2e-2,
+    # MUTAN: f32 sums of exact bf16 products in another order (|out| ~ 10)
+    "mutan": dict(atol=1e-3, rtol=1e-4),
     # NeuralCX scores, kernel path vs plain path (tests/test_fused_head.py)
     "scores": dict(atol=5e-2, rtol=5e-2),
     # one train step's grads, kernel path vs plain path, relative to each
     # tensor's largest entry: the vfeat weight grads are f32 sums rounded
     # once to bf16 on both paths, in another order (one bf16 step, 2^-8)
     "grads_rel": 2e-2,
+    # one pretraining step's grads, kernel path vs plain path, dropout on:
+    # 26 bf16 GRU steps each way, where one rounding flip of a state
+    # propagates; the repo's bf16 bound (tests/test_pallas_gru.py)
+    "pretrain_grads_rel": 5e-2,
 }
-KERNELS = ("gru", "vfeat", "vfeat_bwd", "mixture")
-SOURCES = {"gru": "gru", "vfeat": "vfeat", "vfeat_bwd": "vfeat",
-           "mixture": "mixture"}
+KERNELS = ("gru", "gru_pg", "gru_bwd", "vfeat", "vfeat_bwd", "mixture",
+           "mutan")
+SOURCES = {"gru": "gru", "gru_pg": "gru", "gru_bwd": "gru", "vfeat": "vfeat",
+           "vfeat_bwd": "vfeat", "mixture": "mixture", "mutan": "mutan"}
 REPLACES = {
     "gru": "vqa_counterexamples_tpu/ops/pallas/gru_kernel.py:183",
+    "gru_pg": "vqa_counterexamples_tpu/ops/pallas/gru_kernel.py:128",
+    "gru_bwd": "vqa_counterexamples_tpu/ops/pallas/gru_kernel.py:423",
     "vfeat": "vqa_counterexamples_tpu/ops/pallas/vfeat_kernel.py:203",
     "vfeat_bwd": "vqa_counterexamples_tpu/ops/pallas/vfeat_kernel.py:166",
     "mixture": "vqa_counterexamples_tpu/ops/pallas/mixture_kernel.py:58",
+    "mutan": "vqa_counterexamples_tpu/ops/pallas/mutan_kernel.py:49",
 }
 # H100 SXM5 published peaks (NVIDIA data sheet): dense bf16 tensor cores,
 # HBM3 bandwidth
@@ -227,6 +253,8 @@ def phase_kernels(dev, card):
         plain_ms=time_ms(lambda: mixture_kernel.classify_softmax_plain(
             z, w_cls, b_cls)),
         work=(2 * M * DZ * A, (M * DZ + A * DZ + A + M * A) * 2))
+    del z, w_cls, b_cls, p1, p2
+    rows.update(pretrain_kernel_rows(dev, gen, randn))
     for name, row in rows.items():
         row["bound_ms"], row["bound_by"] = bound(*row.pop("work"))
         log("  %-9s kernel %.3f ms  plain %.3f ms  bound %.4f ms (%s)  (%s)"
@@ -235,14 +263,101 @@ def phase_kernels(dev, card):
     return rows
 
 
+def rel_err(name, got, ref, rel):
+    """Max abs error of ``got`` vs ``ref`` as a share of ref's largest
+    entry; raise past ``rel``."""
+    got, ref = got.float(), ref.float()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError("%s: shape %s vs %s or non-finite values"
+                             % (name, tuple(got.shape), tuple(ref.shape)))
+    max_abs = (got - ref).abs().max().item()
+    err = max_abs / max(ref.abs().max().item(), 1e-30)
+    log("  %-10s max_abs %.3e = %.3e of the largest entry (bound %g): %s"
+        % (name, max_abs, err, rel, "ok" if err <= rel else "out"))
+    if err > rel:
+        raise AssertionError("%s disagrees with its plain version" % name)
+    return max_abs
+
+
+def pretrain_kernel_rows(dev, gen, randn):
+    """Phase 1's rows for the pretraining kernels at its shapes: the
+    per-gate GRU forward and the GRU backward (T 26, B 512, H 2400), MUTAN
+    (B 512, dh 360, R 10, dmm 360)."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import gru_kernel, mutan_kernel
+
+    rows = {}
+    T, B, H = 26, 512, 2400
+    xp, w_hh = randn(T, B, 3 * H), randn(3 * H, H, scale=H ** -0.5)
+    b_hh = randn(3 * H, scale=0.1, dtype=torch.float32)
+    keep = torch.rand(3, B, H, generator=gen, device=dev) < 0.75
+    mask = (keep * (256.0 / 192)).to(torch.bfloat16)
+    s1, h1 = gru_kernel.gru_recurrence(xp, w_hh, b_hh, mask, want_hproj=True)
+    s2, h2 = gru_kernel.gru_recurrence_plain(xp, w_hh, b_hh, mask,
+                                             want_hproj=True)
+    err = max(check_close("gru_pg", s1, s2, TOL["gru"]),
+              check_close("gru_pg hp", h1, h2, TOL["gru"]))
+    io_fwd = (T * B * 3 * H * 2 + 3 * H * H * 2 + 3 * H * 4 + 3 * B * H * 2
+              + T * B * H * 2 + T * B * 3 * H * 2)
+    rows["gru_pg"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: gru_kernel.gru_recurrence(
+            xp, w_hh, b_hh, mask, want_hproj=True)),
+        plain_ms=time_ms(lambda: gru_kernel.gru_recurrence_plain(
+            xp, w_hh, b_hh, mask, want_hproj=True)),
+        work=(2 * T * B * H * 3 * H, io_fwd))
+    del s2, h2
+    ds = randn(T, B, H)
+    got = gru_kernel.gru_recurrence_bwd(xp, w_hh, mask, s1, h1, ds)
+    ref = gru_kernel.gru_recurrence_bwd_plain(xp, w_hh, mask, s1, h1, ds)
+    err = max(rel_err("gru_bwd " + n, g, r, TOL["gru_bwd_rel"])
+              for n, g, r in zip(("dxp", "dW", "db"), got, ref))
+    again = gru_kernel.gru_recurrence_bwd(xp, w_hh, mask, s1, h1, ds)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("gru_bwd: a rerun on the same inputs differs")
+    log("  gru_bwd    rerun on the same inputs: bit-equal")
+    del got, ref, again
+    rows["gru_bwd"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: gru_kernel.gru_recurrence_bwd(
+            xp, w_hh, mask, s1, h1, ds)),
+        plain_ms=time_ms(lambda: gru_kernel.gru_recurrence_bwd_plain(
+            xp, w_hh, mask, s1, h1, ds), reps=2),
+        # the in-kernel back product (T - 1 steps) and the dW product;
+        # xp, h_proj, states, dstates, mask, W read, dxp, dW, db written
+        work=(2 * (T - 1) * B * 3 * H * H + 2 * T * B * 3 * H * H,
+              T * B * 3 * H * 2 * 3 + T * B * H * 2 * 2 + 3 * B * H * 2
+              + 3 * H * H * 2 * 2 + 3 * H * 4))
+    del xp, s1, h1, ds, mask
+    B, DH, R, DMM = 512, 360, 10, 360
+    xv, xq = randn(B, DH), randn(B, DH)
+    wv, wq = (randn(R * DMM, DH, scale=DH ** -0.5) for _ in range(2))
+    bv, bq = (randn(R * DMM, scale=0.1, dtype=torch.float32)
+              for _ in range(2))
+    args = (xv, xq, wv, bv, wq, bq, R)
+    err = check_close("mutan", mutan_kernel.tucker_fusion(*args),
+                      mutan_kernel.tucker_fusion_plain(*args), TOL["mutan"])
+    rows["mutan"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: mutan_kernel.tucker_fusion(*args), reps=20),
+        plain_ms=time_ms(lambda: mutan_kernel.tucker_fusion_plain(*args),
+                         reps=20),
+        work=(2 * B * R * DMM * 2 * DH,
+              2 * B * DH * 2 + 2 * R * DMM * DH * 2 + 2 * R * DMM * 4
+              + B * DMM * 4))
+    return rows
+
+
 def counters():
     from vqa_counterexamples_tpu_torch.ops.cuda import (
-        gru_kernel, mixture_kernel, vfeat_kernel)
+        gru_kernel, mixture_kernel, mutan_kernel, vfeat_kernel)
 
     return {"gru": gru_kernel.gru_recurrence,
+            "gru_pg": gru_kernel.gru_recurrence_pg,
+            "gru_bwd": gru_kernel.gru_recurrence_bwd,
             "vfeat": vfeat_kernel.vfeat_scores,
             "vfeat_bwd": vfeat_kernel.vfeat_weight_grads,
-            "mixture": mixture_kernel.classify_softmax}
+            "mixture": mixture_kernel.classify_softmax,
+            "mutan": mutan_kernel.tucker_fusion}
 
 
 def reset_counters():
@@ -262,10 +377,16 @@ class plain_kernels:
         from vqa_counterexamples_tpu_torch.models import cx
         from vqa_counterexamples_tpu_torch.ops import rnn, scorer
         from vqa_counterexamples_tpu_torch.ops.cuda import (
-            gru_kernel, mixture_kernel, vfeat_kernel)
+            gru_kernel, mixture_kernel, mutan_kernel, vfeat_kernel)
 
         self.swaps = [(rnn, "gru_recurrence",
                        gru_kernel.gru_recurrence_plain),
+                      (gru_kernel, "gru_recurrence",
+                       gru_kernel.gru_recurrence_plain),
+                      (gru_kernel, "gru_recurrence_bwd",
+                       gru_kernel.gru_recurrence_bwd_plain),
+                      (mutan_kernel, "tucker_fusion",
+                       mutan_kernel.tucker_fusion_plain),
                       (cx, "vfeat_scores", vfeat_kernel.vfeat_scores_plain),
                       (scorer, "classify_softmax",
                        mixture_kernel.classify_softmax_plain)]
@@ -431,8 +552,9 @@ def phase_train(dev, card, ctx):
     eval_batches = len(evals) * -(-val.size // batch_size)
     log("  %d steps, %d eval batches; launches on the training path: %s"
         % (steps, eval_batches, launches))
-    want = {"gru": 1, "vfeat": steps + eval_batches, "vfeat_bwd": steps,
-            "mixture": steps + eval_batches}
+    want = {"gru": 1, "gru_pg": 0, "gru_bwd": 0,
+            "vfeat": steps + eval_batches, "vfeat_bwd": steps,
+            "mixture": steps + eval_batches, "mutan": 0}
     if launches != want:
         raise AssertionError("launch counts %s, expected %s"
                              % (launches, want))
@@ -504,11 +626,190 @@ def phase_cli(dev):
     if files != ["best/info.ckpt", "best/model.ckpt", "ckpt/info.ckpt",
                  "ckpt/model.ckpt"]:
         raise AssertionError("checkpoint files %s" % files)
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in ("gru", "vfeat", "vfeat_bwd", "mixture")) <= 0:
         raise AssertionError("the CLI run missed a kernel: %s" % launches)
     if not (np.isfinite(res["loss"]) and 0.0 <= res["recall"] <= 1.0
             and res["best_epoch"] == 1):
         raise AssertionError("bad CLI results %s" % res)
+
+
+def pretrain_grads(model, batch, dev, plain):
+    """One pretraining step's loss and gradients of every parameter (no
+    update), dropout on, the masks from the step-0 generator."""
+    from vqa_counterexamples_tpu_torch.core import rng
+    from vqa_counterexamples_tpu_torch.ops.metrics import cross_entropy_mean
+
+    gen = rng.step_generators(SEED, 0, ("dropout",), dev)["dropout"]
+    model.zero_grad(set_to_none=True)
+    model.train()
+    if plain:
+        with plain_kernels():
+            out = model(batch["visual"], batch["question"], training=True,
+                        generator=gen)
+            cross_entropy_mean(out, batch["answer"]).backward()
+    else:
+        out = model(batch["visual"], batch["question"], training=True,
+                    generator=gen)
+        cross_entropy_mean(out, batch["answer"]).backward()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def phase_pretrain(dev, card):
+    from vqa_counterexamples_tpu_torch.cli.profile_vqa import flagship_vqa
+    from vqa_counterexamples_tpu_torch.core.experiment import Experiment
+    from vqa_counterexamples_tpu_torch.core.meters import AvgMeter
+    from vqa_counterexamples_tpu_torch.data.vqa_dataset import VQAArrays
+    from vqa_counterexamples_tpu_torch.engines import vqa_engine
+
+    log("== phase 5: VQA pretraining at full width")
+    batch_size, epochs = 512, 2
+    model, examples, store, _ = flagship_vqa(seed=SEED)
+    model.to(dev)
+    arrays = VQAArrays(examples, store, samplingans=True)
+    val = VQAArrays(examples[:1024], store)
+    feats = store.to_device(dev)
+    state = vqa_engine.init_vqa_state(model, lr=1e-4)
+    train_step = vqa_engine.make_vqa_train_step(model, state.optimizer,
+                                                base_seed=SEED)
+    eval_step = vqa_engine.make_vqa_eval_step(model)
+    exp = Experiment("chip_smoke")
+    for tag in ("train", "val"):
+        exp.add_meters(tag, {k: AvgMeter() for k in (
+            "loss", "acc1", "acc5", "batch_time", "data_time")})
+    losses = []
+
+    def counted_step(st, batch):
+        st, m = train_step(st, batch)
+        losses.append(m["loss"])
+        return st, m
+
+    rng = np.random.default_rng(SEED)
+
+    def train_loader():
+        return arrays.batches(batch_size, shuffle=True, rng=rng,
+                              drop_remainder=True, device_features=feats)
+
+    def val_loader():
+        return val.batches(batch_size, shuffle=False, drop_remainder=True,
+                           device_features=feats)
+
+    torch.cuda.synchronize()
+    # --- the main path, counted ---
+    reset_counters()
+    val_res = []
+    for epoch in range(1, epochs + 1):
+        state = vqa_engine.train_epoch(counted_step, state, train_loader(),
+                                       exp, epoch, print_freq=10 ** 9)
+        val_res.append(vqa_engine.validate(eval_step, val_loader(), exp,
+                                           epoch))
+        log("  epoch %d: val %s" % (epoch, val_res[-1]))
+    torch.cuda.synchronize()
+    launches = read_counters()
+    steps = state.step
+    val_batches = epochs * (val.size // batch_size)
+    log("  %d train steps, %d val batches; launches on the pretraining "
+        "path: %s" % (steps, val_batches, launches))
+    want = {"gru": val_batches, "gru_pg": steps, "gru_bwd": steps,
+            "vfeat": 0, "vfeat_bwd": 0, "mixture": 0,
+            "mutan": steps + val_batches}
+    if launches != want:
+        raise AssertionError("launch counts %s, expected %s"
+                             % (launches, want))
+    losses = [float(x) for x in losses]
+    log("  losses: %s" % ["%.4f" % x for x in losses])
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError("non-finite or missing losses %s" % losses)
+    if not all(np.isfinite(r["loss"]) and 0 <= r["acc1"] <= r["acc5"] <= 100
+               for r in val_res):
+        raise AssertionError("bad val results %s" % val_res)
+
+    # --- one step's grads: kernel path vs the plain versions, dropout on ---
+    batch = vqa_engine.batch_to_device(
+        next(arrays.batches(batch_size, shuffle=False,
+                            device_features=feats)), dev)
+    got = pretrain_grads(model, batch, dev, plain=False)
+    ref = pretrain_grads(model, batch, dev, plain=True)
+    worst, worst_name = 0.0, ""
+    for name in got:
+        scale = ref[name].abs().max().item()
+        err = (got[name] - ref[name]).abs().max().item() / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+        if not (torch.isfinite(got[name]).all()
+                and err <= TOL["pretrain_grads_rel"]):
+            raise AssertionError("grad %s: kernel path vs plain path, max "
+                                 "error %.3e of the largest entry"
+                                 % (name, err))
+    log("  grads of %d tensors (dropout on): kernel path vs plain path, "
+        "worst max error %.3e of the largest entry (%s; bound %g): ok"
+        % (len(got), worst, worst_name, TOL["pretrain_grads_rel"]))
+    model.zero_grad(set_to_none=True)
+
+    # --- the warm rates ---
+    reps = 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for epoch in range(reps):
+        state = vqa_engine.train_epoch(train_step, state, train_loader(),
+                                       exp, epoch, print_freq=10 ** 9)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_steps = reps * (arrays.size // batch_size)
+    log("  train %.1f examples/s, %.3f ms per step (warm, %d epochs of %d "
+        "examples, B=%d, dropout on; %s)"
+        % (n_steps * batch_size / secs, secs / n_steps * 1e3, reps,
+           arrays.size, batch_size, card))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        vqa_engine.validate(eval_step, arrays.batches(
+            batch_size, shuffle=False, drop_remainder=True,
+            device_features=feats), exp, 0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log("  val %.1f examples/s, %.3f ms per batch (warm, %d passes over %d "
+        "examples; %s)" % (reps * arrays.size / secs,
+                           secs / (reps * arrays.size // batch_size) * 1e3,
+                           reps, arrays.size, card))
+    return launches
+
+
+def phase_train_cli(dev):
+    from vqa_counterexamples_tpu_torch.cli import train
+
+    log("== phase 6: the pretraining CLI")
+    reset_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        state = train.main([
+            "--path_opt", os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "configs", "vqa2",
+                "mutan_noatt_train.yaml"),
+            "--synthetic", "2048", "--epochs", "1", "-b", "512",
+            "--seed", str(SEED), "--device", str(dev), "--dir_logs", tmp])
+        files = sorted(n for n in os.listdir(tmp)
+                       if os.path.isfile(os.path.join(tmp, n)))
+        with open(os.path.join(tmp, "logger.json")) as f:
+            logged = json.load(f)["logged"]
+        with open(os.path.join(tmp, "ckpt_info.json")) as f:
+            info = json.load(f)
+        with open(os.path.join(tmp, "results", "val",
+                               "vqa_OpenEnded_mscoco_epoch_1.json")) as f:
+            rows = json.load(f)
+    launches = read_counters()
+    log("  files %s; ckpt_info %s; %d val rows; %d steps; launches %s"
+        % (files, info, len(rows), state.step, launches))
+    want_files = ["best_info.json", "best_model.pt", "best_optim.pt",
+                  "ckpt_info.json", "ckpt_model.pt", "ckpt_optim.pt",
+                  "logger.json", "options.yaml"]
+    if files != want_files:
+        raise AssertionError("run files %s, expected %s" % (files,
+                                                            want_files))
+    if (info["epoch"] != 1 or not np.isfinite(info["acc1"])
+            or set(logged["val"]["acc1"]) != {"1"} or len(rows) != 2048
+            or state.step != 4):
+        raise AssertionError("bad CLI run: info %s, logged %s, %d rows"
+                             % (info, sorted(logged["val"]), len(rows)))
+    if min(launches[k] for k in ("gru", "gru_pg", "gru_bwd", "mutan")) <= 0:
+        raise AssertionError("the CLI run missed a kernel: %s" % launches)
 
 
 def main():
@@ -525,12 +826,18 @@ def main():
     _, ctx = phase_slice(dev, card)
     launches = phase_train(dev, card, ctx)
     phase_cli(dev)
+    del ctx
+    launches_pre = phase_pretrain(dev, card)
+    phase_train_cli(dev)
     log("total %.1f s" % (time.perf_counter() - t0))
-    # launches: the training path's (phase 3), which runs all four
+    # launches: each kernel's path; the CX training path (phase 3) runs
+    # gru, vfeat, vfeat_bwd and mixture, pretraining (phase 5) the rest
+    on_path = {k: (launches_pre if k in ("gru_pg", "gru_bwd", "mutan")
+                   else launches)[k] for k in KERNELS}
     kernels = [dict(name=name, route="cuda",
                     source="vqa_counterexamples_tpu_torch/csrc/%s.cu"
                     % SOURCES[name], replaces=REPLACES[name],
-                    launches=launches[name], library_ms=None, **rows[name])
+                    launches=on_path[name], library_ms=None, **rows[name])
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)

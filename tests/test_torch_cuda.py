@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small ragged shapes (edges that the slice's shapes do not reach: batch
-and hidden sizes off the tile multiples, unaligned widths, a dropout mask)
-and, for the vfeat backward, at the flagship shape too.
+and hidden sizes off the tile multiples, unaligned widths, dropout masks
+shared or per gate) and, for the vfeat backward, at the flagship shape
+too.
 
 Marked ``cuda``: they skip where no card is visible.  On a host with a card
 and no JAX (the tests' conftest imports jax), run them as
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from vqa_counterexamples_tpu_torch.ops.cuda import (
-    gru_kernel, mixture_kernel, vfeat_kernel)
+    gru_kernel, mixture_kernel, mutan_kernel, vfeat_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -162,3 +163,151 @@ def test_wrappers_refuse_bad_operands(dev):
             torch.zeros(2, 3, dtype=torch.int64, device=dev),  # not int32
             torch.zeros(5, 8, dtype=torch.bfloat16, device=dev),
             torch.zeros(5, 8, dtype=torch.bfloat16, device=dev))
+
+
+def _gru_inputs(dev, seq, batch, dim_h, mask_kind, seed=0):
+    """xp, W_hh, b_hh and a mask: None, shared (B, H) or per gate
+    (3, B, H), with the 0.25-dropout scale 256/192 rounded to bf16."""
+    gen = torch.Generator().manual_seed(seed + dim_h)
+    xp = _randn(gen, dev, seq, batch, 3 * dim_h)
+    w = _randn(gen, dev, 3 * dim_h, dim_h, scale=dim_h ** -0.5)
+    b = _randn(gen, dev, 3 * dim_h, scale=0.1, dtype=torch.float32)
+    shape = {"none": None, "shared": (batch, dim_h),
+             "per_gate": (3, batch, dim_h)}[mask_kind]
+    mask = None if shape is None else (
+        (torch.rand(*shape, generator=gen) < 0.75) * (256.0 / 192)).to(
+            torch.bfloat16).to(dev)
+    return xp, w, b, mask
+
+
+def _assert_rel(got, ref, rel, name=""):
+    """max |got - ref| within ``rel`` of ref's largest entry."""
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all(), name
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    assert err <= rel * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("seq,batch,dim_h", [(3, 5, 20), (4, 70, 72),
+                                             (2, 65, 36)])
+def test_gru_pg_kernel_matches_plain(dev, seq, batch, dim_h):
+    xp, w, b, mask = _gru_inputs(dev, seq, batch, dim_h, "per_gate")
+    before = (gru_kernel.gru_recurrence.launches,
+              gru_kernel.gru_recurrence_pg.launches)
+    s1, h1 = gru_kernel.gru_recurrence(xp, w, b, mask, want_hproj=True)
+    s2, h2 = gru_kernel.gru_recurrence_plain(xp, w, b, mask, want_hproj=True)
+    torch.cuda.synchronize()
+    assert (gru_kernel.gru_recurrence.launches,
+            gru_kernel.gru_recurrence_pg.launches) == (before[0],
+                                                       before[1] + 1)
+    torch.testing.assert_close(s1.float(), s2.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(h1.float(), h2.float(), atol=5e-2, rtol=5e-2)
+
+
+def test_gru_pg_with_equal_masks_is_bit_equal_to_shared(dev):
+    """Three equal per-gate masks give the shared-mask path's bits, in both
+    directions: the gate stride cannot have changed the shared path."""
+    xp, w, b, mask = _gru_inputs(dev, 5, 70, 72, "shared")
+    mask3 = mask.expand(3, -1, -1).contiguous()
+    s1, h1 = gru_kernel.gru_recurrence(xp, w, b, mask, want_hproj=True)
+    s3, h3 = gru_kernel.gru_recurrence(xp, w, b, mask3, want_hproj=True)
+    assert torch.equal(s1, s3) and torch.equal(h1, h3)
+    ds = _randn(torch.Generator().manual_seed(1), dev, *s1.shape)
+    g1 = gru_kernel.gru_recurrence_bwd(xp, w, mask, s1, h1, ds)
+    g3 = gru_kernel.gru_recurrence_bwd(xp, w, mask3, s3, h3, ds)
+    torch.cuda.synchronize()
+    for a, c in zip(g1, g3):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "shared", "per_gate"])
+@pytest.mark.parametrize("seq,batch,dim_h", [(3, 5, 20), (4, 70, 72),
+                                             (3, 65, 100)])
+def test_gru_bwd_kernel_matches_plain(dev, seq, batch, dim_h, mask_kind):
+    """The reverse sweep against its plain version: dxp, dW, db within 2e-2
+    of each tensor's largest entry (bf16 cotangents from f32 carries
+    summed in another order), and bit-equal on a rerun."""
+    xp, w, b, mask = _gru_inputs(dev, seq, batch, dim_h, mask_kind)
+    states, hproj = gru_kernel.gru_recurrence_plain(xp, w, b, mask,
+                                                    want_hproj=True)
+    ds = _randn(torch.Generator().manual_seed(2), dev, *states.shape)
+    before = gru_kernel.gru_recurrence_bwd.launches
+    got = gru_kernel.gru_recurrence_bwd(xp, w, mask, states, hproj, ds)
+    ref = gru_kernel.gru_recurrence_bwd_plain(xp, w, mask, states, hproj, ds)
+    again = gru_kernel.gru_recurrence_bwd(xp, w, mask, states, hproj, ds)
+    torch.cuda.synchronize()
+    assert gru_kernel.gru_recurrence_bwd.launches == before + 2
+    assert got[1].dtype == torch.bfloat16 and got[2].dtype == torch.float32
+    for name, a, r, c in zip(("dxp", "dW", "db"), got, ref, again):
+        assert a.shape == r.shape, name
+        _assert_rel(a, r, 2e-2, name)
+        assert torch.equal(a, c), name
+
+
+def test_gru_function_grads_match_plain_autograd(dev):
+    """:class:`GRURecurrence` (both kernels) against the same Function with
+    the plain versions swapped in: the gradients reaching f32 leaves
+    through the casts."""
+    xp, w, b, mask = _gru_inputs(dev, 4, 33, 40, "per_gate", seed=5)
+    leaves = [t.float().requires_grad_() for t in (xp, w, b)]
+    g = torch.randn(4, 33, 40, generator=torch.Generator().manual_seed(3)
+                    ).to(dev)
+    grads = []
+    for plain in (False, True):
+        saved = (gru_kernel.gru_recurrence, gru_kernel.gru_recurrence_bwd)
+        if plain:
+            gru_kernel.gru_recurrence = gru_kernel.gru_recurrence_plain
+            gru_kernel.gru_recurrence_bwd = \
+                gru_kernel.gru_recurrence_bwd_plain
+        try:
+            states = gru_kernel.gru_recurrence_train(
+                leaves[0].to(torch.bfloat16), leaves[1].to(torch.bfloat16),
+                leaves[2], mask)
+            (states.float() * g).sum().backward()
+        finally:
+            gru_kernel.gru_recurrence, gru_kernel.gru_recurrence_bwd = saved
+        grads.append([t.grad.clone() for t in leaves])
+        for t in leaves:
+            t.grad = None
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("xp", "w_hh", "b_hh"), *grads):
+        _assert_rel(got, ref, 2e-2, name)
+
+
+@pytest.mark.parametrize("batch,dhv,dhq,rank,dmm", [
+    (5, 24, 24, 3, 24), (70, 40, 36, 2, 50), (513, 360, 360, 10, 360)])
+def test_tucker_kernel_matches_plain(dev, batch, dhv, dhq, rank, dmm):
+    gen = torch.Generator().manual_seed(batch + dmm)
+    xv = _randn(gen, dev, batch, dhv)
+    xq = _randn(gen, dev, batch, dhq)
+    wv = _randn(gen, dev, rank * dmm, dhv, scale=dhv ** -0.5)
+    wq = _randn(gen, dev, rank * dmm, dhq, scale=dhq ** -0.5)
+    bv = _randn(gen, dev, rank * dmm, scale=0.1, dtype=torch.float32)
+    bq = _randn(gen, dev, rank * dmm, scale=0.1, dtype=torch.float32)
+    before = mutan_kernel.tucker_fusion.launches
+    got = mutan_kernel.tucker_fusion(xv, xq, wv, bv, wq, bq, rank)
+    ref = mutan_kernel.tucker_fusion_plain(xv, xq, wv, bv, wq, bq, rank)
+    torch.cuda.synchronize()
+    assert mutan_kernel.tucker_fusion.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (batch, dmm)
+    # f32 sums of exact bf16 products in another order
+    torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(),
+                               rtol=1e-4)
+
+
+def test_new_wrappers_forward_only_and_refuse_bad_operands(dev):
+    bf = torch.bfloat16
+    x = torch.zeros(3, 8, dtype=bf, device=dev)
+    w = torch.zeros(6, 8, dtype=bf, device=dev, requires_grad=True)
+    b = torch.zeros(6, device=dev)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        mutan_kernel.tucker_fusion(x, x, w, b, w, b, 2)
+    with pytest.raises(ValueError):
+        mutan_kernel.tucker_fusion(x, x, w.detach().float(), b, w.detach(),
+                                   b, 2)
+    xp = torch.zeros(2, 3, 6, dtype=bf, device=dev)
+    with pytest.raises(ValueError):  # a (2, B, H) mask is neither form
+        gru_kernel.gru_recurrence(xp, w.detach()[:, :2].contiguous(),
+                                  torch.zeros(6, device=dev),
+                                  torch.ones(2, 3, 2, dtype=bf, device=dev))

@@ -112,7 +112,17 @@ def test_port_import_leaves_jax_out():
             "import vqa_counterexamples_tpu_torch.core.rng\n"
             "import vqa_counterexamples_tpu_torch.core.checkpoint\n"
             "import vqa_counterexamples_tpu_torch.data.synthetic\n"
+            "import vqa_counterexamples_tpu_torch.cli.train as t\n"
+            "import vqa_counterexamples_tpu_torch.cli.profile_vqa\n"
+            "import vqa_counterexamples_tpu_torch.engines.vqa_engine\n"
+            "import vqa_counterexamples_tpu_torch.data.vqa_dataset\n"
+            "import vqa_counterexamples_tpu_torch.core.experiment\n"
+            "import vqa_counterexamples_tpu_torch.core.meters\n"
+            "import vqa_counterexamples_tpu_torch.models.common\n"
+            "import vqa_counterexamples_tpu_torch.ops.fusion\n"
+            "import vqa_counterexamples_tpu_torch.ops.cuda.mutan_kernel\n"
             "c.build_parser()\n"
+            "t.build_parser()\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'vqa_counterexamples_tpu'))\n"
             "print(bad)\n"

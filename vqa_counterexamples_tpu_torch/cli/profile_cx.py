@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 GROUPS = (("vfeat_bwd", ("vfeat_bwd",)), ("vfeat_fwd", ("vfeat_fwd",)),
-          ("mixture", ("mixture",)), ("gru", ("gru_",)),
+          ("mixture", ("mixture",)), ("gru_bwd", ("gru_bwd",)),
+          ("gru", ("gru_",)), ("mutan", ("mutan",)),
           ("gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "sm80_")),
           ("adam", ("adam", "foreach", "multi_tensor")),
           ("memcpy/memset", ("memcpy", "memset")))

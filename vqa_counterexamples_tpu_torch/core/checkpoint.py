@@ -1,5 +1,5 @@
-"""CX checkpoints with best-metric retention (port of the CX scheme of
-``core/checkpoint.py``).
+"""Checkpoints with best-metric retention (port of the CX and VQA schemes
+of ``core/checkpoint.py``).
 
 Layout as in the JAX package (reference ``counterexamples.py:550-580``):
 ``<save_dir>/ckpt/{model.ckpt, info.ckpt}``, copied into ``best/`` when the
@@ -8,6 +8,13 @@ and resume infers the epoch from its length.  ``model.ckpt`` is a
 ``torch.save`` of the parameters the optimizer trains (the frozen backbone
 is rebuilt, not saved), the Adam ``state_dict`` and the step.  It
 is not the JAX package's msgpack format.
+
+The VQA scheme (reference ``train.py:290-367``) keeps the JAX layout: a
+``ckpt_info.json`` (the same JSON as the JAX package's) with
+``ckpt_model.pt`` / ``ckpt_optim.pt`` beside it, copied to ``best_*`` when
+val acc@1 improves, or kept per epoch from ``save_all_from`` on with a
+rolling delete.  The payloads are ``torch.save`` files named ``*.pt``,
+so no reader takes them for the JAX package's ``*.msgpack``.
 """
 
 from __future__ import annotations
@@ -65,3 +72,102 @@ def load_cx_checkpoint(state, save_dir: str, resume_best: bool = True):
     if not info:
         raise ValueError("empty info.ckpt in %s" % sub)
     return state, info, len(info) + 1, info[-1]["recall"]
+
+
+# ---------------------------------------------------------------- VQA scheme
+
+def _save_json(obj, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def _epoch_path(path: str, epoch: int) -> str:
+    base, ext = os.path.splitext(path)
+    return "%s_epoch,%d%s" % (base, epoch, ext)
+
+
+def _is_best_epoch(dir_logs: str, epoch: int) -> bool:
+    path = os.path.join(dir_logs, "best_info.json")
+    if not os.path.isfile(path):
+        return False
+    with open(path) as f:
+        return int(json.load(f).get("epoch", -1)) == epoch
+
+
+def _save_payloads(state, path_model: str, path_optim: str) -> None:
+    torch.save({k: v.detach() for k, v in state.model.state_dict().items()},
+               path_model)
+    torch.save({"optimizer": state.optimizer.state_dict(),
+                "step": state.step}, path_optim)
+
+
+def save_vqa_checkpoint(info: dict, state, dir_logs: str,
+                        save_model: bool = True,
+                        save_all_from: int | None = None,
+                        is_best: bool = True) -> None:
+    """``state``: an ``engines.vqa_engine.VQATrainState``."""
+    os.makedirs(dir_logs, exist_ok=True)
+    path_ckpt_info = os.path.join(dir_logs, "ckpt_info.json")
+    path_ckpt_model = os.path.join(dir_logs, "ckpt_model.pt")
+    path_ckpt_optim = os.path.join(dir_logs, "ckpt_optim.pt")
+    _save_json(info, path_ckpt_info)
+    if save_all_from is None:
+        if save_model:
+            _save_payloads(state, path_ckpt_model, path_ckpt_optim)
+        if is_best:
+            shutil.copyfile(path_ckpt_info,
+                            os.path.join(dir_logs, "best_info.json"))
+            if save_model:
+                shutil.copyfile(path_ckpt_model,
+                                os.path.join(dir_logs, "best_model.pt"))
+                shutil.copyfile(path_ckpt_optim,
+                                os.path.join(dir_logs, "best_optim.pt"))
+        return
+    # keep-all-from-epoch mode with rolling delete (train.py:303-325)
+    epoch = int(info["epoch"])
+    if epoch >= save_all_from:
+        _save_payloads(state, _epoch_path(path_ckpt_model, epoch),
+                       _epoch_path(path_ckpt_optim, epoch))
+        for old in range(save_all_from, epoch):
+            for p in (_epoch_path(path_ckpt_model, old),
+                      _epoch_path(path_ckpt_optim, old)):
+                if os.path.isfile(p) and not _is_best_epoch(dir_logs, old):
+                    os.remove(p)
+
+
+def load_vqa_checkpoint(state, path_ckpt: str) -> dict:
+    """Load the triplet saved above into ``state`` in place -> the info
+    dict.  ``path_ckpt`` is a prefix, as in the reference: ``<dir>/best``
+    selects the ``best_*`` files inside ``<dir>``, ``<dir>`` the ``ckpt_*``
+    ones (or ``best_*`` when only those exist).  Missing pieces warn and
+    are skipped (reference ``train.py:344-364``)."""
+    if (os.path.basename(path_ckpt) == "best"
+            and not os.path.isdir(path_ckpt)):
+        base, prefix = os.path.dirname(path_ckpt), "best"
+    else:
+        base, prefix = path_ckpt, "ckpt"
+        if not os.path.isfile(os.path.join(base, "ckpt_info.json")):
+            prefix = "best"
+    path_info, path_model, path_optim = (
+        os.path.join(base, "%s_%s" % (prefix, name))
+        for name in ("info.json", "model.pt", "optim.pt"))
+    info = {}
+    if os.path.isfile(path_info):
+        with open(path_info) as f:
+            info = json.load(f)
+    else:
+        print("Warning: no info checkpoint found at %s" % path_ckpt)
+    device = next(state.model.parameters()).device
+    if os.path.isfile(path_model):
+        state.model.load_state_dict(torch.load(
+            path_model, map_location=device, weights_only=True))
+    else:
+        print("Warning: no model checkpoint found at %s" % path_ckpt)
+    if os.path.isfile(path_optim):
+        payload = torch.load(path_optim, map_location=device,
+                             weights_only=True)
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.step = int(payload["step"])
+    else:
+        print("Warning: no optim checkpoint found at %s" % path_ckpt)
+    return info

@@ -94,6 +94,38 @@ def make_synthetic_cx(n_examples: int = 256, n_images: int = 128,
     return dataset, store
 
 
+def make_synthetic_vqa(n_examples: int, n_answers: int, maxlength: int = 26,
+                       dim_v: int = 2048, spatial: bool = False,
+                       seed: int = 0):
+    """Processed-like VQA examples + a feature store for smoke runs: the
+    JAX package's ``cli/train._synthetic_vqa`` draw for draw (which caps
+    ``n_answers`` at 50 and passes ``spatial`` for the att archs' (14, 14,
+    dim_v) maps).  Returns (examples, store, vocab_words,
+    vocab_answers)."""
+    rng = np.random.default_rng(seed)
+    n_words = 80
+    n_images = max(64, n_examples // 4)
+    shape = (n_images, 14, 14, dim_v) if spatial else (n_images, dim_v)
+    feats = rng.normal(size=shape).astype(np.float32)
+    names = ["COCO_train2014_%012d.jpg" % i for i in range(n_images)]
+    store = FeatureStore(feats, names)
+    vocab_words, vocab_answers = synthetic_vocab(n_words, n_answers)
+    examples = []
+    for i in range(n_examples):
+        qlen = int(rng.integers(3, 10))
+        wids = [0] * maxlength
+        for k in range(qlen):
+            wids[k] = int(rng.integers(1, n_words + 1))
+        aid = int(rng.integers(0, n_answers))
+        examples.append({
+            "question_id": i,
+            "image_name": names[int(rng.integers(0, n_images))],
+            "question_wids": wids, "answer_aid": aid,
+            "answers_aid": [aid], "answers_count": [10],
+        })
+    return examples, store, vocab_words, vocab_answers
+
+
 def tiny_vqa_options(dim_v: int = 2048, nans: int = 20,
                      seq2vec_arch: str = "2-lstm",
                      dim_q: int | None = None) -> dict:

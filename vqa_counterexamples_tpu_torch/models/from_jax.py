@@ -83,16 +83,11 @@ def cx_state_dict_from_jax(params: dict) -> dict:
     return sd
 
 
-def adam_state_from_jax(opt_state, model: torch.nn.Module,
-                        optimizer: torch.optim.Optimizer) -> None:
-    """Carry optax's Adam state (``ScaleByAdamState``: ``count``, ``mu``,
-    ``nu`` over the trainable subtree) into ``optimizer``'s state for
-    ``model``'s trainable parameters (``step``, ``exp_avg``,
-    ``exp_avg_sq``), in place.  Leaves are numpy (or array-like)."""
+def _carry_adam(opt_state, model, optimizer, to_state_dict) -> None:
     adam = next(s for s in (opt_state if isinstance(opt_state, (tuple, list))
                             else (opt_state,)) if hasattr(s, "mu"))
-    mu = cx_trainable_state_dict_from_jax(adam.mu)
-    nu = cx_trainable_state_dict_from_jax(adam.nu)
+    mu = to_state_dict(adam.mu)
+    nu = to_state_dict(adam.nu)
     step = float(np.asarray(adam.count))
     for name, param in model.named_parameters():
         if name not in mu:
@@ -101,3 +96,21 @@ def adam_state_from_jax(opt_state, model: torch.nn.Module,
             "step": torch.tensor(step, dtype=torch.float32),
             "exp_avg": mu[name].to(param.device, param.dtype),
             "exp_avg_sq": nu[name].to(param.device, param.dtype)}
+
+
+def adam_state_from_jax(opt_state, model: torch.nn.Module,
+                        optimizer: torch.optim.Optimizer) -> None:
+    """Carry optax's Adam state (``ScaleByAdamState``: ``count``, ``mu``,
+    ``nu`` over the trainable subtree) into ``optimizer``'s state for
+    ``model``'s trainable parameters (``step``, ``exp_avg``,
+    ``exp_avg_sq``), in place.  Leaves are numpy (or array-like)."""
+    _carry_adam(opt_state, model, optimizer,
+                cx_trainable_state_dict_from_jax)
+
+
+def vqa_adam_state_from_jax(opt_state, model: torch.nn.Module,
+                            optimizer: torch.optim.Optimizer) -> None:
+    """The same for a MutanNoAtt trained by the VQA engine: optax's Adam
+    over the whole VQA param tree into the state of every parameter of
+    ``model``."""
+    _carry_adam(opt_state, model, optimizer, vqa_state_dict_from_jax)

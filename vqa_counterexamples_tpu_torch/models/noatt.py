@@ -1,9 +1,13 @@
-"""MutanNoAtt VQA backbone, eval mode (port of ``models/noatt.py``).
+"""MutanNoAtt VQA classifier (port of ``models/noatt.py``).
 
 question -> seq2vec -> MUTAN fusion with the pooled visual features ->
 classifier over the answer vocabulary.  The pieces are exposed as methods
 because the CX models drive them separately.  Attribute names follow the
 reference checkpoint: ``seq2vec``, ``fusion``, ``linear_classif``.
+
+In training (``training=True``) every dropout of the reference draws its
+mask from the one ``generator`` passed in: the encoder's variational masks,
+the fusion's input dropouts, then the classifier's.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from torch import nn
 from ..core.policy import cast_in, pdot
 from . import fusion as fusion_mod
 from . import seq2vec as seq2vec_mod
+from .common import dropout
 
 
 class MutanNoAtt(nn.Module):
@@ -34,8 +39,10 @@ class MutanNoAtt(nn.Module):
         fusion_mod.lecun_normal_(self.linear_classif.weight, generator)
         self.linear_classif.bias.zero_()
 
-    def encode_question(self, input_q: torch.Tensor) -> torch.Tensor:
-        return self.seq2vec(input_q)
+    def encode_question(self, input_q: torch.Tensor, training: bool = False,
+                        generator: torch.Generator | None = None
+                        ) -> torch.Tensor:
+        return self.seq2vec(input_q, training, generator)
 
     def project_image(self, input_v: torch.Tensor) -> torch.Tensor:
         """Image-only half of the fusion: a constant per image under a
@@ -46,16 +53,27 @@ class MutanNoAtt(nn.Module):
                         v_proj: torch.Tensor | None = None) -> torch.Tensor:
         return self.fusion.fuse_candidates(input_v, x_q, hv=v_proj)
 
-    def classify(self, z: torch.Tensor) -> torch.Tensor:
+    def classify(self, z: torch.Tensor, training: bool = False,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
         """Answer logits (f32).  The head follows the compute policy: bf16
         GEMM and bias add under bf16 (flax ``Dense(dtype=policy)``)."""
         opt_c = self.opt["classif"]
         x = z
         if "activation" in opt_c:
             x = fusion_mod.activation(opt_c["activation"])(x)
+        x = dropout(x, opt_c.get("dropout", 0.0), generator, training)
         out = pdot(x, self.linear_classif.weight.t()) \
             + cast_in(self.linear_classif.bias)
         return out.float()
+
+    def forward(self, input_v: torch.Tensor, input_q: torch.Tensor,
+                training: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """(B, dim_v) features and (B, T) word ids -> (B, n_answers) f32
+        logits."""
+        x_q = self.encode_question(input_q, training, generator)
+        z = self.fusion(input_v, x_q, training, generator)
+        return self.classify(z, training, generator)
 
     def classif_params(self):
         """(weight (A, dz), bias (A,)) of the answer head, for the fused

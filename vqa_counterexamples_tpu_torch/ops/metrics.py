@@ -1,5 +1,6 @@
-"""Metrics: recall@K over candidate rankings, CE sums, distances (port of
-``ops/metrics.py``).  All return tensors on the input's device."""
+"""Metrics: recall@K over candidate rankings, top-k accuracy, CE losses,
+distances (port of ``ops/metrics.py``).  All return tensors on the input's
+device: nothing here waits for the card."""
 
 from __future__ import annotations
 
@@ -15,11 +16,32 @@ def recall_at_k(scores: torch.Tensor, ground_truth: torch.Tensor,
     return hit.to(torch.float32)
 
 
+def accuracy_topk(output: torch.Tensor, target: torch.Tensor,
+                  topk=(1,)) -> list:
+    """Precision@k in percent (reference ``vqa/lib/utils.py:23-38``), as 0-d
+    f32 tensors.  ``target`` may be (B,) class ids or (B, C) scores (then
+    its argmax); k is clamped to the class count."""
+    n_classes = output.shape[-1]
+    maxk = min(max(topk), n_classes)
+    batch_size = target.shape[0]
+    if target.dim() == 2:
+        target = torch.argmax(target, dim=1)
+    pred = torch.topk(output, maxk, dim=1).indices
+    correct = pred == target[:, None].long()
+    return [torch.sum(correct[:, :min(k, n_classes)]).to(torch.float32)
+            * (100.0 / batch_size) for k in topk]
+
+
 def cross_entropy_sum(logits: torch.Tensor,
                       labels: torch.Tensor) -> torch.Tensor:
     """Summed (not averaged) softmax cross-entropy (reference
     ``nn.CrossEntropyLoss(size_average=False)``)."""
     return nll(logits, labels).sum()
+
+
+def cross_entropy_mean(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    return cross_entropy_sum(logits, labels) / logits.shape[0]
 
 
 def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
