@@ -4,7 +4,7 @@
 
 Run from the root of a checkout.  It imports only the port
 (``vqa_counterexamples_tpu_torch``), never JAX, and runs under the bf16
-policy, where the port's seven CUDA kernels are on the paths.  Any failure
+policy, where the port's ten CUDA kernels are on the paths.  Any failure
 ends the run with a nonzero exit and no result line.
 
 1. Kernels vs plain: builds every kernel library from ``csrc/`` (nvcc,
@@ -44,8 +44,29 @@ ends the run with a nonzero exit and no result line.
    -b 512])`` in a temporary directory: the checkpoint files,
    ``logger.json`` and the val result rows.
 
-It prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``.
+7. MutanAtt pretraining at full width (``configs/vqa2/mutan_att_train.yaml``:
+   14 x 14 maps of 2048, BayesianUniSkip 620 -> 2400 with per-gate masks,
+   two glimpses, MUTAN R 5 at 310 / 310 / 510 in the attention and 620 /
+   310 / 510 in the fusion, 2000 answers, B 128, Adam at 1e-4; 1024
+   synthetic examples over 256 images, their maps gathered on the host into
+   pinned buffers): 2 epochs with a per-epoch ``validate``, counted: the
+   folded MUTAN forward and backward, the per-gate GRU forward, the GRU
+   backward and MUTAN once per train step, the folded forward, the shared
+   GRU forward and MUTAN once per val batch; every loss finite; one step's
+   gradients through the kernels against the plain versions, dropout on;
+   the warm train and val rates.
+8. The pretraining CLI with ``mutan_att_train.yaml``: ``--synthetic 1024
+   --epochs 1 -b 128``, its files and val rows.
+9. The kNN builder at COCO-train scale: 82,783 x 2048 f32 features from the
+   seed written as ``.npy`` + ``.txt``, then ``cli.knn.main([... -k 25
+   --json-out ...])`` through the kernel, counted; a 1024-query sample of
+   its output held against ``knn_chunk_plain``; the build's seconds.
+
+Phase 1 also holds the folded MUTAN kernels (forward, and backward with a
+bit-equal rerun) at MutanAtt's attention shape, the kNN kernel at the
+builder's, and MUTAN at MutanAtt's classifier shape.  It prints the card's
+name and power limit, a ``{"kernels": [...]}`` line and, last, ``{"ok":
+true, "device": {...}}``.
 """
 
 import json
@@ -88,11 +109,22 @@ TOL = {
     # 26 bf16 GRU steps each way, where one rounding flip of a state
     # propagates; the repo's bf16 bound (tests/test_pallas_gru.py)
     "pretrain_grads_rel": 5e-2,
+    # folded MUTAN forward: bf16 outputs of f32 sums of the same exact
+    # products in another order (|out| ~ 3: one bf16 step either way)
+    "attmutan": dict(atol=1e-2, rtol=8e-3),
+    # its backward relative to each tensor's largest entry: bf16 dx_v and
+    # dhq from f32 sums, f32 dw / db summed over the examples in another
+    # order
+    "attmutan_bwd_rel": 1e-2,
+    # kNN distances (tests/test_pallas_knn.py), and the self-distance: f32
+    # cancellation noise of about sqrt(eps |q|^2), some 2e-2 at dim 2048
+    "knn": dict(rtol=1e-4, self_atol=2e-2),
 }
 KERNELS = ("gru", "gru_pg", "gru_bwd", "vfeat", "vfeat_bwd", "mixture",
-           "mutan")
+           "mutan", "attmutan", "attmutan_bwd", "knn")
 SOURCES = {"gru": "gru", "gru_pg": "gru", "gru_bwd": "gru", "vfeat": "vfeat",
-           "vfeat_bwd": "vfeat", "mixture": "mixture", "mutan": "mutan"}
+           "vfeat_bwd": "vfeat", "mixture": "mixture", "mutan": "mutan",
+           "attmutan": "attmutan", "attmutan_bwd": "attmutan", "knn": "knn"}
 REPLACES = {
     "gru": "vqa_counterexamples_tpu/ops/pallas/gru_kernel.py:183",
     "gru_pg": "vqa_counterexamples_tpu/ops/pallas/gru_kernel.py:128",
@@ -101,11 +133,18 @@ REPLACES = {
     "vfeat_bwd": "vqa_counterexamples_tpu/ops/pallas/vfeat_kernel.py:166",
     "mixture": "vqa_counterexamples_tpu/ops/pallas/mixture_kernel.py:58",
     "mutan": "vqa_counterexamples_tpu/ops/pallas/mutan_kernel.py:49",
+    "attmutan": "vqa_counterexamples_tpu/ops/pallas/attmutan_kernel.py:221",
+    "attmutan_bwd":
+        "vqa_counterexamples_tpu/ops/pallas/attmutan_kernel.py:180",
+    "knn": "vqa_counterexamples_tpu/ops/pallas/knn_kernel.py:91",
 }
 # H100 SXM5 published peaks (NVIDIA data sheet): dense bf16 tensor cores,
-# HBM3 bandwidth
+# f32 outside the tensor cores, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+ATT_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "vqa2", "mutan_att_train.yaml")
 
 
 def log(*args):
@@ -137,10 +176,11 @@ def check_close(name, got, ref, tol):
     return max_abs
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
     """(least ms the card could take, what bounds it): the larger of the
-    operations over the bf16 peak and the bytes over the HBM rate."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    operations over ``peak`` (the bf16 tensor-core peak unless the work is
+    f32) and the bytes over the HBM rate."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -255,6 +295,7 @@ def phase_kernels(dev, card):
         work=(2 * M * DZ * A, (M * DZ + A * DZ + A + M * A) * 2))
     del z, w_cls, b_cls, p1, p2
     rows.update(pretrain_kernel_rows(dev, gen, randn))
+    rows.update(att_knn_kernel_rows(dev, gen, randn))
     for name, row in rows.items():
         row["bound_ms"], row["bound_by"] = bound(*row.pop("work"))
         log("  %-9s kernel %.3f ms  plain %.3f ms  bound %.4f ms (%s)  (%s)"
@@ -347,9 +388,128 @@ def pretrain_kernel_rows(dev, gen, randn):
     return rows
 
 
+def check_knn(name, dist, idx, ref_dist, ref_idx, self_idx=None):
+    """The kernel's (dist, idx) (Bq, k) against the plain version's with one
+    more neighbour (Bq, k + 1): distances within the stated tolerance, the
+    same neighbour wherever it is further than twice that from both of
+    its neighbours in the plain ranking, and rank 0 the query itself when
+    ``self_idx`` is given.  Returns the max abs distance error."""
+    k = dist.shape[1]
+    tol = TOL["knn"]["rtol"] * ref_dist.abs()
+    tol[:, 0] += TOL["knn"]["self_atol"]
+    err = (dist - ref_dist[:, :k]).abs()
+    gap = ref_dist[:, 1:] - ref_dist[:, :-1]             # (Bq, k)
+    prev = torch.cat([torch.full_like(gap[:, :1], float("inf")),
+                      gap[:, :-1]], 1)
+    clear = (gap > 2 * tol[:, 1:]) & (prev > 2 * tol[:, :k])
+    same = (idx == ref_idx[:, :k]) | ~clear
+    ok_self = self_idx is None or torch.equal(idx[:, 0].long(),
+                                              self_idx.long())
+    bad = int((err > tol[:, :k]).sum().item())
+    log("  %-10s max_abs %.3e (rtol %g, self-distance atol %g): %s; "
+        "neighbours equal at %d of %d clear ranks%s"
+        % (name, err.max().item(), TOL["knn"]["rtol"],
+           TOL["knn"]["self_atol"], "ok" if bad == 0 else "%d out" % bad,
+           int((clear & (idx == ref_idx[:, :k])).sum().item()),
+           int(clear.sum().item()),
+           "" if self_idx is None else ", rank 0 the query: %s" % ok_self))
+    if bad or not bool(same.all()) or not ok_self:
+        raise AssertionError("%s disagrees with its plain version" % name)
+    return err.max().item()
+
+
+def att_knn_kernel_rows(dev, gen, randn):
+    """Phase 1's rows for this slice's kernels: the folded MUTAN forward and
+    backward at MutanAtt's attention shape (B 128, K 196, Dh 310, R 5,
+    M 510), the kNN kernel at the builder's (1024 queries against 82,783 x
+    2048, k 25), and MUTAN at MutanAtt's classifier shape (B 128, 620 / 310
+    -> 510, R 5; logged, outside the kernels line)."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import (
+        attmutan_kernel, knn_kernel, mutan_kernel)
+
+    rows = {}
+    B, K, DH, R, M = 128, 196, 310, 5, 510
+    xv, g = randn(B, K, DH), randn(B, K, M, scale=0.1)
+    w = randn(R * M, DH, scale=DH ** -0.5)
+    b = randn(R * M, scale=0.1, dtype=torch.float32)
+    hq = randn(B, R, M, dtype=torch.float32)
+    args = (xv, w, b, hq)
+    err = check_close("attmutan", attmutan_kernel.folded_mutan(*args),
+                      attmutan_kernel.folded_mutan_plain(*args),
+                      TOL["attmutan"])
+    gemm = 2 * B * K * DH * M
+    fold = 2 * B * R * DH * M
+    io_in = B * K * DH * 2 + R * M * DH * 2 + R * M * 4 + B * R * M * 4
+    rows["attmutan"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: attmutan_kernel.folded_mutan(*args), reps=20),
+        plain_ms=time_ms(lambda: attmutan_kernel.folded_mutan_plain(*args),
+                         reps=20),
+        work=(gemm + fold, io_in + B * K * M * 2))
+    got = attmutan_kernel.folded_mutan_bwd(*args, g)
+    ref = attmutan_kernel.folded_mutan_bwd_plain(*args, g)
+    err = max(rel_err("attmutan_bwd " + n, a, r, TOL["attmutan_bwd_rel"])
+              for n, a, r in zip(("dx_v", "dw", "db", "dhq"), got, ref))
+    again = attmutan_kernel.folded_mutan_bwd(*args, g)
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError("attmutan_bwd: a rerun on the same inputs "
+                             "differs")
+    log("  attmutan_bwd rerun on the same inputs: bit-equal")
+    del got, ref, again
+    rows["attmutan_bwd"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: attmutan_kernel.folded_mutan_bwd(*args, g),
+                   reps=20),
+        plain_ms=time_ms(lambda: attmutan_kernel.folded_mutan_bwd_plain(
+            *args, g), reps=20),
+        # dx_v and dweff GEMMs, weff, dw and dhq; x_v, w, b, hq, g read,
+        # dx_v, dw (f32), db, dhq written
+        work=(2 * gemm + 3 * fold,
+              io_in + B * K * M * 2 + B * K * DH * 2 + R * M * DH * 4
+              + R * M * 4 + B * R * M * 2))
+    del xv, g, w, b, hq, args
+    # MUTAN at MutanAtt's classifier shape
+    DHV, DHQ = 620, 310
+    xv, xq = randn(B, DHV), randn(B, DHQ)
+    wv, wq = randn(R * M, DHV, scale=DHV ** -0.5), randn(R * M, DHQ,
+                                                         scale=DHQ ** -0.5)
+    bv, bq = (randn(R * M, scale=0.1, dtype=torch.float32) for _ in range(2))
+    margs = (xv, xq, wv, bv, wq, bq, R)
+    err = check_close("mutan_att", mutan_kernel.tucker_fusion(*margs),
+                      mutan_kernel.tucker_fusion_plain(*margs), TOL["mutan"])
+    rows["mutan_att"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: mutan_kernel.tucker_fusion(*margs), reps=20),
+        plain_ms=time_ms(lambda: mutan_kernel.tucker_fusion_plain(*margs),
+                         reps=20),
+        work=(2 * B * R * M * (DHV + DHQ),
+              B * (DHV + DHQ) * 2 + R * M * (DHV + DHQ) * 2 + 2 * R * M * 4
+              + B * M * 4))
+    # kNN: one chunk of the COCO-train self-kNN
+    N, D, Q, KN = 82783, 2048, 1024, 25
+    corpus = torch.randn(N, D, generator=gen, device=dev)
+    pick = torch.randperm(N, generator=gen, device=dev)[:Q]
+    queries = corpus[pick].contiguous()
+    csq = (corpus * corpus).sum(1)
+    dist, idx = knn_kernel.knn_chunk(queries, corpus, KN, csq)
+    ref_d, ref_i = knn_kernel.knn_chunk_plain(queries, corpus, KN + 1, csq)
+    err = check_knn("knn", dist, idx, ref_d, ref_i, self_idx=pick)
+    del dist, idx, ref_d, ref_i
+    rows["knn"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: knn_kernel.knn_chunk(queries, corpus, KN, csq)),
+        plain_ms=time_ms(lambda: knn_kernel.knn_chunk_plain(
+            queries, corpus, KN, csq)),
+        # f32 FMAs, against the f32 peak
+        work=(2 * Q * N * D + 3 * Q * N,
+              (Q * D + N * D + Q + N) * 4 + Q * KN * 8, PEAK_F32_FLOPS))
+    return rows
+
+
 def counters():
     from vqa_counterexamples_tpu_torch.ops.cuda import (
-        gru_kernel, mixture_kernel, mutan_kernel, vfeat_kernel)
+        attmutan_kernel, gru_kernel, knn_kernel, mixture_kernel,
+        mutan_kernel, vfeat_kernel)
 
     return {"gru": gru_kernel.gru_recurrence,
             "gru_pg": gru_kernel.gru_recurrence_pg,
@@ -357,7 +517,10 @@ def counters():
             "vfeat": vfeat_kernel.vfeat_scores,
             "vfeat_bwd": vfeat_kernel.vfeat_weight_grads,
             "mixture": mixture_kernel.classify_softmax,
-            "mutan": mutan_kernel.tucker_fusion}
+            "mutan": mutan_kernel.tucker_fusion,
+            "attmutan": attmutan_kernel.folded_mutan,
+            "attmutan_bwd": attmutan_kernel.folded_mutan_bwd,
+            "knn": knn_kernel.knn_chunk}
 
 
 def reset_counters():
@@ -377,9 +540,14 @@ class plain_kernels:
         from vqa_counterexamples_tpu_torch.models import cx
         from vqa_counterexamples_tpu_torch.ops import rnn, scorer
         from vqa_counterexamples_tpu_torch.ops.cuda import (
-            gru_kernel, mixture_kernel, mutan_kernel, vfeat_kernel)
+            attmutan_kernel, gru_kernel, mixture_kernel, mutan_kernel,
+            vfeat_kernel)
 
-        self.swaps = [(rnn, "gru_recurrence",
+        self.swaps = [(attmutan_kernel, "folded_mutan",
+                       attmutan_kernel.folded_mutan_plain),
+                      (attmutan_kernel, "folded_mutan_bwd",
+                       attmutan_kernel.folded_mutan_bwd_plain),
+                      (rnn, "gru_recurrence",
                        gru_kernel.gru_recurrence_plain),
                       (gru_kernel, "gru_recurrence",
                        gru_kernel.gru_recurrence_plain),
@@ -554,7 +722,8 @@ def phase_train(dev, card, ctx):
         % (steps, eval_batches, launches))
     want = {"gru": 1, "gru_pg": 0, "gru_bwd": 0,
             "vfeat": steps + eval_batches, "vfeat_bwd": steps,
-            "mixture": steps + eval_batches, "mutan": 0}
+            "mixture": steps + eval_batches, "mutan": 0, "attmutan": 0,
+            "attmutan_bwd": 0, "knn": 0}
     if launches != want:
         raise AssertionError("launch counts %s, expected %s"
                              % (launches, want))
@@ -711,7 +880,8 @@ def phase_pretrain(dev, card):
         "path: %s" % (steps, val_batches, launches))
     want = {"gru": val_batches, "gru_pg": steps, "gru_bwd": steps,
             "vfeat": 0, "vfeat_bwd": 0, "mixture": 0,
-            "mutan": steps + val_batches}
+            "mutan": steps + val_batches, "attmutan": 0, "attmutan_bwd": 0,
+            "knn": 0}
     if launches != want:
         raise AssertionError("launch counts %s, expected %s"
                              % (launches, want))
@@ -812,6 +982,222 @@ def phase_train_cli(dev):
         raise AssertionError("the CLI run missed a kernel: %s" % launches)
 
 
+def phase_att_pretrain(dev, card):
+    from vqa_counterexamples_tpu_torch.cli.profile_vqa import flagship_vqa
+    from vqa_counterexamples_tpu_torch.core.experiment import Experiment
+    from vqa_counterexamples_tpu_torch.core.meters import AvgMeter
+    from vqa_counterexamples_tpu_torch.data.vqa_dataset import VQAArrays
+    from vqa_counterexamples_tpu_torch.engines import vqa_engine
+
+    log("== phase 7: MutanAtt pretraining at full width")
+    batch_size, epochs = 128, 2
+    t0 = time.perf_counter()
+    model, examples, store, _ = flagship_vqa(seed=SEED, path_opt=ATT_CONFIG,
+                                             n_examples=1024)
+    model.to(dev)
+    log("  model and %d examples over %d maps %s (%.0f MB on the host) in "
+        "%.1f s" % (len(examples), len(store), store.row_shape,
+                    store.features.nbytes / 1e6, time.perf_counter() - t0))
+    arrays = VQAArrays(examples, store, samplingans=True)
+    val = VQAArrays(examples[:256], store)
+    state = vqa_engine.init_vqa_state(model, lr=1e-4)
+    train_step = vqa_engine.make_vqa_train_step(model, state.optimizer,
+                                                base_seed=SEED)
+    eval_step = vqa_engine.make_vqa_eval_step(model)
+    exp = Experiment("chip_smoke_att")
+    for tag in ("train", "val"):
+        exp.add_meters(tag, {k: AvgMeter() for k in (
+            "loss", "acc1", "acc5", "batch_time", "data_time")})
+    losses = []
+
+    def counted_step(st, batch):
+        st, m = train_step(st, batch)
+        losses.append(m["loss"])
+        return st, m
+
+    rng = np.random.default_rng(SEED)
+
+    def train_loader():
+        return arrays.batches(batch_size, shuffle=True, rng=rng,
+                              drop_remainder=True, device=dev)
+
+    def val_loader(data):
+        return data.batches(batch_size, shuffle=False, drop_remainder=True,
+                            device=dev)
+
+    torch.cuda.synchronize()
+    # --- the main path, counted ---
+    reset_counters()
+    val_res = []
+    for epoch in range(1, epochs + 1):
+        state = vqa_engine.train_epoch(counted_step, state, train_loader(),
+                                       exp, epoch, print_freq=10 ** 9)
+        val_res.append(vqa_engine.validate(eval_step, val_loader(val), exp,
+                                           epoch))
+        log("  epoch %d: val %s" % (epoch, val_res[-1]))
+    torch.cuda.synchronize()
+    launches = read_counters()
+    steps = state.step
+    val_batches = epochs * (val.size // batch_size)
+    log("  %d train steps, %d val batches; launches on the MutanAtt path: %s"
+        % (steps, val_batches, launches))
+    want = {"gru": val_batches, "gru_pg": steps, "gru_bwd": steps,
+            "vfeat": 0, "vfeat_bwd": 0, "mixture": 0,
+            "mutan": steps + val_batches, "attmutan": steps + val_batches,
+            "attmutan_bwd": steps, "knn": 0}
+    if launches != want:
+        raise AssertionError("launch counts %s, expected %s"
+                             % (launches, want))
+    losses = [float(x) for x in losses]
+    log("  losses: %s" % ["%.4f" % x for x in losses])
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError("non-finite or missing losses %s" % losses)
+    if not all(np.isfinite(r["loss"]) and 0 <= r["acc1"] <= r["acc5"] <= 100
+               for r in val_res):
+        raise AssertionError("bad val results %s" % val_res)
+
+    # --- one step's grads: kernel path vs the plain versions, dropout on ---
+    batch = vqa_engine.batch_to_device(next(val_loader(arrays)), dev)
+    got = pretrain_grads(model, batch, dev, plain=False)
+    ref = pretrain_grads(model, batch, dev, plain=True)
+    worst, worst_name = 0.0, ""
+    # conv_att's bias shifts every position's score alike, which the
+    # softmax over the positions cannot see: its gradient is 0 up to
+    # rounding on both paths
+    for name in (n for n in got if n != "conv_att.bias"):
+        scale = ref[name].abs().max().item()
+        err = (got[name] - ref[name]).abs().max().item() / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+        if not (torch.isfinite(got[name]).all()
+                and err <= TOL["pretrain_grads_rel"]):
+            raise AssertionError("grad %s: kernel path vs plain path, max "
+                                 "error %.3e of the largest entry"
+                                 % (name, err))
+    log("  grads of %d tensors (dropout on): kernel path vs plain path, "
+        "worst max error %.3e of the largest entry (%s; bound %g): ok"
+        % (len(got) - 1, worst, worst_name, TOL["pretrain_grads_rel"]))
+    model.zero_grad(set_to_none=True)
+
+    # --- the warm rates ---
+    reps = 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for epoch in range(reps):
+        state = vqa_engine.train_epoch(train_step, state, train_loader(),
+                                       exp, epoch, print_freq=10 ** 9)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_steps = reps * (arrays.size // batch_size)
+    log("  train %.1f examples/s, %.3f ms per step (warm, %d epochs of %d "
+        "examples, B=%d, dropout on; %s)"
+        % (n_steps * batch_size / secs, secs / n_steps * 1e3, reps,
+           arrays.size, batch_size, card))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        vqa_engine.validate(eval_step, val_loader(arrays), exp, 0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log("  val %.1f examples/s, %.3f ms per batch (warm, %d passes over %d "
+        "examples; %s)" % (reps * arrays.size / secs,
+                           secs / (reps * arrays.size // batch_size) * 1e3,
+                           reps, arrays.size, card))
+    return launches
+
+
+def phase_att_cli(dev):
+    from vqa_counterexamples_tpu_torch.cli import train
+
+    log("== phase 8: the pretraining CLI with MutanAtt")
+    reset_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        state = train.main([
+            "--path_opt", ATT_CONFIG, "--synthetic", "1024", "--epochs", "1",
+            "-b", "128", "--seed", str(SEED), "--device", str(dev),
+            "--dir_logs", tmp])
+        files = sorted(n for n in os.listdir(tmp)
+                       if os.path.isfile(os.path.join(tmp, n)))
+        with open(os.path.join(tmp, "logger.json")) as f:
+            logged = json.load(f)["logged"]
+        with open(os.path.join(tmp, "ckpt_info.json")) as f:
+            info = json.load(f)
+        with open(os.path.join(tmp, "results", "val",
+                               "vqa_OpenEnded_mscoco_epoch_1.json")) as f:
+            rows = json.load(f)
+    launches = read_counters()
+    log("  files %s; ckpt_info %s; %d val rows; %d steps; launches %s"
+        % (files, info, len(rows), state.step, launches))
+    want_files = ["ckpt_info.json", "ckpt_model.pt", "ckpt_optim.pt",
+                  "logger.json", "options.yaml"]
+    if info["acc1"] > 0:   # a best epoch only when val acc@1 beat 0
+        want_files = sorted(want_files + ["best_info.json", "best_model.pt",
+                                          "best_optim.pt"])
+    if files != want_files:
+        raise AssertionError("run files %s, expected %s" % (files,
+                                                            want_files))
+    if (info["epoch"] != 1 or not np.isfinite(info["acc1"])
+            or set(logged["val"]["acc1"]) != {"1"} or len(rows) != 1024
+            or state.step != 8):
+        raise AssertionError("bad CLI run: info %s, logged %s, %d rows"
+                             % (info, sorted(logged["val"]), len(rows)))
+    if min(launches[k] for k in ("gru", "gru_pg", "gru_bwd", "mutan",
+                                 "attmutan", "attmutan_bwd")) <= 0:
+        raise AssertionError("the CLI run missed a kernel: %s" % launches)
+
+
+def phase_knn(dev, card, n=82783):
+    from vqa_counterexamples_tpu_torch.cli import knn
+    from vqa_counterexamples_tpu_torch.data.features import FeatureStore
+    from vqa_counterexamples_tpu_torch.data.vqacx import coco_num_to_name
+    from vqa_counterexamples_tpu_torch.ops.cuda import knn_kernel
+
+    log("== phase 9: the kNN builder at COCO-train scale")
+    dim, k = 2048, 25
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        feats = np.random.default_rng(SEED).standard_normal(
+            (n, dim), dtype=np.float32)
+        prefix = os.path.join(tmp, "trainset")
+        FeatureStore(feats, [coco_num_to_name(i) for i in range(n)]).save(
+            prefix)
+        log("  %d x %d f32 features written in %.1f s"
+            % (n, dim, time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        # --- the main path, counted ---
+        reset_counters()
+        t0 = time.perf_counter()
+        dist, idx = knn.main(["--path_features", prefix, "-k", str(k),
+                              "--json-out", os.path.join(tmp, "knn.json"),
+                              "--device", str(dev)])
+        build_s = time.perf_counter() - t0
+        launches = read_counters()
+        with open(os.path.join(tmp, "knn.json")) as f:
+            table = json.load(f)
+        saved = np.load(prefix + "_knn_results.npy", allow_pickle=True).item()
+    want = {name: 0 for name in KERNELS}
+    want["knn"] = -(-n // 1024)
+    log("  launches on the kNN path: %s" % launches)
+    if launches != want:
+        raise AssertionError("launch counts %s, expected %s"
+                             % (launches, want))
+    if (dist.shape != (n, k) or idx.shape != (n, k) or len(table) != n
+            or not np.array_equal(saved["indices"], idx)
+            or any(len(v) != k - 1 for v in table.values())):
+        raise AssertionError("bad kNN outputs: %s %s, %d json rows"
+                             % (dist.shape, idx.shape, len(table)))
+    # a 1024-query sample of the output against the plain version
+    pick = np.random.default_rng(SEED + 1).choice(n, 1024, replace=False)
+    corpus = torch.from_numpy(feats).to(dev)
+    ref_d, ref_i = knn_kernel.knn_chunk_plain(corpus[pick], corpus, k + 1)
+    check_knn("knn build", torch.from_numpy(dist[pick]).to(dev),
+              torch.from_numpy(idx[pick]).to(dev), ref_d, ref_i,
+              self_idx=torch.from_numpy(pick).to(dev))
+    log("  kNN build: %d queries x %d x %d, k %d, %.2f s through the CLI "
+        "(load, %d chunks, the .npy and the json; %s)"
+        % (n, n, dim, k, build_s, want["knn"], card))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -829,11 +1215,18 @@ def main():
     del ctx
     launches_pre = phase_pretrain(dev, card)
     phase_train_cli(dev)
+    launches_att = phase_att_pretrain(dev, card)
+    phase_att_cli(dev)
+    launches_knn = phase_knn(dev, card)
     log("total %.1f s" % (time.perf_counter() - t0))
     # launches: each kernel's path; the CX training path (phase 3) runs
-    # gru, vfeat, vfeat_bwd and mixture, pretraining (phase 5) the rest
-    on_path = {k: (launches_pre if k in ("gru_pg", "gru_bwd", "mutan")
-                   else launches)[k] for k in KERNELS}
+    # gru, vfeat, vfeat_bwd and mixture, MutanNoAtt pretraining (phase 5)
+    # gru_pg, gru_bwd and mutan, MutanAtt pretraining (phase 7) the folded
+    # MUTAN kernels, the kNN builder (phase 9) knn
+    path = dict(gru_pg=launches_pre, gru_bwd=launches_pre,
+                mutan=launches_pre, attmutan=launches_att,
+                attmutan_bwd=launches_att, knn=launches_knn)
+    on_path = {k: path.get(k, launches)[k] for k in KERNELS}
     kernels = [dict(name=name, route="cuda",
                     source="vqa_counterexamples_tpu_torch/csrc/%s.cu"
                     % SOURCES[name], replaces=REPLACES[name],

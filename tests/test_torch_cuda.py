@@ -10,6 +10,7 @@ and no JAX (the tests' conftest imports jax), run them as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -311,3 +312,178 @@ def test_new_wrappers_forward_only_and_refuse_bad_operands(dev):
         gru_kernel.gru_recurrence(xp, w.detach()[:, :2].contiguous(),
                                   torch.zeros(6, device=dev),
                                   torch.ones(2, 3, 2, dtype=bf, device=dev))
+
+
+def _attmutan_inputs(dev, batch, k, dh, rank, m, seed=0):
+    """x_v (B, K, Dh) and w (R*M, Dh) bf16, b (R*M,) f32, hq (B, R, M) f32
+    and a cotangent g (B, K, M) bf16."""
+    gen = torch.Generator().manual_seed(seed + k + dh + m)
+    xv = _randn(gen, dev, batch, k, dh)
+    w = _randn(gen, dev, rank * m, dh, scale=dh ** -0.5)
+    b = _randn(gen, dev, rank * m, scale=0.1, dtype=torch.float32)
+    hq = _randn(gen, dev, batch, rank, m, dtype=torch.float32)
+    g = _randn(gen, dev, batch, k, m, scale=0.1)
+    return xv, w, b, hq, g
+
+
+# ragged against the 64-wide tiles and the 8-element vector loads; the
+# last is MutanAtt's attention shape
+_ATT_SHAPES = [(3, 5, 20, 2, 24), (5, 70, 72, 3, 130), (2, 65, 40, 1, 64),
+               (128, 196, 310, 5, 510)]
+
+
+@pytest.mark.parametrize("batch,k,dh,rank,m", _ATT_SHAPES)
+def test_attmutan_kernel_matches_plain(dev, batch, k, dh, rank, m):
+    """5f: bf16 outputs from f32 sums of the same exact bf16 products in
+    another order (one bf16 step of the output, 2^-8 relative)."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import attmutan_kernel
+
+    xv, w, b, hq, _ = _attmutan_inputs(dev, batch, k, dh, rank, m)
+    before = attmutan_kernel.folded_mutan.launches
+    got = attmutan_kernel.folded_mutan(xv, w, b, hq)
+    ref = attmutan_kernel.folded_mutan_plain(xv, w, b, hq)
+    torch.cuda.synchronize()
+    assert attmutan_kernel.folded_mutan.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (batch, k, m)
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                               rtol=8e-3)
+
+
+@pytest.mark.parametrize("batch,k,dh,rank,m", _ATT_SHAPES)
+def test_attmutan_bwd_kernel_matches_plain(dev, batch, k, dh, rank, m):
+    """5b: dx_v and dhq (bf16 from f32 sums) and dw, db (f32 sums over
+    every example, another order) within 1e-2 of each tensor's largest
+    entry, and bit-equal on a rerun."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import attmutan_kernel
+
+    xv, w, b, hq, g = _attmutan_inputs(dev, batch, k, dh, rank, m, seed=1)
+    before = attmutan_kernel.folded_mutan_bwd.launches
+    got = attmutan_kernel.folded_mutan_bwd(xv, w, b, hq, g)
+    ref = attmutan_kernel.folded_mutan_bwd_plain(xv, w, b, hq, g)
+    again = attmutan_kernel.folded_mutan_bwd(xv, w, b, hq, g)
+    torch.cuda.synchronize()
+    assert attmutan_kernel.folded_mutan_bwd.launches == before + 2
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32, torch.bfloat16]
+    for name, a, r, c in zip(("dx_v", "dw", "db", "dhq"), got, ref, again):
+        assert a.shape == r.shape, name
+        _assert_rel(a, r, 1e-2, name)
+        assert torch.equal(a, c), name
+
+
+def test_folded_function_grads_match_plain_autograd(dev):
+    """:class:`FoldedMutan` (both kernels) against autograd through the
+    plain forward, on f32 leaves behind the casts."""
+    from vqa_counterexamples_tpu_torch.ops import fusion as fusion_ops
+    from vqa_counterexamples_tpu_torch.ops.cuda import attmutan_kernel
+
+    xv, w, b, hq, g = _attmutan_inputs(dev, 6, 37, 40, 3, 50, seed=2)
+    leaves = [t.float().requires_grad_() for t in (xv, w, b, hq)]
+    grads = []
+    for fn in (lambda *a: fusion_ops.FoldedMutan.apply(*a),
+               attmutan_kernel.folded_mutan_plain):
+        out = fn(leaves[0].to(torch.bfloat16), leaves[1].to(torch.bfloat16),
+                 leaves[2], leaves[3])
+        (out.float() * g.float()).sum().backward()
+        grads.append([t.grad.clone() for t in leaves])
+        for t in leaves:
+            t.grad = None
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("x_v", "w", "b", "hq"), *grads):
+        _assert_rel(got, ref, 2e-2, name)
+
+
+@pytest.mark.parametrize("bq,n,dim,k", [
+    (5, 40, 12, 3), (70, 1000, 37, 25), (130, 4099, 64, 32),
+    (200, 20000, 64, 100), (1024, 82783, 2048, 25)])
+def test_knn_kernel_matches_plain(dev, bq, n, dim, k):
+    """Kernel 6 against ``knn_chunk_plain``: distances within rtol 1e-4
+    (f32 sums in another order; 2e-2 absolute at the self-distances, which
+    are f32 cancellation noise of about sqrt(eps |q|^2)), the same
+    neighbours wherever adjacent distances are further apart than that."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import knn_kernel
+
+    gen = torch.Generator().manual_seed(n)
+    corpus = torch.randn(n, dim, generator=gen).to(dev)
+    pick = torch.randperm(n, generator=gen)[:bq].to(dev)
+    queries = corpus[pick].contiguous()
+    before = knn_kernel.knn_chunk.launches
+    d1, i1 = knn_kernel.knn_chunk(queries, corpus, k)
+    d2, i2 = knn_kernel.knn_chunk_plain(queries, corpus, k)
+    torch.cuda.synchronize()
+    assert knn_kernel.knn_chunk.launches == before + 1
+    assert i1.dtype == torch.int32 and d1.shape == (bq, k)
+    assert torch.equal(i1[:, 0], pick.to(torch.int32))
+    torch.testing.assert_close(d1, d2, atol=2e-2, rtol=1e-4)
+    assert (d1[:, 1:] >= d1[:, :-1]).all()
+    gap = torch.cat([d2[:, 1:] - d2[:, :-1],
+                     torch.full((bq, 1), float("inf"), device=dev)], 1)
+    prev = torch.cat([torch.full((bq, 1), float("inf"), device=dev),
+                      gap[:, :-1]], 1)
+    clear = (gap > 2e-2) & (prev > 2e-2)
+    assert torch.equal(i1[clear], i2[clear])
+
+
+def test_knn_kernel_takes_k_up_to_its_shared_memory(dev):
+    """The running lists are sized from k: the largest k the device's
+    shared memory holds (405 on the H100) runs and agrees with the plain
+    version on the neighbours and distances; one more raises."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import knn_kernel
+
+    limit = knn_kernel.kmax(dev)
+    assert limit >= 400
+    gen = torch.Generator().manual_seed(1)
+    corpus = torch.randn(3000, 40, generator=gen).to(dev)
+    queries = corpus[:65].contiguous()
+    d1, i1 = knn_kernel.knn_chunk(queries, corpus, limit)
+    d2, i2 = knn_kernel.knn_chunk_plain(queries, corpus, limit)
+    torch.cuda.synchronize()
+    assert torch.equal(i1[:, 0].long(), torch.arange(65, device=dev))
+    torch.testing.assert_close(d1, d2, atol=2e-2, rtol=1e-4)
+    assert (d1[:, 1:] >= d1[:, :-1]).all()
+    with pytest.raises(ValueError, match="shared memory"):
+        knn_kernel.knn_chunk(queries, corpus, limit + 1)
+
+
+def test_knn_kernel_ties_go_to_the_smallest_index(dev):
+    """Duplicated corpus rows tie exactly: the smaller index wins, in every
+    slice of the corpus and across them."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import knn_kernel
+
+    gen = torch.Generator().manual_seed(0)
+    base = torch.randn(300, 16, generator=gen)
+    corpus = torch.cat([base] * 20).to(dev)          # row i == row i + 300
+    d, i = knn_kernel.knn_chunk(corpus[:7].contiguous(), corpus, 20)
+    torch.cuda.synchronize()
+    want = torch.arange(7, device=dev)[:, None] + 300 * torch.arange(
+        20, device=dev)[None]
+    assert torch.equal(i.long(), want)
+    assert torch.equal(d, d[:, :1].expand(-1, 20))
+
+
+def test_pinned_att_batches_match_host_path(dev):
+    """Att-map batches gathered into the pinned ping-pong buffers and
+    copied on the side stream: the host path's batches, bit for bit, each
+    still intact after the buffers were reused."""
+    from vqa_counterexamples_tpu_torch.data.features import FeatureStore
+    from vqa_counterexamples_tpu_torch.data.vqa_dataset import VQAArrays
+
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(20, 3, 3, 8)).astype(np.float32)
+    names = ["n%d" % i for i in range(20)]
+    examples = [{"question_id": i, "question_wids": [1, 2, 0],
+                 "image_name": names[int(rng.integers(0, 20))],
+                 "answer_aid": i % 3, "answers_aid": [i % 3, 1],
+                 "answers_count": [3, 2]} for i in range(37)]
+    arrays = VQAArrays(examples, FeatureStore(feats, names),
+                       samplingans=True)
+    host = list(arrays.batches(8, rng=np.random.default_rng(1)))
+    card = list(arrays.batches(8, rng=np.random.default_rng(1), device=dev))
+    torch.cuda.synchronize()
+    assert len(card) == len(host) == 5
+    for c, h in zip(card, host):
+        assert c["visual"].device.type == "cuda"
+        np.testing.assert_array_equal(c["visual"].cpu().numpy(),
+                                      h["visual"])
+        for k in ("question", "answer", "question_id"):
+            np.testing.assert_array_equal(c[k], h[k])

@@ -121,8 +121,15 @@ def test_port_import_leaves_jax_out():
             "import vqa_counterexamples_tpu_torch.models.common\n"
             "import vqa_counterexamples_tpu_torch.ops.fusion\n"
             "import vqa_counterexamples_tpu_torch.ops.cuda.mutan_kernel\n"
+            "import vqa_counterexamples_tpu_torch.ops.cuda.attmutan_kernel\n"
+            "import vqa_counterexamples_tpu_torch.ops.cuda.knn_kernel\n"
+            "import vqa_counterexamples_tpu_torch.models.att\n"
+            "import vqa_counterexamples_tpu_torch.ops.topk\n"
+            "import vqa_counterexamples_tpu_torch.data.features\n"
+            "import vqa_counterexamples_tpu_torch.cli.knn as k\n"
             "c.build_parser()\n"
             "t.build_parser()\n"
+            "k.build_parser()\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'vqa_counterexamples_tpu'))\n"
             "print(bad)\n"

@@ -1,0 +1,108 @@
+"""kNN builder CLI (port of ``cli/knn.py``; reference ``knn.py``).
+
+Exact k nearest neighbours over the extracted ``noatt`` feature matrix
+(``{prefix}.npy`` + ``{prefix}.txt``), every image against every image,
+through ``ops/topk.knn`` (on the card the fused distance + top-k kernel),
+and writes:
+
+* ``knn_results.npy``: {'indices', 'distances'} (the reference's artifact,
+  ``knn.py:55-58``), and
+* with ``--json-out``: the VQA-distributed KNN format the dataset builders
+  read, {image_id: [k - 1 neighbour image_ids]}, self dropped::
+
+    python -m vqa_counterexamples_tpu_torch.cli.knn \\
+        --path_features data/coco/extract/trainset -k 25 --json-out knn.json
+
+``--engine cuda`` (default; JAX's ``pallas`` names it too) is the kernel,
+``plain`` (or ``xla``) its plain version.  The kernel keeps each query's k
+neighbours in a block's shared memory, so it takes k up to 405 on the H100
+(``knn_kernel.kmax``) and raises above that; ``plain`` has no such cap.  The device is ``cuda``; with no
+card visible the CLI refuses to run unless ``--device cpu`` is given.
+``--approx``, ``--mesh`` and ``--distributed`` raise
+``NotImplementedError`` (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+# the JAX CLI's engine names
+_ENGINE_ALIASES = {"cuda": "cuda", "pallas": "cuda", "plain": "plain",
+                   "xla": "plain"}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--path_features", required=True, type=str,
+                        help="prefix of {prefix}.npy + {prefix}.txt")
+    parser.add_argument("--dataset", default="noatt", type=str)
+    parser.add_argument("-k", "--n_neighbors", default=25, type=int,
+                        help="neighbours per image, self included (engine "
+                             "cuda: at most 405 on the H100, the running "
+                             "lists' shared memory; plain: any)")
+    parser.add_argument("-b", "--batch_size", default=1024, type=int)
+    parser.add_argument("--engine", default="cuda",
+                        choices=sorted(_ENGINE_ALIASES),
+                        help="cuda = the fused distance + top-k kernel; "
+                             "plain = one GEMM + topk per chunk")
+    parser.add_argument("--approx", action="store_true",
+                        help="approximate top-k (not ported)")
+    parser.add_argument("--out", default=None, type=str,
+                        help="output .npy path (default: alongside features)")
+    parser.add_argument("--json-out", default=None, type=str,
+                        help="also write VQA-format {image_id: [ids]} json")
+    parser.add_argument("--split", default="train", choices=["train", "val"])
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="shard the corpus over a mesh (not ported)")
+    parser.add_argument("--distributed", action="store_true",
+                        help="multi-host bootstrap (not ported)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device (default cuda; cpu must be asked "
+                             "for)")
+    return parser
+
+
+def main(argv=None):
+    from ..data.features import FeatureStore
+    from ..data.vqacx import coco_name_to_num
+    from ..ops import topk
+
+    args = build_parser().parse_args(argv)
+    for flag in ("approx", "mesh", "distributed"):
+        if getattr(args, flag):
+            raise NotImplementedError(
+                "--%s is not ported to the PyTorch package yet (ROADMAP.md, "
+                "Queue 1)" % flag)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible: the port runs on the "
+                           "card; pass --device cpu to run on the CPU")
+    store = FeatureStore.load(args.path_features, dataset=args.dataset)
+    print("Loaded %d features of dim %d" % store.features.shape)
+    dist, idx = topk.knn(store.features, k=args.n_neighbors,
+                         batch_size=args.batch_size,
+                         engine=_ENGINE_ALIASES[args.engine], device=device)
+
+    out = args.out or (args.path_features + "_knn_results.npy")
+    np.save(out, {"indices": idx, "distances": dist})
+    print("Saved KNN results to", out)
+
+    if args.json_out:
+        table = {}
+        for row, name in enumerate(store.names):
+            # drop self (rank 0) and keep k - 1 neighbours as image ids
+            neigh = [coco_name_to_num(store.names[j])
+                     for j in idx[row] if j != row][:args.n_neighbors - 1]
+            table[str(coco_name_to_num(name))] = neigh
+        with open(args.json_out, "w") as f:
+            json.dump(table, f)
+        print("Saved VQA-format KNN json to", args.json_out)
+    return dist, idx
+
+
+if __name__ == "__main__":
+    main()

@@ -2,18 +2,23 @@
 card.
 
     python -m vqa_counterexamples_tpu_torch.cli.profile_vqa \\
-        [--epochs 3] [--out logs/profile_vqa.json]
+        [--path_opt configs/vqa2/mutan_noatt_train.yaml] [--epochs 3] \\
+        [--out logs/profile_vqa.json]
 
-Builds MutanNoAtt from ``configs/vqa2/mutan_noatt_train.yaml`` at its full
-width (dim_v 2048, BayesianUniSkip 620 -> 2400 with per-gate masks, MUTAN
-R 10 at 360, 2000 answers; random weights from ``--seed``) on 2048
-synthetic examples, under the bf16 policy, B 512, and warms up.  Then it
-times ``--epochs`` passes of ``engines/vqa_engine.train_epoch`` (4 steps
-each, Adam at 1e-4, the reference's dropouts) and of ``validate`` over
-the same 2048 examples on the host clock, runs them again under
-``torch.profiler``, and reports per batch what ``cli/profile_cx.py``
-reports (wall, host and drain ms; device-busy ms and idle share; kernel
-launches; device time by kernel group and the top kernels).
+Builds the configuration's model at its full width with 2000 answers and
+random weights from ``--seed``: MutanNoAtt from
+``configs/vqa2/mutan_noatt_train.yaml`` (dim_v 2048, BayesianUniSkip 620
+-> 2400 with per-gate masks, MUTAN R 10 at 360) on 2048 synthetic
+examples, or MutanAtt from ``configs/vqa2/mutan_att_train.yaml`` (14 x 14
+maps of 2048, two glimpses, MUTAN R 5 at both stages) on 1024 examples over
+256 images, their maps gathered on the host.  Under the bf16 policy, at
+the configuration's batch size (512 / 128), it warms up, then times
+``--epochs`` passes of ``engines/vqa_engine.train_epoch`` (Adam at 1e-4,
+the reference's dropouts) and of ``validate`` over the same examples on
+the host clock, runs them again under ``torch.profiler``, and reports per
+batch what ``cli/profile_cx.py`` reports (wall, host and drain ms;
+device-busy ms and idle share; kernel launches; device time by kernel
+group and the top kernels).
 
 Needs a card: it refuses to run without one.  The JSON report goes to
 ``--out``.
@@ -35,26 +40,33 @@ CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
                       "configs", "vqa2", "mutan_noatt_train.yaml")
 
 
-def flagship_vqa(seed: int = 0):
-    """(model, examples, store, options): MutanNoAtt at the configuration's
-    widths with 2000 answers, seeded random weights, on the CPU, and 2048
-    synthetic examples at its dim_v and maxlength."""
+def flagship_vqa(seed: int = 0, path_opt: str = CONFIG,
+                 n_examples: int = 2048):
+    """(model, examples, store, options): the configuration's model at its
+    widths with 2000 answers, seeded random weights, on the CPU, and
+    ``n_examples`` synthetic examples at its dim_v and maxlength (spatial
+    maps for the attention archs)."""
     from ..core import config as config_lib
     from ..data import synthetic
     from ..engines import vqa_engine
     from ..models import factory
 
-    options = config_lib.load_options_file(CONFIG)
+    options = config_lib.load_options_file(path_opt)
+    model_opt = options["model"]
+    arch = model_opt["arch"]
     examples, store, words, answers = synthetic.make_synthetic_vqa(
-        2048, 2000, options["vqa"]["maxlength"],
-        dim_v=options["model"]["fusion"]["dim_v"], seed=seed)
-    model = factory.factory_vqa(options["model"], words, answers)
+        n_examples, 2000, options["vqa"]["maxlength"],
+        dim_v=model_opt.get("dim_v") or model_opt["fusion"]["dim_v"],
+        spatial=arch.endswith("Att") and not arch.endswith("NoAtt"),
+        seed=seed)
+    model = factory.factory_vqa(model_opt, words, answers)
     vqa_engine.init_vqa_params(model, seed=seed)
     return model, examples, store, options
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--path_opt", default=CONFIG)
     parser.add_argument("--epochs", type=int, default=3)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default="logs/profile_vqa.json")
@@ -65,6 +77,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from ..core import config as config_lib
     from ..core.experiment import Experiment
     from ..core.meters import AvgMeter
     from ..data.vqa_dataset import VQAArrays
@@ -74,11 +87,15 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    batch_size = 512
-    model, examples, store, _ = flagship_vqa(seed=args.seed)
+    options = config_lib.load_options_file(args.path_opt)
+    noatt = options["coco"]["mode"] == "noatt"
+    batch_size = options["optim"]["batch_size"]
+    model, examples, store, _ = flagship_vqa(
+        seed=args.seed, path_opt=args.path_opt,
+        n_examples=2048 if noatt else 1024)
     model.to(dev)
     arrays = VQAArrays(examples, store, samplingans=True)
-    feats = store.to_device(dev)
+    feats = store.to_device(dev) if noatt else None
     state = vqa_engine.init_vqa_state(model, lr=1e-4)
     train_step = vqa_engine.make_vqa_train_step(model, state.optimizer,
                                                 base_seed=args.seed)
@@ -93,17 +110,19 @@ def main(argv=None):
         vqa_engine.train_epoch(
             train_step, state, arrays.batches(
                 batch_size, shuffle=True, rng=rng, drop_remainder=True,
-                device_features=feats), exp, 1, print_freq=10 ** 9)
+                device_features=feats, device=dev), exp, 1,
+            print_freq=10 ** 9)
 
     def eval_pass():
         vqa_engine.validate(eval_step, arrays.batches(
             batch_size, shuffle=False, drop_remainder=True,
-            device_features=feats), exp, 1)
+            device_features=feats, device=dev), exp, 1)
 
     for fn in (train_pass, eval_pass):
         fn()
     per_pass = arrays.size // batch_size
-    report = {"card": card, "batch_size": batch_size,
+    report = {"card": card, "config": os.path.basename(args.path_opt),
+              "batch_size": batch_size,
               "examples": arrays.size, "passes": args.epochs,
               "train_step": profile_calls(train_pass, args.epochs, per_pass),
               "eval_batch": profile_calls(eval_pass, args.epochs, per_pass)}

@@ -1,8 +1,8 @@
 """VQA pretraining CLI (port of ``cli/train.py``; reference ``train.py``).
 
-Trains the MutanNoAtt classifier with per-epoch validation (acc@1 / acc@5
-and the OpenEnded result rows), the best epoch by val acc@1 kept as
-``best_*`` beside the last ``ckpt_*`` (or every epoch from
+Trains the MutanNoAtt or MutanAtt classifier with per-epoch validation
+(acc@1 / acc@5 and the OpenEnded result rows), the best epoch by val acc@1
+kept as ``best_*`` beside the last ``ckpt_*`` (or every epoch from
 ``--save_all_from`` on), and ``logger.json``; a trainval run writes the
 test2015 / test-dev2015 rows each epoch instead of validating::
 
@@ -12,11 +12,13 @@ test2015 / test-dev2015 rows each epoch instead of validating::
 
 ``--resume best|ckpt`` continues from ``dir_logs``; ``-e`` only evaluates.
 The device is ``cuda``; with no card visible the CLI refuses to run unless
-``--device cpu`` is given.  ``--mesh``, ``--distributed``, real data, an
-encoder other than skip-thoughts and an arch other than MutanNoAtt raise
-``NotImplementedError`` (see ROADMAP.md for when they come).  The
-OpenEnded scoring of val rows against real annotations (the JAX CLI's
-``eval_res`` thread) is not ported: it only runs on real data.
+``--device cpu`` is given.  MutanAtt's att maps stay on the host and
+stream through ``VQAArrays.batches``' gather (the next batch prefetched, in
+pinned buffers for a card), as the JAX CLI's do.  ``--mesh``,
+``--distributed``, real data, an encoder other than skip-thoughts and the
+MLB archs raise ``NotImplementedError`` (see ROADMAP.md for when they
+come).  The OpenEnded scoring of val rows against real annotations (the
+JAX CLI's ``eval_res`` thread) is not ported: it only runs on real data.
 """
 
 from __future__ import annotations
@@ -195,14 +197,16 @@ def main(argv=None):
     def val_loader():
         return val_arrays.batches(batch_size, shuffle=False,
                                   drop_remainder=True,
-                                  device_features=val_device_features)
+                                  device_features=val_device_features,
+                                  device=device)
 
     def run_test_pass(epoch):
         """OpenEnded submission rows for test2015 + the test-dev subset
         (no ground truth; reference engine.test)."""
         predict = vqa_engine.make_vqa_predict_step(model)
         loader = test_arrays.batches(batch_size, shuffle=False,
-                                     device_features=device_features)
+                                     device_features=device_features,
+                                     device=device)
         rows = vqa_engine.test_pass(predict, loader, vocab_answers)
         qids = test_arrays.is_qid_testdev
         testdev_rows = [r for r in rows if r["question_id"] in qids]
@@ -227,7 +231,8 @@ def main(argv=None):
     for epoch in range(start_epoch, options["optim"]["epochs"] + 1):
         loader = train_arrays.batches(batch_size, shuffle=True, rng=rng,
                                       drop_remainder=True,
-                                      device_features=device_features)
+                                      device_features=device_features,
+                                      device=device)
         state = vqa_engine.train_epoch(train_step, state, loader, exp, epoch,
                                        print_freq=args.print_freq)
         if test_arrays is not None:

@@ -1,6 +1,7 @@
 """Model factories (port of ``models/factory.py``): ``factory_vqa`` for
-MutanNoAtt and ``factory_cx`` for NeuralModel, and ``flagship_cx``, the
-flagship configuration at full width."""
+MutanNoAtt and MutanAtt (with the reference constructors' dim tying),
+``factory_cx`` for NeuralModel, and ``flagship_cx``, the flagship
+configuration at full width."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from typing import Sequence
 
 from torch import nn
 
+from . import att as att_mod
 from . import cx as cx_mod
 from . import noatt as noatt_mod
 
@@ -20,6 +22,10 @@ def factory_vqa(opt: dict, vocab_words: Sequence[str],
     if arch == "MutanNoAtt":
         opt["fusion"]["dim_h"] = opt["fusion"]["dim_mm"]  # noatt.py:52
         return noatt_mod.MutanNoAtt(opt, vocab_words, vocab_answers)
+    if arch == "MutanAtt":
+        opt["attention"]["dim_v"] = opt["attention"]["dim_hv"]  # att.py:199
+        opt["attention"]["dim_q"] = opt["attention"]["dim_hq"]
+        return att_mod.MutanAtt(opt, vocab_words, vocab_answers)
     raise NotImplementedError(
         "VQA arch %r is not ported yet (ROADMAP.md, Queue 1)" % arch)
 

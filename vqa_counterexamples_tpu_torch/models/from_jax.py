@@ -7,8 +7,10 @@ modules use, so ``module.load_state_dict(...)`` takes it as is, and
 ``port_torch.port_cx_state_dict`` reads it back into the flax tree.
 
 Layout conversions: flax ``Dense`` kernel (in, out) -> ``nn.Linear.weight``
-(out, in); the fused MUTAN ``w_hv`` (din, R*dmm) -> per-rank
-``list_linear_hv.{r}`` Linears; GRU ``w_ih`` (D, 3H) / ``w_hh`` (H, 3H)
+(out, in), or a 1x1 ``nn.Conv2d`` weight (out, in, 1, 1) for the attention
+models' ``conv_*``; the fused MUTAN ``w_hv`` (din, R*dmm) -> per-rank
+``list_linear_hv.{r}`` Linears; ``list_linear_v_fusion_{g}`` ->
+``list_linear_v_fusion.{g}``; GRU ``w_ih`` (D, 3H) / ``w_hh`` (H, 3H)
 -> ``gru_cell.weight_ih`` (3H, D) / ``weight_hh`` (3H, H), gate order
 r, z, n unchanged.  The same conversions carry optax's Adam moments into
 ``torch.optim.Adam`` (:func:`adam_state_from_jax`).
@@ -33,8 +35,30 @@ def _linear(sd: dict, prefix: str, kernel, bias) -> None:
     sd[prefix + ".bias"] = _t(bias)
 
 
+def _mutan(sd: dict, prefix: str, fus: dict, dmm: int) -> None:
+    """A MutanFusion subtree: ``linear_v`` / ``linear_q`` where the module
+    has them, the per-rank Linears from the stacked ``w_h*`` / ``b_h*``."""
+    for side in ("v", "q"):
+        if "linear_" + side in fus:
+            lin = fus["linear_" + side]
+            _linear(sd, prefix + "linear_" + side, lin["kernel"],
+                    lin["bias"])
+        w, b = np.asarray(fus["w_h" + side]), np.asarray(fus["b_h" + side])
+        for r in range(w.shape[1] // dmm):
+            cols = slice(r * dmm, (r + 1) * dmm)
+            _linear(sd, prefix + "list_linear_h%s.%d" % (side, r),
+                    w[:, cols], b[cols])
+
+
+def _conv1x1(sd: dict, prefix: str, kernel, bias) -> None:
+    w = _t(kernel).t().contiguous()
+    sd[prefix + ".weight"] = w.reshape(w.shape[0], w.shape[1], 1, 1)
+    sd[prefix + ".bias"] = _t(bias)
+
+
 def vqa_state_dict_from_jax(params: dict, prefix: str = "") -> dict:
-    """MutanNoAtt (skip-thoughts encoder) param tree -> state_dict."""
+    """MutanNoAtt or MutanAtt (skip-thoughts encoder) param tree ->
+    state_dict."""
     sd = {}
     s2v = params["seq2vec"]
     sd[prefix + "seq2vec.embedding.weight"] = _t(s2v["embedding"])
@@ -44,19 +68,27 @@ def vqa_state_dict_from_jax(params: dict, prefix: str = "") -> dict:
     sd[cell + "bias_ih"] = _t(_field(gru, "b_ih"))
     sd[cell + "weight_hh"] = _t(_field(gru, "w_hh")).t().contiguous()
     sd[cell + "bias_hh"] = _t(_field(gru, "b_hh"))
-
-    fus = params["fusion_module"]
-    for side in ("v", "q"):
-        lin = fus["linear_" + side]
-        _linear(sd, prefix + "fusion.linear_" + side, lin["kernel"],
-                lin["bias"])
-        w, b = np.asarray(fus["w_h" + side]), np.asarray(fus["b_h" + side])
-        dmm = np.asarray(params["linear_classif"]["kernel"]).shape[0]
-        for r in range(w.shape[1] // dmm):
-            cols = slice(r * dmm, (r + 1) * dmm)
-            _linear(sd, prefix + "fusion.list_linear_h%s.%d" % (side, r),
-                    w[:, cols], b[cols])
     cls = params["linear_classif"]
+    dmm = np.asarray(cls["kernel"]).shape[0]
+    if "conv_v_att" in params:
+        for name in ("conv_v_att", "conv_att"):
+            _conv1x1(sd, prefix + name, params[name]["kernel"],
+                     params[name]["bias"])
+        g = 0
+        while "list_linear_v_fusion_%d" % g in params:
+            lin = params["list_linear_v_fusion_%d" % g]
+            _linear(sd, prefix + "list_linear_v_fusion.%d" % g,
+                    lin["kernel"], lin["bias"])
+            g += 1
+        for name in ("linear_q_att", "linear_q_fusion"):
+            _linear(sd, prefix + name, params[name]["kernel"],
+                    params[name]["bias"])
+        _mutan(sd, prefix + "fusion_att.", params["fusion_att_module"],
+               np.asarray(params["conv_att"]["kernel"]).shape[0])
+        _mutan(sd, prefix + "fusion_classif.",
+               params["fusion_classif_module"], dmm)
+    else:
+        _mutan(sd, prefix + "fusion.", params["fusion_module"], dmm)
     _linear(sd, prefix + "linear_classif", cls["kernel"], cls["bias"])
     return sd
 
@@ -110,7 +142,7 @@ def adam_state_from_jax(opt_state, model: torch.nn.Module,
 
 def vqa_adam_state_from_jax(opt_state, model: torch.nn.Module,
                             optimizer: torch.optim.Optimizer) -> None:
-    """The same for a MutanNoAtt trained by the VQA engine: optax's Adam
-    over the whole VQA param tree into the state of every parameter of
-    ``model``."""
+    """The same for a MutanNoAtt or MutanAtt trained by the VQA engine:
+    optax's Adam over the whole VQA param tree into the state of every
+    parameter of ``model``."""
     _carry_adam(opt_state, model, optimizer, vqa_state_dict_from_jax)

@@ -1,15 +1,19 @@
-"""MUTAN fusion (port of ``models/fusion.MutanFusion``).
+"""MUTAN fusion (port of ``models/fusion.MutanFusion`` / ``MutanFusion2d``).
 
 ``sum_r (x_v @ Wv_r + bv_r) * (x_q @ Wq_r + bq_r)`` with
 ``x_v = act_v(linear_v(drop_v(v)))`` and ``x_q = act_q(linear_q(
-drop_q(q)))``.  The per-rank projections are kept as the reference's
-``list_linear_hv.{r}`` / ``list_linear_hq.{r}`` Linears (checkpoint names)
-and stacked rank-major into one (R*dim_mm, dim_h) GEMM operand when used.
-In the reference default configuration (no per-rank dropout or
-activation) the rank sum is the Tucker op of ``ops/fusion`` (the CUDA
-kernel under bf16 on the card), and the image side is cacheable per image
-(``v_project``); the general configuration runs the per-rank dropout and
-activations in plain PyTorch.
+drop_q(q)))``; with ``visual_embedding`` / ``question_embedding`` off (the
+attention models' two fusions) that side's input is used as it comes and
+``linear_v`` / ``linear_q`` do not exist.  The per-rank projections are kept
+as the reference's ``list_linear_hv.{r}`` / ``list_linear_hq.{r}`` Linears
+(checkpoint names) and stacked rank-major into one (R*dim_mm, dim_h) GEMM
+operand when used.  In the reference default configuration (no per-rank
+dropout or activation) the rank sum is the Tucker op of ``ops/fusion`` (the
+CUDA kernel under bf16 on the card), and the image side is cacheable per
+image (``v_project``); the general configuration runs the per-rank dropout
+and activations in plain PyTorch.  ``fuse_candidates`` fuses K candidates
+(CX's K+1 images, MutanAtt's 196 positions) with one question per example
+(JAX's three branches: duplicated, folded, and the folded kernels).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..core.policy import dot_f32
+from ..core.policy import cast_in, compute_dtype, dot_f32
 from ..ops import fusion as fusion_ops
 from .common import dropout
 
@@ -31,6 +35,15 @@ _ACTIVATIONS = {
 
 def activation(name: str):
     return _ACTIVATIONS[name]
+
+
+def att_kernel_ok(k1: int, device: torch.device) -> bool:
+    """Gate for the folded-MUTAN kernels (JAX ``_att_pallas_ok`` without its
+    TPU and mesh parts): tensors on the card, the bf16 policy and the
+    spatial scale (k1 >= 64; the CX candidate axis stays on the other
+    branches).  Elsewhere the XLA folded form, as JAX off the TPU."""
+    return (device.type == "cuda" and compute_dtype() == torch.bfloat16
+            and k1 >= 64)
 
 
 def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -51,12 +64,17 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
 
 
 class MutanFusion(nn.Module):
-    def __init__(self, opt: dict):
+    def __init__(self, opt: dict, visual_embedding: bool = True,
+                 question_embedding: bool = True):
         super().__init__()
         self.opt = dict(opt)
+        self.visual_embedding = visual_embedding
+        self.question_embedding = question_embedding
         rank, dim_mm = opt["R"], opt["dim_mm"]
-        self.linear_v = nn.Linear(opt["dim_v"], opt["dim_hv"])
-        self.linear_q = nn.Linear(opt["dim_q"], opt["dim_hq"])
+        if visual_embedding:
+            self.linear_v = nn.Linear(opt["dim_v"], opt["dim_hv"])
+        if question_embedding:
+            self.linear_q = nn.Linear(opt["dim_q"], opt["dim_hq"])
         self.list_linear_hv = nn.ModuleList(
             [nn.Linear(opt["dim_hv"], dim_mm) for _ in range(rank)])
         self.list_linear_hq = nn.ModuleList(
@@ -70,11 +88,21 @@ class MutanFusion(nn.Module):
         return (opt.get("dropout_hv", 0) == 0 and opt.get("dropout_hq", 0) == 0
                 and "activation_hv" not in opt and "activation_hq" not in opt)
 
+    @property
+    def has_input_dropout(self) -> bool:
+        """The module draws dropout masks on its inputs itself (an
+        embedding on, with its dropout): then training-mode candidate
+        fusion must draw per-candidate masks (the duplicated path)."""
+        opt = self.opt
+        return ((self.visual_embedding and opt.get("dropout_v", 0) > 0)
+                or (self.question_embedding and opt.get("dropout_q", 0) > 0))
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """JAX initializers: lecun_normal kernels, zero biases."""
-        for layer in [self.linear_v, self.linear_q, *self.list_linear_hv,
-                      *self.list_linear_hq]:
+        layers = [getattr(self, name) for name in ("linear_v", "linear_q")
+                  if hasattr(self, name)]
+        for layer in [*layers, *self.list_linear_hv, *self.list_linear_hq]:
             lecun_normal_(layer.weight, generator)
             layer.bias.zero_()
 
@@ -87,6 +115,8 @@ class MutanFusion(nn.Module):
 
     def _v_side(self, input_v: torch.Tensor, training: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.visual_embedding:
+            return input_v
         x_v = dropout(input_v, self.opt.get("dropout_v", 0), generator,
                       training)
         x_v = dense(x_v, self.linear_v)
@@ -96,6 +126,8 @@ class MutanFusion(nn.Module):
 
     def _q_side(self, input_q: torch.Tensor, training: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.question_embedding:
+            return input_q
         x_q = dropout(input_q, self.opt.get("dropout_q", 0), generator,
                       training)
         x_q = dense(x_q, self.linear_q)
@@ -155,20 +187,56 @@ class MutanFusion(nn.Module):
 
     def fuse_candidates(self, input_v: torch.Tensor | None,
                         input_q: torch.Tensor,
-                        hv: torch.Tensor | None = None) -> torch.Tensor:
+                        hv: torch.Tensor | None = None,
+                        training: bool = False,
+                        generator: torch.Generator | None = None
+                        ) -> torch.Tensor:
         """(B, K, Dv) x (B, Dq) -> (B, K, dim_mm) with the question side
-        computed once per example (eval mode, the simple configuration).
-        ``hv``: precomputed ``v_project`` rows (B, K, R, dim_mm) that
-        replace the image side."""
+        computed once per example.  ``hv``: precomputed ``v_project`` rows
+        (B, K, R, dim_mm) that replace the image side (eval mode, the
+        simple configuration).  Otherwise JAX's three branches: the
+        duplicated path when this module's own dropout is live or the
+        configuration is not simple; the folded kernels
+        (:class:`ops.fusion.FoldedMutan`) where :func:`att_kernel_ok`
+        allows; else the folded form (:func:`ops.fusion.folded_mutan`), or
+        the rank rows when K < R."""
+        opt = self.opt
+        rank, dim_mm = opt["R"], opt["dim_mm"]
         if hv is None:
             batch, k1 = input_v.shape[:2]
-            hv = self.v_project(input_v.reshape(batch * k1, -1)).reshape(
-                batch, k1, self.opt["R"], self.opt["dim_mm"])
-        batch = hv.shape[0]
+            if (training and self.has_input_dropout) or not self.simple:
+                q_dup = input_q[:, None, :].expand(
+                    batch, k1, input_q.shape[-1]).reshape(batch * k1, -1)
+                out = self(input_v.reshape(batch * k1, -1), q_dup, training,
+                           generator)
+                return out.reshape(batch, k1, -1)
+            x_v = self._v_side(input_v.reshape(batch * k1, -1), training,
+                               generator)
+        x_q = self._q_side(input_q, training, generator)
         w_hq, b_hq = self._stacked(self.list_linear_hq)
-        hq = (dot_f32(self._q_side(input_q), w_hq.t()) + b_hq).reshape(
-            batch, 1, self.opt["R"], self.opt["dim_mm"])
-        x_mm = torch.sum(hv * hq, dim=2)
-        if "activation_mm" in self.opt:
-            x_mm = activation(self.opt["activation_mm"])(x_mm)
+        hq = (dot_f32(x_q, w_hq.t()) + b_hq).reshape(-1, rank, dim_mm)
+        if hv is not None:
+            x_mm = torch.sum(hv * hq[:, None], dim=2)
+        else:
+            w_hv, b_hv = self._stacked(self.list_linear_hv)
+            xv, wv = cast_in(x_v, w_hv)
+            xv = xv.reshape(batch, k1, -1)
+            if k1 >= rank and att_kernel_ok(k1, xv.device):
+                x_mm = fusion_ops.FoldedMutan.apply(
+                    xv.contiguous(), wv.contiguous(),
+                    b_hv.float().contiguous(), hq.contiguous())
+            elif k1 >= rank:
+                x_mm = fusion_ops.folded_mutan(xv, wv, b_hv, hq)
+            else:
+                rows = (dot_f32(xv, wv.t()) + b_hv).reshape(
+                    batch, k1, rank, dim_mm)
+                x_mm = torch.sum(rows * hq[:, None], dim=2)
+        if "activation_mm" in opt:
+            x_mm = activation(opt["activation_mm"])(x_mm)
         return x_mm
+
+
+# reference name: MUTAN over a (B, W*H, D) spatial axis (``fusion.py:124-146``);
+# the flattening lives in ``MutanFusion.forward``, the candidate form in
+# ``fuse_candidates``
+MutanFusion2d = MutanFusion

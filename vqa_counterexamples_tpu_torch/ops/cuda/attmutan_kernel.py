@@ -1,0 +1,209 @@
+"""The folded attention-MUTAN fusion kernels (CUDA, ``csrc/attmutan.cu``),
+forward and backward, and their plain PyTorch versions.
+
+Replace the TPU kernels of ``vqa_counterexamples_tpu/ops/pallas/
+attmutan_kernel.py``: ``folded_mutan_pallas`` (its ``_fwd_call`` /
+``_fwd_kernel``) and the backward of its custom VJP (``_bwd_call`` /
+``_bwd_kernel``), reached through ``ops/fusion.folded_mutan_auto`` from
+``models/fusion.MutanFusion.fuse_candidates`` in MutanAtt's attention
+stage, where each of the 196 positions is fused with the question::
+
+    weff[b]     = sum_r w_r^T * hq[b, r]          (Dh, M), rounded to bf16
+    out[b, k]   = x_v[b, k] @ weff[b] + sum_r b_r * hq[b, r]
+
+with ``w`` the stacked per-rank ``Linear`` weight (R * M, Dh) (row
+``r * M + m``), ``b`` its bias (R * M,), ``hq`` (B, R, M) the question's
+rank projections.  The rounding points are the TPU kernel's: ``b`` and
+``hq`` rounded to bf16, weff's f32 sum rounded to bf16, f32 accumulation,
+a bf16 output.  The backward returns ``dx_v = bf16(g @ weff^T)``, ``dw`` and
+``db`` (f32 sums over every example) and ``dhq = bf16(sum_d w * dweff + b *
+sum_k g)`` with ``dweff[b] = x_v[b]^T g[b]`` in f32.
+
+What bounds them on the H100: at MutanAtt's shape (B 128, K 196, Dh 310,
+R 5, M 510) the forward is 7.9 GFLOP on about 42 MB, the backward twice the
+GEMM work: about 8 / 16 us of tensor-core time against 13 / 26 us of
+memory, so bytes bound both.  weff (81 MB in f32 at this batch) never
+reaches device memory: each block builds the slice of it that it
+multiplies with in shared memory, as the TPU kernel built it in VMEM.  The
+backward's sums over examples (dw, db) and over Dh (dhq) cross blocks: a
+block owns a (64 of Dh, 64 of M) tile for a contiguous group of examples,
+and small second passes add the groups' and the tiles' partials in a fixed
+order, with no atomics, so reruns are bit-equal.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+_BF16 = torch.bfloat16
+_TILE = 64
+_SMEM_MAX = 232448          # the H100's per-block shared memory limit
+_SMS = 132
+
+
+def _weff(w: torch.Tensor, hq: torch.Tensor) -> torch.Tensor:
+    """(B, M, Dh) bf16: sum over ranks of w_r * hq_r in f32, rank by rank,
+    rounded once (the order of the TPU kernel's ``_weff``)."""
+    batch, rank, m = hq.shape
+    w3 = w.float().reshape(rank, m, -1)
+    h = hq.to(_BF16).float()
+    acc = None
+    for r in range(rank):
+        term = w3[r][None] * h[:, r, :, None]
+        acc = term if acc is None else acc + term
+    return acc.to(_BF16)
+
+
+def _bias(b: torch.Tensor, hq: torch.Tensor) -> torch.Tensor:
+    """(B, M) f32: sum_r bf16(b_r) * bf16(hq_r), rank by rank."""
+    rank, m = hq.shape[1:]
+    b3 = b.to(_BF16).float().reshape(rank, m)
+    h = hq.to(_BF16).float()
+    acc = None
+    for r in range(rank):
+        term = b3[r][None] * h[:, r]
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def folded_mutan_plain(x_v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       hq: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version with the kernel's rounding points.
+
+    x_v (B, K, Dh) bf16, w (R * M, Dh) bf16, b (R * M,) and hq (B, R, M)
+    of any float dtype (rounded to bf16 here).  Returns (B, K, M) bf16.
+    """
+    weff = _weff(w, hq).float()
+    out = torch.matmul(x_v.float(), weff.transpose(1, 2))
+    return (out + _bias(b, hq)[:, None, :]).to(_BF16)
+
+
+def folded_mutan_bwd_plain(x_v: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor, hq: torch.Tensor,
+                           g: torch.Tensor):
+    """Plain version of the backward: (dx_v (B, K, Dh) bf16, dw (R * M, Dh)
+    f32, db (R * M,) f32, dhq (B, R, M) bf16) for the cotangent g (B, K, M)
+    bf16."""
+    batch, rank, m = hq.shape
+    weff = _weff(w, hq).float()
+    gf = g.float()
+    h = hq.to(_BF16).float()
+    dxv = torch.matmul(gf, weff).to(_BF16)
+    dweff = torch.matmul(x_v.float().transpose(1, 2), gf)     # (B, Dh, M)
+    gsum = gf.sum(1)                                           # (B, M)
+    dw = torch.einsum("bdm,brm->rmd", dweff, h).reshape(rank * m, -1)
+    db = torch.einsum("bm,brm->rm", gsum, h).reshape(-1)
+    w3 = w.float().reshape(rank, m, -1)
+    b3 = b.to(_BF16).float().reshape(rank, m)
+    dhq = (torch.einsum("rmd,bdm->brm", w3, dweff)
+           + b3[None] * gsum[:, None]).to(_BF16)
+    return dxv, dw, db, dhq
+
+
+def _check(what, x_v, w, b, hq, g=None):
+    batch, k, dh = x_v.shape
+    rank, m = hq.shape[1:]
+    if (tuple(w.shape) != (rank * m, dh) or b.numel() != rank * m
+            or hq.shape[0] != batch
+            or (g is not None and tuple(g.shape) != (batch, k, m))):
+        raise ValueError("%s: x_v %s w %s b %s hq %s g %s" % (
+            what, tuple(x_v.shape), tuple(w.shape), tuple(b.shape),
+            tuple(hq.shape), None if g is None else tuple(g.shape)))
+    if x_v.dtype != _BF16 or w.dtype != _BF16 or (
+            g is not None and g.dtype != _BF16):
+        raise ValueError("%s: x_v, w and g must be bf16" % what)
+
+
+def _smem_ok(lib, what, dh, rank, m, kinds):
+    for kind in kinds:
+        need = lib.vqacx_attmutan_smem(kind, dh, rank, m)
+        if need > _SMEM_MAX:
+            raise ValueError("%s: Dh %d, R %d, M %d need %d bytes of shared "
+                             "memory per block (at most %d)"
+                             % (what, dh, rank, m, need, _SMEM_MAX))
+
+
+def folded_mutan(x_v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 hq: torch.Tensor) -> torch.Tensor:
+    """The forward (see the module docstring).  On CPU tensors this is
+    :func:`folded_mutan_plain`; on CUDA tensors it launches the kernel or
+    raises.  Forward only: the gradient is ``ops/fusion.FoldedMutan``'s."""
+    build.refuse_grad("folded_mutan", x_v, w, b, hq)
+    if x_v.device.type == "cpu":
+        return folded_mutan_plain(x_v, w, b, hq)
+    _check("folded_mutan", x_v, w, b, hq)
+    b16 = b.to(_BF16).contiguous()
+    hq16 = hq.to(_BF16).contiguous()
+    build.require_cuda("folded_mutan", x_v, w, b16, hq16)
+    batch, k, dh = x_v.shape
+    rank, m = hq.shape[1:]
+    lib = _lib()
+    _smem_ok(lib, "folded_mutan", dh, rank, m, (0,))
+    out = torch.empty((batch, k, m), dtype=_BF16, device=x_v.device)
+    rc = lib.vqacx_attmutan_fwd(build.ptr(x_v), build.ptr(w), build.ptr(b16),
+                                build.ptr(hq16), build.ptr(out), batch, k, dh,
+                                rank, m, build.stream_of(x_v.device))
+    build.check(lib, rc, "folded_mutan")
+    folded_mutan.launches += 1
+    return out
+
+
+def folded_mutan_bwd(x_v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     hq: torch.Tensor, g: torch.Tensor):
+    """The backward: (dx_v bf16, dw f32, db f32, dhq bf16), as
+    :func:`folded_mutan_bwd_plain` on CPU tensors; on CUDA tensors the
+    kernels or an error."""
+    if x_v.device.type == "cpu":
+        return folded_mutan_bwd_plain(x_v, w, b, hq, g)
+    _check("folded_mutan_bwd", x_v, w, b, hq, g)
+    b16 = b.to(_BF16).contiguous()
+    hq16 = hq.to(_BF16).contiguous()
+    build.require_cuda("folded_mutan_bwd", x_v, w, b16, hq16, g)
+    batch, k, dh = x_v.shape
+    rank, m = hq.shape[1:]
+    lib = _lib()
+    _smem_ok(lib, "folded_mutan_bwd", dh, rank, m, (1, 2))
+    dev = x_v.device
+    tiles = -(-dh // _TILE) * -(-m // _TILE)
+    groups = max(1, min(batch, _SMS // tiles))
+    per_group = -(-batch // groups)
+    groups = -(-batch // per_group)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dxv = torch.empty((batch, k, dh), dtype=_BF16, device=dev)
+    dhq = torch.empty((batch, rank, m), dtype=_BF16, device=dev)
+    dw = torch.empty((rank * m, dh), **f32)
+    db = torch.empty((rank * m,), **f32)
+    pdw = torch.empty((groups, rank * m, dh), **f32)
+    pdhq = torch.empty((-(-dh // _TILE), batch, rank, m), **f32)
+    gsum = torch.empty((batch, m), **f32)
+    rc = lib.vqacx_attmutan_bwd(
+        build.ptr(x_v), build.ptr(w), build.ptr(b16), build.ptr(hq16),
+        build.ptr(g), build.ptr(dxv), build.ptr(dhq), build.ptr(dw),
+        build.ptr(db), build.ptr(pdw), build.ptr(pdhq), build.ptr(gsum),
+        batch, k, dh, rank, m, per_group, build.stream_of(dev))
+    build.check(lib, rc, "folded_mutan_bwd")
+    folded_mutan_bwd.launches += 1
+    return dxv, dw, db, dhq
+
+
+# one count per launch
+folded_mutan.launches = 0
+folded_mutan_bwd.launches = 0
+
+
+def _lib():
+    lib = build.load("attmutan")
+    if lib.vqacx_attmutan_fwd.argtypes is None:
+        lib.vqacx_attmutan_smem.argtypes = [ctypes.c_int] * 4
+        lib.vqacx_attmutan_smem.restype = ctypes.c_size_t
+        lib.vqacx_attmutan_fwd.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.vqacx_attmutan_fwd.restype = ctypes.c_int
+        lib.vqacx_attmutan_bwd.argtypes = [ctypes.c_void_p] * 12 \
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.vqacx_attmutan_bwd.restype = ctypes.c_int
+    return lib

@@ -1,4 +1,7 @@
-"""MUTAN's Tucker rank fusion op (port of ``ops/fusion.py``)::
+"""MUTAN's fusion ops (port of ``ops/fusion.py`` and of the folded path of
+``models/fusion.MutanFusion.fuse_candidates``).
+
+The Tucker rank fusion::
 
     x_mm = sum_r (x_v @ Wv_r^T + bv_r) * (x_q @ Wq_r^T + bq_r)
 
@@ -8,6 +11,14 @@ the forward is the CUDA kernel (``ops/cuda/mutan_kernel.py``) behind
 :class:`TuckerFusion`, whose backward recomputes both projections (cheaper
 than keeping the (B, R*dmm) intermediates, as ``_tucker_bwd`` of the JAX
 package does); elsewhere it is the plain autograd path.
+
+The folded form fuses K candidates (MutanAtt's 196 positions) with one
+question: the question side is folded into a per-example weight,
+``x_mm[b, k] = x_v[b, k] @ weff[b] + sum_r b_r * hq[b, r]`` with ``weff[b] =
+sum_r Wv_r^T * hq[b, r]``.  :func:`folded_mutan` is JAX's XLA form (plain
+autograd); :class:`FoldedMutan` wraps the CUDA kernels
+(``ops/cuda/attmutan_kernel.py``), which round differently under bf16 (as
+the TPU kernel does).
 """
 
 from __future__ import annotations
@@ -15,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..core.policy import cast_in, compute_dtype, dot_f32
-from .cuda import mutan_kernel
+from .cuda import attmutan_kernel, mutan_kernel
 
 
 def tucker_rank_fusion(x_v: torch.Tensor, x_q: torch.Tensor,
@@ -75,3 +86,41 @@ def tucker_rank_fusion_auto(x_v: torch.Tensor, x_q: torch.Tensor,
                                   wq.contiguous(), b_q.float().contiguous(),
                                   rank)
     return tucker_rank_fusion(x_v, x_q, w_v, b_v, w_q, b_q, rank)
+
+
+def folded_mutan(x_v: torch.Tensor, w_v: torch.Tensor, b_v: torch.Tensor,
+                 hq: torch.Tensor) -> torch.Tensor:
+    """JAX's folded path (``models/fusion.py`` ``fuse_candidates``, the XLA
+    branch): x_v (B, K, dhv) and w_v (R*dmm, dhv) in the policy dtype, b_v
+    (R*dmm,) f32, hq (B, R, dmm) f32.  weff is an f32 sum of the policy
+    dtype's products, cast to x_v's dtype; the output and the bias are
+    f32.  Plain autograd."""
+    batch, rank, dmm = hq.shape
+    w3 = w_v.reshape(rank, dmm, -1)
+    weff = torch.einsum("rmd,brm->bmd", w3.float(),
+                        hq.to(w3.dtype).float()).to(x_v.dtype)
+    x_mm = torch.matmul(x_v.float(), weff.float().transpose(1, 2))
+    bias = torch.einsum("rm,brm->bm", b_v.float().reshape(rank, dmm),
+                        hq.float())
+    return x_mm + bias[:, None, :]
+
+
+class FoldedMutan(torch.autograd.Function):
+    """The folded kernels: the forward and its backward on bf16 x_v and
+    w_v (b_v and hq rounded to bf16 inside, the output bf16), gradients to
+    all four inputs cast back to each input's dtype, as the TPU kernel's
+    custom VJP does (``_vjp_bwd``: dhq bf16 -> f32, dw f32 -> w's
+    bf16)."""
+
+    @staticmethod
+    def forward(ctx, x_v, w_v, b_v, hq):
+        ctx.save_for_backward(x_v, w_v, b_v, hq)
+        return attmutan_kernel.folded_mutan(x_v, w_v, b_v, hq)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_v, w_v, b_v, hq = ctx.saved_tensors
+        dxv, dw, db, dhq = attmutan_kernel.folded_mutan_bwd(
+            x_v, w_v, b_v, hq, g.to(torch.bfloat16).contiguous())
+        return (dxv.to(x_v.dtype), dw.to(w_v.dtype), db.to(b_v.dtype),
+                dhq.to(hq.dtype))
