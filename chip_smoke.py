@@ -10,9 +10,9 @@ ends the run with a nonzero exit and no result line.
 1. Kernels vs plain: builds every kernel library from ``csrc/`` (nvcc,
    sm_90a, one process per source, all at once), runs each kernel at the
    shapes its path gives it and holds it against its plain PyTorch
-   version on the same inputs, with the stated tolerances (the two
-   backwards also against themselves: reruns are bit-equal); times both
-   with CUDA events after a warm-up.
+   version on the same inputs, with the stated tolerances (the three
+   backwards and kNN also against themselves: reruns are bit-equal); times
+   both with CUDA events after a warm-up.
 2. Scoring at the flagship width (bench.py's configuration: dim_v 2048,
    K 24, BayesianUniSkip 620 -> 2400, MUTAN R 10 at 360, 2000 answers,
    NeuralCX 300 x 2, B 768; synthetic 2048 examples over 1024 images, random
@@ -64,7 +64,8 @@ ends the run with a nonzero exit and no result line.
 
 Phase 1 also holds the folded MUTAN kernels (forward, and backward with a
 bit-equal rerun) at MutanAtt's attention shape, the kNN kernel at the
-builder's, and MUTAN at MutanAtt's classifier shape.  It prints the card's
+builder's, the GRU backward at MutanAtt's batch (B 128) and MUTAN at
+MutanAtt's classifier shape.  It prints the card's
 name and power limit, a ``{"kernels": [...]}`` line and, last, ``{"ok":
 true, "device": {...}}``.
 """
@@ -138,10 +139,10 @@ REPLACES = {
         "vqa_counterexamples_tpu/ops/pallas/attmutan_kernel.py:180",
     "knn": "vqa_counterexamples_tpu/ops/pallas/knn_kernel.py:91",
 }
-# H100 SXM5 published peaks (NVIDIA data sheet): dense bf16 tensor cores,
-# f32 outside the tensor cores, HBM3 bandwidth
+# H100 SXM5 published peaks (NVIDIA data sheet): dense bf16 and TF32 tensor
+# cores, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 ATT_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "configs", "vqa2", "mutan_att_train.yaml")
@@ -178,8 +179,8 @@ def check_close(name, got, ref, tol):
 
 def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
     """(least ms the card could take, what bounds it): the larger of the
-    operations over ``peak`` (the bf16 tensor-core peak unless the work is
-    f32) and the bytes over the HBM rate."""
+    operations over ``peak`` (the bf16 tensor-core peak unless the kernel
+    works in another type) and the bytes over the HBM rate."""
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -320,10 +321,41 @@ def rel_err(name, got, ref, rel):
     return max_abs
 
 
+def gru_bwd_row(name, randn, xp, w_hh, mask, states, hproj):
+    """The GRU backward against its plain version at (T, B, H) (dxp, dW, db
+    within the stated share of each tensor's largest entry), a bit-equal
+    rerun, and both timed."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import gru_kernel
+
+    T, B, H = states.shape
+    ds = randn(T, B, H)
+    args = (xp, w_hh, mask, states, hproj, ds)
+    got = gru_kernel.gru_recurrence_bwd(*args)
+    ref = gru_kernel.gru_recurrence_bwd_plain(*args)
+    err = max(rel_err(name + " " + n, g, r, TOL["gru_bwd_rel"])
+              for n, g, r in zip(("dxp", "dW", "db"), got, ref))
+    again = gru_kernel.gru_recurrence_bwd(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("%s: a rerun on the same inputs differs" % name)
+    log("  %-10s rerun on the same inputs: bit-equal" % name)
+    del got, ref, again
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: gru_kernel.gru_recurrence_bwd(*args)),
+        plain_ms=time_ms(lambda: gru_kernel.gru_recurrence_bwd_plain(*args),
+                         reps=2),
+        # the in-kernel back product (T - 1 steps) and the dW product;
+        # xp, h_proj, states, dstates, mask, W read, dxp, dW, db written
+        work=(2 * (T - 1) * B * 3 * H * H + 2 * T * B * 3 * H * H,
+              T * B * 3 * H * 2 * 3 + T * B * H * 2 * 2 + 3 * B * H * 2
+              + 3 * H * H * 2 * 2 + 3 * H * 4))
+
+
 def pretrain_kernel_rows(dev, gen, randn):
     """Phase 1's rows for the pretraining kernels at its shapes: the
-    per-gate GRU forward and the GRU backward (T 26, B 512, H 2400), MUTAN
-    (B 512, dh 360, R 10, dmm 360)."""
+    per-gate GRU forward and the GRU backward (T 26, B 512, H 2400; the
+    backward also at MutanAtt's B 128), MUTAN (B 512, dh 360, R 10, dmm
+    360)."""
     from vqa_counterexamples_tpu_torch.ops.cuda import gru_kernel, mutan_kernel
 
     rows = {}
@@ -347,28 +379,17 @@ def pretrain_kernel_rows(dev, gen, randn):
             xp, w_hh, b_hh, mask, want_hproj=True)),
         work=(2 * T * B * H * 3 * H, io_fwd))
     del s2, h2
-    ds = randn(T, B, H)
-    got = gru_kernel.gru_recurrence_bwd(xp, w_hh, mask, s1, h1, ds)
-    ref = gru_kernel.gru_recurrence_bwd_plain(xp, w_hh, mask, s1, h1, ds)
-    err = max(rel_err("gru_bwd " + n, g, r, TOL["gru_bwd_rel"])
-              for n, g, r in zip(("dxp", "dW", "db"), got, ref))
-    again = gru_kernel.gru_recurrence_bwd(xp, w_hh, mask, s1, h1, ds)
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError("gru_bwd: a rerun on the same inputs differs")
-    log("  gru_bwd    rerun on the same inputs: bit-equal")
-    del got, ref, again
-    rows["gru_bwd"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: gru_kernel.gru_recurrence_bwd(
-            xp, w_hh, mask, s1, h1, ds)),
-        plain_ms=time_ms(lambda: gru_kernel.gru_recurrence_bwd_plain(
-            xp, w_hh, mask, s1, h1, ds), reps=2),
-        # the in-kernel back product (T - 1 steps) and the dW product;
-        # xp, h_proj, states, dstates, mask, W read, dxp, dW, db written
-        work=(2 * (T - 1) * B * 3 * H * H + 2 * T * B * 3 * H * H,
-              T * B * 3 * H * 2 * 3 + T * B * H * 2 * 2 + 3 * B * H * 2
-              + 3 * H * H * 2 * 2 + 3 * H * 4))
-    del xp, s1, h1, ds, mask
+    rows["gru_bwd"] = gru_bwd_row("gru_bwd", randn, xp, w_hh, mask, s1, h1)
+    del xp, s1, h1, mask
+    # the same at MutanAtt's batch (logged, outside the kernels line)
+    B = 128
+    xp = randn(T, B, 3 * H)
+    keep = torch.rand(3, B, H, generator=gen, device=dev) < 0.75
+    mask = (keep * (256.0 / 192)).to(torch.bfloat16)
+    s1, h1 = gru_kernel.gru_recurrence(xp, w_hh, b_hh, mask, want_hproj=True)
+    rows["gru_bwd_att"] = gru_bwd_row("gru_bwd B128", randn, xp, w_hh, mask,
+                                      s1, h1)
+    del xp, s1, h1, mask
     B, DH, R, DMM = 512, 360, 10, 360
     xv, xq = randn(B, DH), randn(B, DH)
     wv, wq = (randn(R * DMM, DH, scale=DH ** -0.5) for _ in range(2))
@@ -494,15 +515,20 @@ def att_knn_kernel_rows(dev, gen, randn):
     dist, idx = knn_kernel.knn_chunk(queries, corpus, KN, csq)
     ref_d, ref_i = knn_kernel.knn_chunk_plain(queries, corpus, KN + 1, csq)
     err = check_knn("knn", dist, idx, ref_d, ref_i, self_idx=pick)
-    del dist, idx, ref_d, ref_i
+    again = knn_kernel.knn_chunk(queries, corpus, KN, csq)
+    if not (torch.equal(dist, again[0]) and torch.equal(idx, again[1])):
+        raise AssertionError("knn: a rerun on the same inputs differs")
+    log("  knn        rerun on the same inputs: bit-equal")
+    del dist, idx, ref_d, ref_i, again
     rows["knn"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: knn_kernel.knn_chunk(queries, corpus, KN, csq)),
         plain_ms=time_ms(lambda: knn_kernel.knn_chunk_plain(
             queries, corpus, KN, csq)),
-        # f32 FMAs, against the f32 peak
-        work=(2 * Q * N * D + 3 * Q * N,
-              (Q * D + N * D + Q + N) * 4 + Q * KN * 8, PEAK_F32_FLOPS))
+        # split TF32: three TF32 products per f32 one, against the TF32
+        # peak (the k winners' f32 rescoring is 0.03% of that)
+        work=(3 * 2 * Q * N * D + 3 * Q * N,
+              (Q * D + N * D + Q + N) * 4 + Q * KN * 8, PEAK_TF32_FLOPS))
     return rows
 
 

@@ -114,6 +114,7 @@ def test_port_import_leaves_jax_out():
             "import vqa_counterexamples_tpu_torch.data.synthetic\n"
             "import vqa_counterexamples_tpu_torch.cli.train as t\n"
             "import vqa_counterexamples_tpu_torch.cli.profile_vqa\n"
+            "import vqa_counterexamples_tpu_torch.cli.probe_kernels\n"
             "import vqa_counterexamples_tpu_torch.engines.vqa_engine\n"
             "import vqa_counterexamples_tpu_torch.data.vqa_dataset\n"
             "import vqa_counterexamples_tpu_torch.core.experiment\n"

@@ -1,6 +1,7 @@
 """The kNN builder in the PyTorch port against the JAX package: the fused
 kernel's plain version against ``topk.knn_chunk`` and the Pallas kernel
-(interpret mode), the chunk driver ``ops/topk.knn``, the ``.npy`` + ``.txt``
+(interpret mode), the kernel's split-TF32 scores (emulated) and corpus
+slicing, the chunk loop ``ops/topk.knn``, the ``.npy`` + ``.txt``
 feature store, and ``cli/knn.py`` (the results file and the VQA-format
 json), with its device rule and the flags that are not ported.
 
@@ -58,6 +59,78 @@ def test_knn_chunk_plain_matches_jax(n, dim, bq, k, self_query):
         if self_query:
             np.testing.assert_array_equal(idx[:, 0].numpy(), np.arange(bq))
     assert knn_kernel.knn_chunk.launches == before   # the CPU: plain
+
+
+def _knn_split_tf32(queries, corpus, k):
+    """``knn_chunk_plain`` with the dot products as the kernel forms them:
+    lo.hi + hi.lo + hi.hi of the split operands, f32 sums (each product of
+    two TF32 values is exact in f32); only the sums' order and the tensor
+    cores' rounding differ from the kernel's selection."""
+    (qh, ql), (ch, cl) = (knn_kernel.split_tf32(queries),
+                          knn_kernel.split_tf32(corpus))
+    dots = ql @ ch.t() + qh @ cl.t() + qh @ ch.t()
+    neg = (2.0 * dots - (queries * queries).sum(1, keepdim=True)
+           - (corpus * corpus).sum(1)[None, :])
+    top, idx = torch.topk(neg, k, dim=1)
+    return torch.sqrt(torch.clamp(-top, min=0.0)), idx.to(torch.int32)
+
+
+@pytest.mark.parametrize("n,dim,bq,k", [(5000, 256, 64, 25),
+                                        (3000, 2048, 32, 25)])
+def test_split_tf32_scores_keep_the_neighbour_contract(n, dim, bq, k):
+    """The kernel's split TF32 (three TF32 products per f32 one),
+    emulated, selects what the plain f32 version selects, under
+    chip_smoke.check_knn's contract: rank 0 is the query itself, the same
+    neighbour at every rank whose plain distance is further than twice the
+    tolerance (rtol 1e-4) from both of its neighbours, and those distances
+    within it; at a COCO-like shape and at the builder's width.  The
+    self-distance (0 up to f32 noise) is the kernel's rescoring pass's,
+    held on the card (tests/test_torch_cuda.py)."""
+    corpus = torch.from_numpy(_corpus(n, dim, seed=dim))
+    pick = torch.from_numpy(
+        np.random.default_rng(1).choice(n, bq, replace=False))
+    queries = corpus[pick].contiguous()
+    dist, idx = _knn_split_tf32(queries, corpus, k)
+    ref_d, ref_i = knn_kernel.knn_chunk_plain(queries, corpus, k + 1)
+    assert dist.dtype == torch.float32 and idx.dtype == torch.int32
+    assert torch.equal(idx[:, 0].long(), pick.long())
+    tol = 1e-4 * ref_d.abs()
+    assert ((dist - ref_d[:, :k]).abs() <= tol[:, :k])[:, 1:].all()
+    gap = ref_d[:, 1:] - ref_d[:, :-1]
+    prev = torch.cat([torch.full_like(gap[:, :1], float("inf")),
+                      gap[:, :-1]], 1)
+    clear = (gap > 2 * tol[:, 1:]) & (prev > 2 * tol[:, :k])
+    assert clear.float().mean() > 0.3   # not vacuous
+    assert torch.equal(idx[clear], ref_i[:, :k][clear])
+
+
+def test_split_tf32_is_two_tf32_values_summing_to_x():
+    """hi and lo carry 10 mantissa bits each (the low 13 are clear), hi is
+    x rounded to nearest, and x - hi - lo is below 2^-21 of |x|."""
+    x = torch.from_numpy(_corpus(1000, 8, seed=5).ravel() * 1e3)
+    hi, lo = knn_kernel.split_tf32(x)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert ((x - hi).abs() <= 2.0 ** -11 * x.abs()).all()
+    assert ((x - hi - lo).abs() <= 2.0 ** -21 * x.abs()).all()
+
+
+@pytest.mark.parametrize("bq,n", [(1024, 82783), (7, 6000), (65, 3000),
+                                  (200, 20000), (5, 40), (4096, 82783)])
+def test_knn_slices_cover_the_corpus_and_fill_the_card(bq, n):
+    """The corpus split: whole 128-row tiles, no empty slice, at most 256
+    slices, the corpus covered exactly once; at the builder's shape
+    (1024 queries, COCO-train) at least one block per SM of an H100 and
+    within a wave's rounding of the ideal finish."""
+    width, slices = knn_kernel._slices(bq, n, 132)
+    assert width % 128 == 0 and 1 <= slices <= 256
+    assert width * (slices - 1) < n <= width * slices
+    qblocks = -(-bq // 128)
+    if (bq, n) == (1024, 82783):
+        assert qblocks * slices >= 132
+        waves = -(-qblocks * slices // 132)
+        ideal = qblocks * -(-n // 128) / 132
+        assert waves * width / 128 <= ideal + width / 128
 
 
 def test_knn_chunk_plain_takes_the_corpus_norms():

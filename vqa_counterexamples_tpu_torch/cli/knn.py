@@ -14,10 +14,9 @@ and writes:
         --path_features data/coco/extract/trainset -k 25 --json-out knn.json
 
 ``--engine cuda`` (default; JAX's ``pallas`` names it too) is the kernel,
-``plain`` (or ``xla``) its plain version.  The kernel keeps each query's k
-neighbours in a block's shared memory, so it takes k up to 405 on the H100
-(``knn_kernel.kmax``) and raises above that; ``plain`` has no such cap.  The device is ``cuda``; with no
-card visible the CLI refuses to run unless ``--device cpu`` is given.
+``plain`` (or ``xla``) its plain version; both take any k up to the
+number of images.  The device is ``cuda``; with no card visible the CLI
+refuses to run unless ``--device cpu`` is given.
 ``--approx``, ``--mesh`` and ``--distributed`` raise
 ``NotImplementedError`` (ROADMAP.md, Queue 1).
 """
@@ -41,9 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="prefix of {prefix}.npy + {prefix}.txt")
     parser.add_argument("--dataset", default="noatt", type=str)
     parser.add_argument("-k", "--n_neighbors", default=25, type=int,
-                        help="neighbours per image, self included (engine "
-                             "cuda: at most 405 on the H100, the running "
-                             "lists' shared memory; plain: any)")
+                        help="neighbours per image, self included")
     parser.add_argument("-b", "--batch_size", default=1024, type=int)
     parser.add_argument("--engine", default="cuda",
                         choices=sorted(_ENGINE_ALIASES),

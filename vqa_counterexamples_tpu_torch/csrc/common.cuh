@@ -1,9 +1,11 @@
 // Shared helpers for the hand-written sm_90a kernels of this package.
 //
-// Every kernel here is a tiled GEMM on bf16 WMMA fragments (16x16x16, f32
-// accumulators) with a fused epilogue.  Operand tiles are staged in shared
-// memory with a row stride of BK + 8 elements: the 16-byte pad staggers
-// rows across banks and keeps every fragment pointer 32-byte aligned.
+// Every kernel here is a tiled GEMM with a fused epilogue: bf16 WMMA
+// fragments (16x16x16, f32 accumulators) with synchronous tile loads, or,
+// in the kNN and GRU-backward kernels, mma.sync fed by a cp.async ring.
+// WMMA operand tiles are staged in shared memory with a row stride of
+// BK + 8 elements: the 16-byte pad staggers rows across banks and keeps
+// every fragment pointer 32-byte aligned.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,6 +68,82 @@ __device__ __forceinline__ void load_tile(bf16* __restrict__ s,
       }
     }
   }
+}
+
+// ------------------------------------------------ async copies, mma.sync
+// (used by the redesigned kNN and GRU-backward kernels)
+
+// Copy 16 (or 4) bytes global -> shared without passing through registers;
+// ``src_bytes`` 0 writes zeros (the source is then not read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start fetching the line holding ``p`` into L2.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// Four 8x8 b16 matrices from shared memory (lane l gives the row address
+// of matrix l / 8), optionally transposed.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulators.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const unsigned (&a)[4],
+                                               unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulators.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const unsigned (&a)[4],
+                                              unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace vqacx

@@ -29,20 +29,24 @@ either direction — at VQA pretraining's shape (B=512, H=2400) 17.7 GFLOP
 per step on 34.6 MB of bf16 W_hh — followed by elementwise gate math.  The
 TPU kernels kept h (forward) and dh (backward) in VMEM across a sequential
 grid; CUDA blocks run in no order and cannot synchronise across the grid,
-so the design is one launch per timestep in the forward (T launches from
-one C call), each reading ``states[t-1]`` and writing ``states[t]``, and
-two per timestep in the backward: a gate kernel that emits the cotangents
-and leaves g * z in the f32 carry, then a GEMM kernel that adds the
-``dh_proj @ W`` term (it needs whole dh_proj rows, a grid-wide
-dependency).  W_hh (34.6 MB) fits in the 50 MB L2, so after the first
+so the design is one launch per timestep in both directions (T launches
+from one C call).  The forward reads ``states[t-1]`` and writes
+``states[t]``.  W_hh (34.6 MB) fits in the 50 MB L2, so after the first
 timestep the per-step weight reads are served from L2, not HBM.  A forward
 block owns a (64 batch rows x 32 hidden units) tile and computes all three
 gates' columns for those units with bf16 WMMA fragments (f32
 accumulators), so the gate epilogue needs no exchange between blocks; with
-per-gate masks it stages three masked A tiles, one per gate.  A backward
-GEMM block owns 64 rows x 64 hidden units with one accumulator per gate,
-folded into dh gate by gate with each gate's mask, in JAX's order.  The
-shared-mask case is the same kernels with a gate stride of 0.
+per-gate masks it stages three masked A tiles, one per gate.  The
+backward's launch for step s first adds step s + 1's back product
+``dh_proj @ W`` to the f32 carry (it needs whole dh_proj rows, a
+grid-wide dependency, hence a launch per step), then runs step s's gate
+math in the same block's epilogue: the carry makes one round trip per
+step.  A backward block owns 64 rows x 32 hidden units, so B 128 gives
+150 blocks for the H100's 132 SMs, and holds one accumulator per gate over
+one K loop of depth 3H: bf16 ``mma.sync`` fed by a 3-stage ``cp.async``
+ring, W read MN-major through ``ldmatrix.trans``.  The gates fold into dh
+with each gate's mask in JAX's order r, z, n; the shared-mask case is the
+same kernels with a gate stride of 0.  No atomics: reruns are bit-equal.
 
 The backward does not compute the mask's cotangent (JAX's kernel does):
 the masks are drawn, never trained, so nothing consumes it.  dW and db are
@@ -263,7 +267,7 @@ def gru_recurrence_bwd(xp: torch.Tensor, w_hh: torch.Tensor,
     docstring) -> (dxp, dW_hh bf16, db_hh f32).
 
     On CPU tensors this is :func:`gru_recurrence_bwd_plain`; on CUDA
-    tensors it launches the reverse sweep (2T - 1 launches) or raises.
+    tensors it launches the reverse sweep (T launches) or raises.
     """
     if xp.device.type == "cpu":
         return gru_recurrence_bwd_plain(xp, w_hh, mask, states, hproj,
@@ -281,7 +285,7 @@ def gru_recurrence_bwd(xp: torch.Tensor, w_hh: torch.Tensor,
     lib = _lib()
     dxp = torch.empty_like(xp)
     dhproj = torch.empty_like(xp)
-    dh = torch.zeros((batch, dim_h), dtype=torch.float32, device=xp.device)
+    dh = torch.empty((batch, dim_h), dtype=torch.float32, device=xp.device)
     rc = lib.vqacx_gru_bwd(build.ptr(xp), build.ptr(w_hh), build.ptr(mask),
                            _mask_gates(mask), build.ptr(states),
                            build.ptr(hproj), build.ptr(dstates),
@@ -293,7 +297,7 @@ def gru_recurrence_bwd(xp: torch.Tensor, w_hh: torch.Tensor,
     return dxp, dw, db
 
 
-# one count per call that launches the reverse sweep (2T - 1 launches)
+# one count per call that launches the reverse sweep (T launches)
 gru_recurrence_bwd.launches = 0
 
 

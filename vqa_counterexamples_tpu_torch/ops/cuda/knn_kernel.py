@@ -13,14 +13,17 @@ The norms come in from the caller (f32 sums, as the JAX driver computes
 them outside its kernel), so the corpus's are computed once per build.
 
 What bounds it on the H100: at the builder's shape (1024 queries against
-COCO-train's 82,783 x 2048 features, k 25) it is 347 GFLOP of f32 FMAs on
-678 MB: 5.2 ms at the 67 TFLOP/s f32 peak against 0.2 ms of memory, so
-operations bound it.  It stays in full f32 (TF32 would change which
-neighbours win), and the (Bq, N) score matrix never reaches device memory:
-a block owns 64 queries and a slice of the corpus, keeps each query's
-running top-k in shared memory and writes only that list; a second pass
-merges the slices' lists in index order.  The lists are sized from k, so k
-is capped by a block's shared memory: :func:`kmax`, 405 on the H100.
+COCO-train's 82,783 x 2048 features, k 25) the product is 347 GFLOP on
+678 MB.  It runs on the tensor cores at f32 accuracy by split TF32
+(:func:`split_tf32`, three TF32 products per f32 one): 1,041 GFLOP, 2.1 ms
+at the 495 TFLOP/s TF32 peak against 0.2 ms of memory, so operations
+bound it.  Plain TF32 alone would change which neighbours win.  The
+(Bq, N) score matrix never reaches device memory: a block owns 128 queries
+and a slice of the corpus, streams D through a cp.async ring, filters each
+tile's scores against each query's k-th best so far in registers and
+merges the few survivors into the query's running list, which lives in the
+per-slice scratch in device memory, so k has no cap but N; a second pass
+merges the slices' lists in index order.
 """
 
 from __future__ import annotations
@@ -31,9 +34,7 @@ import torch
 
 from . import build
 
-_QB = 64
-_CB = 64
-_SMS = 132
+_TILE = 128        # queries per block and corpus rows per tile (knn.cu)
 _MAX_SLICES = 256
 
 
@@ -51,21 +52,46 @@ def knn_chunk_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     return torch.sqrt(torch.clamp(-top, min=0.0)), idx.to(torch.int32)
 
 
-def _slices(bq: int, n: int):
-    """(slice width, number of slices): about two blocks per SM over the
-    query blocks, each slice a multiple of the tile."""
-    qblocks = -(-bq // _QB)
-    want = max(1, min(_MAX_SLICES, -(-2 * _SMS // qblocks), -(-n // _CB)))
-    width = -(-(-(-n // want)) // _CB) * _CB
-    return width, -(-n // width)
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as the kernel rounds them: add half a TF32 unit to the bits,
+    clear the low 13."""
+    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) with hi = tf32(x) and lo = tf32(x - hi): the kernel's split
+    of each f32 operand into two TF32 ones (x - hi - lo is below 2^-21
+    of |x|)."""
+    hi = _tf32(x.float().contiguous())
+    return hi, _tf32(x.float() - hi)
+
+
+def _slices(bq: int, n: int, sms: int):
+    """(slice width, number of slices) for ``bq`` queries against ``n``
+    corpus rows on a card of ``sms`` SMs, each holding one block (the
+    kernel's 145 KB of shared memory): the split of the corpus tiles whose
+    blocks finish soonest, in waves of ``sms`` blocks, the fewest slices
+    among equals.  Every slice is a whole number of tiles and none is
+    empty."""
+    qblocks = -(-bq // _TILE)
+    tiles = -(-n // _TILE)
+    best = None
+    for want in range(1, min(_MAX_SLICES, tiles) + 1):
+        width = -(-tiles // want)
+        slices = -(-tiles // width)
+        cost = -(-qblocks * slices // sms) * width
+        if best is None or cost < best[0]:
+            best = (cost, width * _TILE, slices)
+    return best[1], best[2]
 
 
 def knn_chunk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
               corpus_sqnorm: torch.Tensor | None = None):
     """The search (see the module docstring): queries (Bq, D) and corpus
-    (N, D) f32, ``corpus_sqnorm`` (N,) f32 or None (computed here).  On CPU
-    tensors this is :func:`knn_chunk_plain`; on CUDA tensors it launches the
-    kernel or raises."""
+    (N, D) f32, ``corpus_sqnorm`` (N,) f32 or None (computed here), any k
+    up to N.  On CPU tensors this is :func:`knn_chunk_plain`; on CUDA
+    tensors it launches the kernel or raises."""
     if queries.device.type == "cpu":
         return knn_chunk_plain(queries, corpus, k, corpus_sqnorm)
     bq, dim = queries.shape
@@ -74,18 +100,16 @@ def knn_chunk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
             or corpus.dtype != torch.float32:
         raise ValueError("knn_chunk: f32 queries %s and corpus %s"
                          % (tuple(queries.shape), tuple(corpus.shape)))
-    limit = kmax(queries.device)
-    if not 1 <= k <= min(limit, n):
-        raise ValueError("knn_chunk: k %d outside [1, min(%d, N %d)]: the "
-                         "kernel holds k neighbours per query in shared "
-                         "memory" % (k, limit, n))
+    if not 1 <= k <= n:
+        raise ValueError("knn_chunk: k %d outside [1, N %d]" % (k, n))
     csq = ((corpus * corpus).sum(1) if corpus_sqnorm is None
            else corpus_sqnorm.float().contiguous())
     qsq = (queries * queries).sum(1)
     build.require_cuda("knn_chunk", queries, corpus, csq, qsq)
     lib = _lib()
-    width, slices = _slices(bq, n)
     dev = queries.device
+    width, slices = _slices(
+        bq, n, torch.cuda.get_device_properties(dev).multi_processor_count)
     dist = torch.empty((bq, k), dtype=torch.float32, device=dev)
     idx = torch.empty((bq, k), dtype=torch.int32, device=dev)
     pvals = torch.empty((slices, bq, k), dtype=torch.float32, device=dev)
@@ -103,23 +127,9 @@ def knn_chunk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
 knn_chunk.launches = 0
 
 
-def kmax(device: torch.device) -> int:
-    """The largest k the kernel takes on ``device`` (a CUDA device): its
-    running lists, 512 bytes per neighbour, share a block's shared memory
-    with the tiles."""
-    lib = _lib()
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    limit = lib.vqacx_knn_kmax(index)
-    build.check(lib, max(0, -limit), "knn kmax")
-    return limit
-
-
 def _lib():
     lib = build.load("knn")
     if lib.vqacx_knn.argtypes is None:
-        lib.vqacx_knn_kmax.argtypes = [ctypes.c_int]
-        lib.vqacx_knn_kmax.restype = ctypes.c_int
         lib.vqacx_knn.argtypes = [ctypes.c_void_p] * 8 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.vqacx_knn.restype = ctypes.c_int
