@@ -10,8 +10,9 @@ ends the run with a nonzero exit and no result line.
 1. Kernels vs plain: builds every kernel library from ``csrc/`` (nvcc,
    sm_90a, one process per source, all at once), runs each kernel at the
    shapes its path gives it and holds it against its plain PyTorch
-   version on the same inputs, with the stated tolerances (the three
-   backwards and kNN also against themselves: reruns are bit-equal); times
+   version on the same inputs, with the stated tolerances (the GRU
+   forwards, the three backwards and kNN also against themselves: reruns
+   are bit-equal); times
    both with CUDA events after a warm-up.
 2. Scoring at the flagship width (bench.py's configuration: dim_v 2048,
    K 24, BayesianUniSkip 620 -> 2400, MUTAN R 10 at 360, 2000 answers,
@@ -64,8 +65,10 @@ ends the run with a nonzero exit and no result line.
 
 Phase 1 also holds the folded MUTAN kernels (forward, and backward with a
 bit-equal rerun) at MutanAtt's attention shape, the kNN kernel at the
-builder's, the GRU backward at MutanAtt's batch (B 128) and MUTAN at
-MutanAtt's classifier shape.  It prints the card's
+builder's, the GRU forward at the val batches' shapes (B 512 and B 128,
+no mask) and the per-gate forward and the backward at MutanAtt's batch
+(B 128), and MUTAN at MutanAtt's classifier shape; every GRU forward row
+logs the tile it launches with.  It prints the card's
 name and power limit, a ``{"kernels": [...]}`` line and, last, ``{"ok":
 true, "device": {...}}``.
 """
@@ -219,7 +222,7 @@ def build_all():
 
 def phase_kernels(dev, card):
     from vqa_counterexamples_tpu_torch.ops.cuda import (
-        gru_kernel, mixture_kernel, vfeat_kernel)
+        mixture_kernel, vfeat_kernel)
 
     log("== phase 1: kernels vs plain at the main path's shapes")
     build_all()
@@ -234,17 +237,8 @@ def phase_kernels(dev, card):
     T, B, H = 26, 2048, 2400
     xp, w_hh = randn(T, B, 3 * H), randn(3 * H, H, scale=H ** -0.5)
     b_hh = randn(3 * H, scale=0.1, dtype=torch.float32)
-    got, _ = gru_kernel.gru_recurrence(xp, w_hh, b_hh)
-    ref, _ = gru_kernel.gru_recurrence_plain(xp, w_hh, b_hh)
-    err = check_close("gru", got, ref, TOL["gru"])
-    rows["gru"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: gru_kernel.gru_recurrence(xp, w_hh, b_hh)),
-        plain_ms=time_ms(lambda: gru_kernel.gru_recurrence_plain(
-            xp, w_hh, b_hh)),
-        work=(2 * T * B * H * 3 * H,
-              (T * B * 3 * H + 3 * H * H + T * B * H) * 2 + 3 * H * 4))
-    del xp, got, ref
+    rows["gru"] = gru_fwd_row("gru", xp, w_hh, b_hh, None, False)
+    del xp
     # B: candidate image features, one train / eval batch, both directions
     N, DV, B, K, HID = 1024, 2048, 768, 24, 300
     table = randn(N, DV)
@@ -351,6 +345,44 @@ def gru_bwd_row(name, randn, xp, w_hh, mask, states, hproj):
               + 3 * H * H * 2 * 2 + 3 * H * 4))
 
 
+def gru_fwd_row(name, xp, w_hh, b_hh, mask, want_hproj):
+    """The GRU forward against its plain version (states, and h_proj when
+    asked for), a bit-equal rerun, the tile it launches with (at H 2400
+    the TMA one), and both timed."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import gru_kernel
+
+    T, B, H3 = xp.shape
+    H = H3 // 3
+    tile = gru_kernel.forward_tile(xp, w_hh, b_hh, mask)
+    log("  %-10s T %d B %d H %d, %s mask: tile %s" % (
+        name, T, B, H, "no" if mask is None else
+        "per-gate" if mask.dim() == 3 else "shared", tuple(tile)))
+    if H % 8 == 0 and not tile.tma:
+        raise AssertionError("%s: H %d should take the TMA tile" % (name, H))
+    args = (xp, w_hh, b_hh, mask, want_hproj)
+    got = gru_kernel.gru_recurrence(*args)
+    ref = gru_kernel.gru_recurrence_plain(*args)
+    err = check_close(name, got[0], ref[0], TOL["gru"])
+    if want_hproj:
+        err = max(err, check_close(name + " hp", got[1], ref[1], TOL["gru"]))
+    again = gru_kernel.gru_recurrence(*args)
+    if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("%s: a rerun on the same inputs differs" % name)
+    log("  %-10s rerun on the same inputs: bit-equal" % name)
+    del got, ref, again
+    ng = 0 if mask is None else mask.numel() // (B * H)
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: gru_kernel.gru_recurrence(*args)),
+        plain_ms=time_ms(lambda: gru_kernel.gru_recurrence_plain(*args),
+                         reps=2),
+        # the product of steps 1..T-1 (h_{-1} = 0: step 0 has none); xp,
+        # W, b, the masks read; the states (and h_proj) written
+        work=(2 * (T - 1) * B * H * 3 * H,
+              (T * B * 3 * H + 3 * H * H + ng * B * H + T * B * H
+               + (T * B * 3 * H if want_hproj else 0)) * 2 + 3 * H * 4))
+
+
 def pretrain_kernel_rows(dev, gen, randn):
     """Phase 1's rows for the pretraining kernels at its shapes: the
     per-gate GRU forward and the GRU backward (T 26, B 512, H 2400; the
@@ -364,28 +396,22 @@ def pretrain_kernel_rows(dev, gen, randn):
     b_hh = randn(3 * H, scale=0.1, dtype=torch.float32)
     keep = torch.rand(3, B, H, generator=gen, device=dev) < 0.75
     mask = (keep * (256.0 / 192)).to(torch.bfloat16)
+    rows["gru_pg"] = gru_fwd_row("gru_pg", xp, w_hh, b_hh, mask, True)
+    # MutanNoAtt's val batch: the shared forward without a mask (logged,
+    # outside the kernels line, as are the B 128 rows below)
+    rows["gru_b512"] = gru_fwd_row("gru B512", xp, w_hh, b_hh, None, False)
     s1, h1 = gru_kernel.gru_recurrence(xp, w_hh, b_hh, mask, want_hproj=True)
-    s2, h2 = gru_kernel.gru_recurrence_plain(xp, w_hh, b_hh, mask,
-                                             want_hproj=True)
-    err = max(check_close("gru_pg", s1, s2, TOL["gru"]),
-              check_close("gru_pg hp", h1, h2, TOL["gru"]))
-    io_fwd = (T * B * 3 * H * 2 + 3 * H * H * 2 + 3 * H * 4 + 3 * B * H * 2
-              + T * B * H * 2 + T * B * 3 * H * 2)
-    rows["gru_pg"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: gru_kernel.gru_recurrence(
-            xp, w_hh, b_hh, mask, want_hproj=True)),
-        plain_ms=time_ms(lambda: gru_kernel.gru_recurrence_plain(
-            xp, w_hh, b_hh, mask, want_hproj=True)),
-        work=(2 * T * B * H * 3 * H, io_fwd))
-    del s2, h2
     rows["gru_bwd"] = gru_bwd_row("gru_bwd", randn, xp, w_hh, mask, s1, h1)
     del xp, s1, h1, mask
-    # the same at MutanAtt's batch (logged, outside the kernels line)
+    # the same at MutanAtt's batch: its train step's per-gate forward and
+    # backward, its val batch's forward
     B = 128
     xp = randn(T, B, 3 * H)
     keep = torch.rand(3, B, H, generator=gen, device=dev) < 0.75
     mask = (keep * (256.0 / 192)).to(torch.bfloat16)
+    rows["gru_pg_b128"] = gru_fwd_row("gru_pg B128", xp, w_hh, b_hh, mask,
+                                      True)
+    rows["gru_b128"] = gru_fwd_row("gru B128", xp, w_hh, b_hh, None, False)
     s1, h1 = gru_kernel.gru_recurrence(xp, w_hh, b_hh, mask, want_hproj=True)
     rows["gru_bwd_att"] = gru_bwd_row("gru_bwd B128", randn, xp, w_hh, mask,
                                       s1, h1)

@@ -223,6 +223,47 @@ def test_gru_pg_with_equal_masks_is_bit_equal_to_shared(dev):
 
 
 @pytest.mark.parametrize("mask_kind", ["none", "shared", "per_gate"])
+def test_gru_fwd_full_width_matches_plain(dev, mask_kind):
+    """The forward at MutanAtt's full width (T 26, B 128, H 2400) against
+    its plain version, states and h_proj within 5e-2, through the TMA
+    tile, and bit-equal on a rerun."""
+    xp, w, b, mask = _gru_inputs(dev, 26, 128, 2400, mask_kind)
+    assert gru_kernel.forward_tile(xp, w, b, mask).tma
+    got = gru_kernel.gru_recurrence(xp, w, b, mask, want_hproj=True)
+    ref = gru_kernel.gru_recurrence_plain(xp, w, b, mask, want_hproj=True)
+    again = gru_kernel.gru_recurrence(xp, w, b, mask, want_hproj=True)
+    torch.cuda.synchronize()
+    for g, r, a in zip(got, ref, again):
+        torch.testing.assert_close(g.float(), r.float(), atol=5e-2,
+                                   rtol=5e-2)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "shared", "per_gate"])
+def test_gru_fwd_every_tile_gives_the_same_bits(dev, mask_kind):
+    """Every TMA tile of the forward and the plain-load tile, at a batch
+    off every tile's rows (B 70: 64 and 128 leave ragged row blocks) and H
+    off their units, give the same bits: they sum K in one order.  And
+    they agree with the plain version."""
+    xp, w, b, mask = _gru_inputs(dev, 5, 70, 104, mask_kind, seed=3)
+    ref = gru_kernel.gru_recurrence_plain(xp, w, b, mask, want_hproj=True)
+    gates = gru_kernel._mask_gates(mask)
+    tiles = [gru_kernel.FwdTile(*gru_kernel.RAGGED_TILE, 3, False)] + [
+        gru_kernel.FwdTile(*t, min(3, gru_kernel.fwd_max_stages(gates, *t)),
+                           True) for t in gru_kernel.FWD_TILES]
+    first = None
+    for tile in tiles:
+        got = gru_kernel._gru_fwd(xp, w, b, mask, True, tile)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g.float(), r.float(), atol=5e-2,
+                                       rtol=5e-2)
+        if first is None:
+            first = got
+        assert all(torch.equal(g, f) for g, f in zip(got, first)), tile
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "shared", "per_gate"])
 @pytest.mark.parametrize("seq,batch,dim_h", [(3, 5, 20), (4, 70, 72),
                                              (3, 65, 100), (26, 128, 2400)])
 def test_gru_bwd_kernel_matches_plain(dev, seq, batch, dim_h, mask_kind):

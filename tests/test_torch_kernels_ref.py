@@ -150,3 +150,53 @@ def test_wrappers_count_only_kernel_launches():
     assert before == (gru_kernel.gru_recurrence.launches,
                       vfeat_kernel.vfeat_scores.launches,
                       mixture_kernel.classify_softmax.launches)
+
+
+@pytest.mark.parametrize("gates", [0, 1, 3])
+@pytest.mark.parametrize("dim_h", [20, 36, 2400])
+@pytest.mark.parametrize("batch", [5, 65, 128, 512, 2048])
+def test_gru_fwd_tile_chooser(batch, dim_h, gates):
+    """The forward's tile for each (B, H, gates) on the H100's 132 SMs: H
+    off TMA's 8-element rule takes the plain-load tile, the rest a TMA
+    tile of the kernel's table; the ring fits the block's shared memory at
+    3 or more stages; at the paths' width, one wave of 120 blocks at B 128
+    (64 x 40) and B 512 (128 x 80), and 128 x 80 at B 2048; 128-byte
+    stages where three fit (per-gate masks at 128 x 80 take 64-byte
+    ones)."""
+    tile = gru_kernel.fwd_tile(batch, dim_h, gates, 132, dim_h % 8 == 0)
+    assert tile.tma == (dim_h % 8 == 0)
+    shape = (tile.bm, tile.bj, tile.bk)
+    assert shape in (gru_kernel.FWD_TILES if tile.tma
+                     else (gru_kernel.RAGGED_TILE,))
+    assert 3 <= tile.stages <= (gru_kernel.MAX_STAGES_PER_GATE if gates == 3
+                                else gru_kernel.MAX_STAGES)
+    assert (tile.stages * gru_kernel.fwd_stage_bytes(gates, *shape)
+            <= gru_kernel.SMEM_BLOCK)
+    grid = -(-dim_h // tile.bj) * -(-batch // tile.bm)
+    if dim_h == 2400:
+        bk = 32 if gates == 3 else 64
+        want = {128: ((64, 40, 64), 120), 512: ((128, 80, bk), 120),
+                2048: ((128, 80, bk), 480)}.get(batch)
+        if want is not None:
+            assert (shape, grid) == want
+    # a forced plain-load tile stays the plain-load one
+    assert not gru_kernel.fwd_tile(batch, dim_h, gates, 132, False).tma
+
+
+def test_gru_fwd_tiles_match_the_kernels_instances():
+    """FWD_TILES and RAGGED_TILE name exactly the instances csrc/gru.cu
+    compiles (VQACX_FWD_TILES), each for one and for three gate masks."""
+    import re
+    from pathlib import Path
+
+    src = (Path(gru_kernel.__file__).resolve().parents[2] / "csrc"
+           / "gru.cu").read_text()
+    table = src[src.index("#define VQACX_FWD_TILES"):]
+    table = table[:table.index("\n\n")]
+    got = {(int(ng), 64 * int(wg), int(bj), int(bk), tma == "true")
+           for ng, wg, bj, bk, tma in re.findall(
+               r"X\((\d), (\d), (\d+), (\d+), (true|false)\)", table)}
+    want = {(ng, bm, bj, bk, True) for bm, bj, bk in gru_kernel.FWD_TILES
+            for ng in (1, 3)}
+    want |= {(ng,) + gru_kernel.RAGGED_TILE + (False,) for ng in (1, 3)}
+    assert got == want

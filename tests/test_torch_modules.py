@@ -309,8 +309,8 @@ def test_neural_model_v_feature_lesion_matches_jax(monkeypatch):
 
 
 def test_unported_options_raise():
-    """A trainable backbone (it needs the GRU backward) and the other CX
-    models still raise.  The lesions and the training mode are ported:
+    """A trainable backbone (its backward is not wired into the CX step
+    yet) and the other CX models still raise.  The lesions and the training mode are ported:
     what stays to refuse is training or lesioning without a generator."""
     dataset, _ = jax_synthetic.make_synthetic_cx(
         n_examples=4, n_images=10, dim_v=8, knn_size=3, n_answers=5)

@@ -23,6 +23,7 @@ tensor's largest entry (a few bf16 steps).
 import copy
 import json
 import os
+import time
 from types import SimpleNamespace
 
 import jax
@@ -50,6 +51,7 @@ from vqa_counterexamples_tpu_torch.cli import train as port_cli
 from vqa_counterexamples_tpu_torch.core import checkpoint as port_ckpt
 from vqa_counterexamples_tpu_torch.core import config as port_config
 from vqa_counterexamples_tpu_torch.core import experiment as port_experiment
+from vqa_counterexamples_tpu_torch.core import meters as port_meters
 from vqa_counterexamples_tpu_torch.data.vqa_dataset import VQAArrays
 from vqa_counterexamples_tpu_torch.engines import vqa_engine as port_engine
 from vqa_counterexamples_tpu_torch.models import common as port_common
@@ -934,6 +936,53 @@ def test_metrics_match_jax():
             float(jax_metrics.cross_entropy_mean(jnp.asarray(logits),
                                                  jnp.asarray(labels))),
             rel=1e-6)
+
+
+def test_train_epoch_meters_time_the_step(monkeypatch, capsys):
+    """The pretraining meters mean what JAX's mean: ``data_time`` sums to
+    the loader's time and ``batch_time`` to the epoch's wall time, the
+    reads that wait for the card included (the last batch's too), and the
+    print still comes every ``print_freq`` steps.  The fake step sleeps for
+    its dispatch, as a queued step returns early; the fake read sleeps as
+    long as the card would take for the steps it reads.  Tolerance 10 ms on sums of about
+    0.16 and 0.28 s: the loop's own overhead and the clock's jitter; a
+    read's wait timed as data_time would be 60 ms off here."""
+    load_s, dispatch_s, step_s = 0.02, 0.002, 0.015
+    n_batches, print_freq = 8, 3
+    loaded = []
+
+    def loader():
+        for _ in range(n_batches):
+            t0 = time.time()
+            time.sleep(load_s)
+            loaded.append(time.time() - t0)
+            yield {"answer": np.zeros(4, np.int64)}
+
+    def train_step(state, batch):
+        time.sleep(dispatch_s)
+        return state + 1, {k: torch.zeros(()) for k in ("loss", "acc1",
+                                                        "acc5")}
+
+    read = port_engine._read
+    monkeypatch.setattr(port_engine, "_read", lambda pending: (
+        time.sleep(step_s * len(pending)), read(pending))[1])
+    exp = port_experiment.Experiment("meters")
+    exp.add_meters("train", {k: port_meters.AvgMeter() for k in (
+        "loss", "acc1", "acc5", "batch_time", "data_time")})
+    t0 = time.time()
+    state = port_engine.train_epoch(train_step, 0, loader(), exp, 0,
+                                    print_freq=print_freq)
+    wall = time.time() - t0
+    meters = exp.get_meters("train")
+    assert state == n_batches
+    assert meters["batch_time"].count == meters["data_time"].count == 32
+    printed = [line for line in capsys.readouterr().out.splitlines()
+               if line.startswith("Epoch: [0]")]
+    assert [line.split("\t")[0] for line in printed] == [
+        "Epoch: [0][%d]" % i for i in (0, 3, 6)]
+    assert abs(meters["data_time"].avg * n_batches - sum(loaded)) < 1e-2
+    assert abs(meters["batch_time"].avg * n_batches - wall) < 1e-2
+    assert wall > n_batches * (load_s + dispatch_s + step_s)
 
 
 def test_experiment_json_matches_jax(tmp_path):

@@ -1,4 +1,4 @@
-"""What holds the kNN kernel and the GRU backward back, on one card.
+"""What holds the kNN kernel and the GRU kernels back, on one card.
 
     python -m vqa_counterexamples_tpu_torch.cli.probe_kernels \\
         [--out logs/probe_kernels.json]
@@ -8,6 +8,15 @@ the seed): the kernel's ms at k 1, 25 and 100 (k 1 leaves the threshold
 filter almost nothing to merge, so k 25 - k 1 is the filter's share), and
 one cuBLAS product of the same shape in TF32 and in f32 (``torch.mm``, a
 yardstick the port never calls: the kernel runs three TF32 products).
+
+GRU forward, at T 26, H 2400, for B 128, 512 and 2048, without a mask
+and with per-gate masks (h_proj out, as in training): the wrapper's ms
+(CUDA events) with the tile ``gru_kernel.forward_tile`` picks and, under
+``torch.profiler``, the device time of one step launch that carries the
+product and of the first, which has none; beside them one bf16
+``torch.mm`` of the step's shape, (B, H) x (H, 3H), a yardstick the port
+never calls; and the wrapper's ms with every tile of
+``gru_kernel.FWD_TILES`` at 3 to 6 stages, as many as fit.
 
 GRU backward, at T 26, H 2400 with per-gate masks, for B 64, 128, 256 and
 512: the wrapper's ms (CUDA events) and, under ``torch.profiler``, the
@@ -62,6 +71,54 @@ def probe_knn(dev, gen):
     return out
 
 
+def _step_us(prof, name):
+    """(first launch, mean of the others) device us of kernels ``name``."""
+    steps = [e.device_time_total for e in prof.events() if name in e.name]
+    return steps[0], sum(steps[1:]) / max(len(steps) - 1, 1), len(steps)
+
+
+def probe_gru_fwd(dev, gen, batch, per_gate):
+    from ..ops.cuda import gru_kernel
+
+    seq, dim_h = 26, 2400
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    xp, w = randn(seq, batch, 3 * dim_h), randn(3 * dim_h, dim_h,
+                                                scale=dim_h ** -0.5)
+    b = torch.randn(3 * dim_h, generator=gen, device=dev) * 0.1
+    mask = (((torch.rand(3, batch, dim_h, generator=gen, device=dev) < 0.75)
+             * (256.0 / 192)).to(torch.bfloat16) if per_gate else None)
+    args = (xp, w, b, mask, per_gate)
+    tile = gru_kernel.forward_tile(xp, w, b, mask)
+    out = {"batch": batch, "mask": "per_gate" if per_gate else "none",
+           "tile": list(tile),
+           "wrapper_ms": _ms(lambda: gru_kernel.gru_recurrence(*args))}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    h = xp[0, :, :dim_h].contiguous()
+    with torch.profiler.profile(activities=acts) as prof:
+        gru_kernel.gru_recurrence(*args)
+        for _ in range(seq):
+            torch.mm(h, w.t())
+        torch.cuda.synchronize()
+    (out["first_step_us"], out["carry_step_us"],
+     out["step_launches"]) = _step_us(prof, "gru_fwd_step")
+    mm = [e.device_time_total for e in prof.events() if e.name == "aten::mm"]
+    out["mm_bf16_step_us"] = sum(mm) / max(len(mm), 1)
+    out["tiles"] = []
+    for shape in gru_kernel.FWD_TILES:
+        fit = gru_kernel.SMEM_BLOCK // gru_kernel.fwd_stage_bytes(
+            3 if per_gate else 0, *shape)
+        for stages in sorted({min(s, fit) for s in (3, 4, 5, 6)}):
+            t = gru_kernel.FwdTile(*shape, stages, True)
+            out["tiles"].append({"tile": list(t), "ms": _ms(
+                lambda: gru_kernel._gru_fwd(*args, t))})
+    return out
+
+
 def probe_gru_bwd(dev, gen, batch):
     from ..ops.cuda import gru_kernel
 
@@ -85,11 +142,8 @@ def probe_gru_bwd(dev, gen, batch):
     with torch.profiler.profile(activities=acts) as prof:
         gru_kernel.gru_recurrence_bwd(*args)
         torch.cuda.synchronize()
-    steps = [e.device_time_total for e in prof.events()
-             if "gru_bwd_step" in e.name]
-    out["step_launches"] = len(steps)
-    out["gate_only_step_us"] = steps[0]
-    out["carry_step_us"] = sum(steps[1:]) / max(len(steps) - 1, 1)
+    (out["gate_only_step_us"], out["carry_step_us"],
+     out["step_launches"]) = _step_us(prof, "gru_bwd_step")
     return out
 
 
@@ -106,6 +160,9 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     report = {"card": card, "knn": probe_knn(dev, gen),
+              "gru_fwd": [probe_gru_fwd(dev, gen, batch, per_gate)
+                          for batch in (128, 512, 2048)
+                          for per_gate in (False, True)],
               "gru_bwd": [probe_gru_bwd(dev, gen, batch)
                           for batch in (64, 128, 256, 512)]}
     out = json.dumps(report, indent=1)

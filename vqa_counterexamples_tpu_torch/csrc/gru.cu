@@ -1,14 +1,41 @@
 // GRU recurrence, one launch per timestep (see ops/cuda/gru_kernel.py):
-// the forward (shared or per-gate variational masks) and the backward's
-// reverse sweep.
+// the forward (no mask, one shared or per-gate variational masks) and the
+// backward's reverse sweep.
 //
-// Forward block tile: 64 batch rows x 32 hidden units.  The GEMM columns of
-// a block are the three gates' rows of W_hh for its units (96 columns), so
-// the gate epilogue has everything it needs locally.  8 warps: 4 along the
-// batch rows (16 each) x 2 along the 96 columns (48 = 3 fragments each).
-// With per-gate masks (NG = 3) the block builds three A tiles,
-// bf16(h * mask_g), one per gate; a 16-column fragment lies inside one
-// gate's 32 columns, so each fragment reads its own gate's tile.
+// Forward (replaces gru_fwd_pallas, vqa_counterexamples_tpu/ops/pallas/
+// gru_kernel.py:183, kernels _fwd_kernel :97 and _fwd_kernel_pg :128).
+// Each step is a (B, H) x (H, 3H) product, 17.7 GFLOP at B 512, H 2400,
+// whose operands live in L2 (W_hh is 34.6 MB), then the gate math.  On
+// the H100 it is neither bound by the tensor cores nor by the bytes the
+// blocks pull from L2 (halving those with 2 x 2 clusters and TMA
+// multicast did not make it faster), but by latency: of the ring's loads
+// and of the epilogue's.  The design:
+// - A block owns BM = 64 WG batch rows x BJ hidden units and all three
+//   gates of those units (the W rows g H + j0 .. + BJ, g = r, z, n), so
+//   the gate math needs nothing from other blocks.  The tile is chosen per
+//   (B, H, gates) by the wrapper (gru_kernel.fwd_tile).
+// - The masked A operand bf16(h * m_g) is made once a step, in the
+//   epilogue of the step that writes h (JAX's hin_scr snapshot), into a
+//   ping-pong scratch (2, NG, B, H); the next step streams it as it is.
+//   Without a mask A is states[t - 1] itself.
+// - One producer warp keeps a ring of STAGES stages full with TMA loads
+//   (an A box per gate and a W box per gate, 64B- or 128B-swizzled,
+//   zeros past B and H), tracked by full / empty mbarriers.
+// - WG consumer warpgroups, 64 rows each, run wgmma m64nBJk16 per gate
+//   per 16-deep step (A and W both K-major in shared memory), one group
+//   in flight while the next stage is waited for.  NG 1 issues the same
+//   three per-gate products on one A tile, so three equal masks give the
+//   shared path's bits; every tile sums K in the same order, so every
+//   tile gives the same bits.
+// - The gate math: the warpgroups' sums go through the idle ring, then
+//   each thread takes 8 units of one row and all three gates at a time,
+//   so xp, h_{t-1}, the masks, h_t, h_proj and the masked copies move in
+//   16-byte accesses along rows (measured faster than the gate math on
+//   the accumulators' own layout, whose 4-byte accesses left the
+//   epilogue latency-bound).
+// Shapes off the TMA rules (H % 8 != 0, unaligned operands) take the same
+// template with TMA = false: the producer warp fills the same swizzled
+// stages with plain loads.
 //
 // Backward: one launch per timestep, T in all.  The launch for step s
 // first finishes the carry of step s + 1, dh += sum_g bf16(dh_proj_g) @
@@ -26,160 +53,311 @@
 namespace vqacx {
 namespace {
 
-constexpr int BM = 64;          // batch rows per block
-constexpr int BJ = 32;          // hidden units per block
-constexpr int BN = 3 * BJ;      // GEMM columns per block (r, z, n)
-constexpr int BK = 64;
-constexpr int LDS = BK + 8;
-constexpr int LDC = BN + 4;
-constexpr int NT = 256;
-constexpr int SMEM_C = BM * LDC * 4;
-
-__host__ __device__ constexpr int smem_fwd(int ng) {
-  return (ng * BM + BN) * LDS * 2 > SMEM_C ? (ng * BM + BN) * LDS * 2
-                                           : SMEM_C;
-}
-
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// h_prev == nullptr means t == 0 (h_{-1} = 0, so h_proj = b_hh).
-// mask == nullptr means ones (NG == 1 only).  NG == 3: mask is (3, B, H),
-// gate g at mask + g * B * H.
-template <int NG>
-__global__ void __launch_bounds__(NT)
-gru_step_kernel(const bf16* __restrict__ xp_t,     // (B, 3H)
-                const bf16* __restrict__ w,        // (3H, H)
-                const float* __restrict__ b,       // (3H,)
-                const bf16* __restrict__ mask,     // (NG, B, H) or null
-                const bf16* __restrict__ h_prev,   // (B, H) or null
-                bf16* __restrict__ h_out,          // (B, H)
-                bf16* __restrict__ hproj_t,        // (B, 3H) or null
-                int B, int H, bool vec) {
-  using namespace nvcuda;
-  constexpr int SMEM = smem_fwd(NG);
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  bf16* As = reinterpret_cast<bf16*>(smem);        // NG tiles of BM x LDS
-  bf16* Bs = As + NG * BM * LDS;
-  float* Cs = reinterpret_cast<float*>(smem);  // reused after the K loop
+// ---------------------------------------------------------------- forward
 
+// One step's operands.  h_prev == nullptr means t == 0 (h_{-1} = 0, so
+// h_proj = b_hh and there is no product).  mask == nullptr means ones.
+struct FwdStep {
+  const bf16* xp_t;     // (B, 3H)
+  const bf16* w;        // (3H, H)
+  const float* b;       // (3H,)
+  const bf16* mask;     // (NG, B, H) or null
+  const bf16* h_prev;   // (B, H) or null
+  const bf16* a_src;    // A of this step: (NG, B, H) (plain loads)
+  int a_z;              // A of this step: its index along the map's dim 2
+  bf16* h_out;          // (B, H)
+  bf16* hproj_t;        // (B, 3H) or null
+  bf16* hm_out;         // (NG, B, H): bf16(h_t * m_g) for the next step,
+                        // or null
+  int B, H, nk, stages;
+};
+
+template <int NG, int WG, int BJ, int BK>
+struct FwdTile {
+  static constexpr int BM = 64 * WG;
+  static constexpr int RB = BK * 2;                  // bytes per tile row
+  static constexpr int A_BYTES = BM * RB;            // one gate's A box
+  static constexpr int W_BYTES = BJ * RB;            // one gate's W box
+  static constexpr int W_SLOT = (W_BYTES + 1023) / 1024 * 1024;
+  static constexpr int STAGE = NG * A_BYTES + 3 * W_SLOT;
+  static constexpr int TX = NG * A_BYTES + 3 * W_BYTES;
+  static constexpr int NT = WG * 128 + 32;           // + the producer warp
+  static constexpr int LDC = BJ + 4;                 // staged sums' row
+  static constexpr int CS = 3 * BM * LDC * 4;        // bytes, in the ring
+  __host__ __device__ static constexpr int RING(int stages) {
+    return stages * STAGE > CS ? stages * STAGE : CS;
+  }
+  static_assert(A_BYTES % 1024 == 0 && STAGE % 1024 == 0, "alignment");
+  static_assert(BJ % 8 == 0 && (BK == 32 || BK == 64), "tile");
+};
+
+// Eight bf16 of a row at q; VEC (H % 8 == 0, 16-byte aligned operands):
+// one 16-byte access, else one unit at a time, the n valid ones only
+// (the rest read as 0).
+template <bool VEC>
+__device__ __forceinline__ Pack8 load8(const bf16* q, int n) {
+  Pack8 v;
+  if constexpr (VEC) {
+    v.u = *reinterpret_cast<const uint4*>(q);
+  } else {
+    for (int e = 0; e < 8; ++e) set_lane8(v, e, e < n ? q[e] : bf16_zero());
+  }
+  return v;
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store8(bf16* q, const Pack8& v, int n) {
+  if constexpr (VEC) {
+    *reinterpret_cast<uint4*>(q) = v.u;
+  } else {
+    for (int e = 0; e < n; ++e) q[e] = lane8(v, e);
+  }
+}
+
+// The consumer warpgroups only (the producer warp has left).
+template <int WG>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(WG * 128) : "memory");
+}
+
+// The consumer warpgroups of gru_fwd_step_kernel: the product, then the
+// gate math.
+template <int NG, int WG, int BJ, int BK, bool TMA>
+__device__ __forceinline__ void fwd_consume(const FwdStep& p,
+                                            unsigned char* ring,
+                                            uint64_t* full, uint64_t* empty,
+                                            int j0, int b0) {
+  using Tl = FwdTile<NG, WG, BJ, BK>;
+  constexpr int BM = Tl::BM;
+  const int S = p.stages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  {
+    // the epilogue's operands start toward L2 while the product runs: the
+    // block's rows of xp_t (three gates) and of the masks
+    const int per_row = 3 + NG;
+    for (int i = threadIdx.x; i < BM * per_row * 2; i += WG * 128) {
+      const int r = i / (per_row * 2), a = (i / 2) % per_row, half = i % 2;
+      const int b = b0 + r;
+      if (b >= p.B) continue;
+      const int j = min(j0 + half * (BJ - 1), p.H - 1);
+      const void* q =
+          a < 3 ? (const void*)(p.xp_t + (size_t)b * 3 * p.H + a * p.H + j)
+          : p.mask != nullptr
+              ? (const void*)(p.mask + (size_t)(a - 3) * p.B * p.H +
+                              (size_t)b * p.H + j)
+              : nullptr;
+      if (q != nullptr) prefetch_l2(q);
+    }
+  }
+  float acc[3][BJ / 2];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int e = 0; e < BJ / 2; ++e) acc[g][e] = 0.0f;
+  if (p.h_prev != nullptr) {
+    for (int kt = 0; kt < p.nk; ++kt) {
+      const int s = kt % S;
+      mbar_wait(full + s, (kt / S) & 1);
+      const unsigned char* st = ring + (size_t)s * Tl::STAGE;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) fence_acc(acc[g]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const unsigned char* a_tile = st +
+              (NG == 3 ? g : 0) * Tl::A_BYTES + wg * 64 * Tl::RB;
+          const unsigned char* w_tile = st + NG * Tl::A_BYTES +
+              g * Tl::W_SLOT;
+          wgmma_bf16_ss<BJ>(acc[g], gmma_desc<Tl::RB>(a_tile) + 2 * kk,
+                            gmma_desc<Tl::RB>(w_tile) + 2 * kk);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int g = 0; g < 3; ++g) fence_acc(acc[g]);
+      // stage kt - 1 has been read: the producer may refill it
+      if (kt > 0) mbar_arrive(empty + (kt - 1) % S);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int g = 0; g < 3; ++g) fence_acc(acc[g]);
+  }
+
+  // ---- the gate math.  The sums go through the ring, idle now, so that
+  // each thread then takes 8 units of one row at a time: every load and
+  // store of the epilogue is 16 bytes wide and a warp's lie along rows
+  // (the accumulators' own layout, 2 units of 8 rows a quad, made the
+  // epilogue's loads latency-bound).  KB tasks' loads go out before any
+  // of them is used.
+  constexpr int LDC = Tl::LDC, CH = BJ / 8, NC = WG * 128, KB = 3;
+  constexpr int PER = (BM * CH + NC - 1) / NC;
+  float* cs = reinterpret_cast<float*>(ring);
+  consumers_sync<WG>();   // every warpgroup is done with the ring
+  const int rw = wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int i = 0; i < BJ / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(cs + (g * BM + rw + 8 * h) * LDC + i * 8 +
+                                   (lane % 4) * 2) =
+            make_float2(acc[g][4 * i + 2 * h], acc[g][4 * i + 2 * h + 1]);
+  consumers_sync<WG>();
+  const int H = p.H;
+  const size_t gstride = (size_t)p.B * H;
+#pragma unroll
+  for (int k0 = 0; k0 < PER; k0 += KB) {
+    Pack8 xs[KB][3], hp[KB], ms[KB][NG];
+#pragma unroll
+    for (int k = 0; k < KB && k0 + k < PER; ++k) {
+      const int task = threadIdx.x + (k0 + k) * NC;
+      const int b = b0 + task / CH, j = j0 + (task % CH) * 8;
+      if (task >= BM * CH || b >= p.B || j >= H) continue;
+      const int n = min(8, H - j);
+      const size_t o = (size_t)b * H + j, x0 = (size_t)b * 3 * H + j;
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        xs[k][g] = load8<TMA>(p.xp_t + x0 + g * H, n);
+      if (p.h_prev != nullptr) hp[k] = load8<TMA>(p.h_prev + o, n);
+      else hp[k].u = make_uint4(0, 0, 0, 0);
+      if (p.mask != nullptr)
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          ms[k][g] = load8<TMA>(p.mask + g * gstride + o, n);
+    }
+#pragma unroll
+    for (int k = 0; k < KB && k0 + k < PER; ++k) {
+      const int task = threadIdx.x + (k0 + k) * NC;
+      const int r = task / CH, c0 = (task % CH) * 8;
+      const int b = b0 + r, j = j0 + c0;
+      if (task >= BM * CH || b >= p.B || j >= H) continue;
+      const int n = min(8, H - j);
+      const size_t o = (size_t)b * H + j, x0 = (size_t)b * 3 * H + j;
+      float sum[3][8];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const float4* c4 =
+            reinterpret_cast<const float4*>(cs + (g * BM + r) * LDC + c0);
+        const float4 lo = c4[0], hi = c4[1];
+        const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          sum[g][e] = v[e] + (e < n ? p.b[g * H + j + e] : 0.0f);
+      }
+      Pack8 hv, pr[3], hm[NG];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float rg = sigmoid(f32(lane8(xs[k][0], e)) + sum[0][e]);
+        const float zg = sigmoid(f32(lane8(xs[k][1], e)) + sum[1][e]);
+        const float ng = tanhf(f32(lane8(xs[k][2], e)) + rg * sum[2][e]);
+        const bf16 h = rn((1.0f - zg) * ng + zg * f32(lane8(hp[k], e)));
+        set_lane8(hv, e, h);
+#pragma unroll
+        for (int g = 0; g < 3; ++g) set_lane8(pr[g], e, rn(sum[g][e]));
+        if (p.hm_out != nullptr)
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+            set_lane8(hm[g], e, rn(f32(h) * f32(lane8(ms[k][g], e))));
+      }
+      store8<TMA>(p.h_out + o, hv, n);
+      if (p.hproj_t != nullptr)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          store8<TMA>(p.hproj_t + x0 + g * H, pr[g], n);
+      if (p.hm_out != nullptr)
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          store8<TMA>(p.hm_out + g * gstride + o, hm[g], n);
+    }
+  }
+}
+
+// One timestep.  tmA: the A source, dims (H, B, Z) (states, Z = T, or the
+// scratch, Z = 2 NG), boxes (BK, BM, 1); tmW: W_hh, dims (H, 3H), boxes
+// (BK, BJ).  Unused when TMA is false.
+template <int NG, int WG, int BJ, int BK, bool TMA>
+__global__ void __launch_bounds__(FwdTile<NG, WG, BJ, BK>::NT, 1)
+gru_fwd_step_kernel(const __grid_constant__ CUtensorMap tmA,
+                    const __grid_constant__ CUtensorMap tmW,
+                    const FwdStep p) {
+  using Tl = FwdTile<NG, WG, BJ, BK>;
+  constexpr int BM = Tl::BM;
+  extern __shared__ unsigned char fdyn[];
+  // the swizzled tiles need 1024-byte aligned shared addresses
+  unsigned char* ring = fdyn + ((1024 - (smem_u32(fdyn) & 1023)) & 1023);
+  const int S = p.stages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Tl::RING(S));
+  uint64_t* empty = full + S;
   const int j0 = blockIdx.x * BJ;
   const int b0 = blockIdx.y * BM;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp % 4;
-  const int wn = warp / 4;
-  const size_t gstride = (size_t)B * H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[3];
-  for (int f = 0; f < 3; ++f) wmma::fill_fragment(acc[f], 0.0f);
-
-  if (h_prev != nullptr) {
-    for (int k0 = 0; k0 < H; k0 += BK) {
-      // A tile(s): bf16(h * mask_g)
-      for (int c = threadIdx.x; c < BM * (BK / 8); c += NT) {
-        const int r = c / (BK / 8);
-        const int kc = (c % (BK / 8)) * 8;
-        const int gb = b0 + r;
-        const int gk = k0 + kc;
-        const size_t i0 = (size_t)gb * H + gk;
-        if (gb < B && vec && gk + 8 <= H) {
-          Pack8 hv;
-          hv.u = *reinterpret_cast<const uint4*>(h_prev + i0);
-#pragma unroll
-          for (int g = 0; g < NG; ++g) {
-            Pack8 out;
-            if (mask != nullptr) {
-              Pack8 mv;
-              mv.u = *reinterpret_cast<const uint4*>(mask + g * gstride + i0);
-              for (int e = 0; e < 8; ++e)
-                set_lane8(out, e, rn(f32(lane8(hv, e)) * f32(lane8(mv, e))));
-            } else {
-              out = hv;
-            }
-            *reinterpret_cast<uint4*>(As + g * BM * LDS + r * LDS + kc) =
-                out.u;
-          }
-        } else {
-#pragma unroll
-          for (int g = 0; g < NG; ++g) {
-            bf16* dst = As + g * BM * LDS + r * LDS + kc;
-            for (int e = 0; e < 8; ++e) {
-              bf16 v = bf16_zero();
-              if (gb < B && gk + e < H) {
-                const size_t i = i0 + e;
-                v = mask != nullptr
-                        ? rn(f32(h_prev[i]) * f32(mask[g * gstride + i]))
-                        : h_prev[i];
-              }
-              dst[e] = v;
-            }
-          }
-        }
-      }
-      // B tile: W rows g*H + j0 + jj for the three gates
-      for (int c = threadIdx.x; c < BN * (BK / 8); c += NT) {
-        const int n = c / (BK / 8);
-        const int kc = (c % (BK / 8)) * 8;
-        const int gate = n / BJ;
-        const int j = j0 + n % BJ;
-        const int gk = k0 + kc;
-        bf16* dst = Bs + n * LDS + kc;
-        const bf16* src = w + ((size_t)gate * H + j) * H + gk;
-        if (j < H && vec && gk + 8 <= H) {
-          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-        } else {
-          for (int e = 0; e < 8; ++e)
-            dst[e] = (j < H && gk + e < H) ? src[e] : bf16_zero();
-        }
-      }
-      __syncthreads();
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        if constexpr (NG == 1)
-          wmma::load_matrix_sync(fa, As + (wm * 16) * LDS + kk, LDS);
-        for (int f = 0; f < 3; ++f) {
-          if constexpr (NG == 3) {
-            const int gate = (wn * 48 + f * 16) / BJ;
-            wmma::load_matrix_sync(
-                fa, As + gate * BM * LDS + (wm * 16) * LDS + kk, LDS);
-          }
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, Bs + (wn * 48 + f * 16) * LDS + kk, LDS);
-          wmma::mma_sync(acc[f], fa, fb, acc[f]);
-        }
-      }
-      __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, WG * 128);
     }
+    mbar_init_fence();
   }
-  for (int f = 0; f < 3; ++f)
-    wmma::store_matrix_sync(Cs + (wm * 16) * LDC + wn * 48 + f * 16, acc[f],
-                            LDC, wmma::mem_row_major);
   __syncthreads();
 
-  const size_t h3 = (size_t)3 * H;
-  for (int i = threadIdx.x; i < BM * BJ; i += NT) {
-    const int r = i / BJ;
-    const int jj = i % BJ;
-    const int gb = b0 + r;
-    const int j = j0 + jj;
-    if (gb >= B || j >= H) continue;
-    const float hr = Cs[r * LDC + jj] + b[j];
-    const float hz = Cs[r * LDC + BJ + jj] + b[H + j];
-    const float hn = Cs[r * LDC + 2 * BJ + jj] + b[2 * H + j];
-    const bf16* xrow = xp_t + gb * h3;
-    const float rg = sigmoid(f32(xrow[j]) + hr);
-    const float zg = sigmoid(f32(xrow[H + j]) + hz);
-    const float ng = tanhf(f32(xrow[2 * H + j]) + rg * hn);
-    const float h_old = h_prev != nullptr ? f32(h_prev[(size_t)gb * H + j]) : 0.0f;
-    h_out[(size_t)gb * H + j] = rn((1.0f - zg) * ng + zg * h_old);
-    if (hproj_t != nullptr) {
-      bf16* hrow = hproj_t + gb * h3;
-      hrow[j] = rn(hr);
-      hrow[H + j] = rn(hz);
-      hrow[2 * H + j] = rn(hn);
+  if (warp == WG * 4) {
+    // ---- the producer warp: keeps the ring full
+    if (p.h_prev == nullptr) return;
+    for (int kt = 0; kt < p.nk; ++kt) {
+      const int s = kt % S;
+      if (kt >= S) mbar_wait(empty + s, ((kt / S) + 1) & 1);
+      unsigned char* st = ring + (size_t)s * Tl::STAGE;
+      const int k0 = kt * BK;
+      if constexpr (TMA) {
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full + s, Tl::TX);
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+            tma_load_3d(st + g * Tl::A_BYTES, &tmA, full + s, k0, b0,
+                        p.a_z + g);
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            tma_load_2d(st + NG * Tl::A_BYTES + g * Tl::W_SLOT, &tmW,
+                        full + s, k0, g * p.H + j0);
+        }
+      } else {
+        const size_t gstride = (size_t)p.B * p.H;
+        for (int i = lane; i < NG * BM * BK; i += 32) {
+          const int g = i / (BM * BK), r = (i / BK) % BM, k = i % BK;
+          const int b = b0 + r, kk = k0 + k;
+          const bf16 v = b < p.B && kk < p.H
+                             ? p.a_src[g * gstride + (size_t)b * p.H + kk]
+                             : bf16_zero();
+          *reinterpret_cast<bf16*>(st + g * Tl::A_BYTES +
+                                   swizzled<Tl::RB>(r, k)) = v;
+        }
+        for (int i = lane; i < 3 * BJ * BK; i += 32) {
+          const int g = i / (BJ * BK), r = (i / BK) % BJ, k = i % BK;
+          const int j = j0 + r, kk = k0 + k;
+          const bf16 v = j < p.H && kk < p.H
+                             ? p.w[((size_t)g * p.H + j) * p.H + kk]
+                             : bf16_zero();
+          *reinterpret_cast<bf16*>(st + NG * Tl::A_BYTES + g * Tl::W_SLOT +
+                                   swizzled<Tl::RB>(r, k)) = v;
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full + s);
+      }
     }
+    return;
   }
+  fwd_consume<NG, WG, BJ, BK, TMA>(p, ring, full, empty, j0, b0);
 }
 
 // ---------------------------------------------------------------- backward
@@ -417,6 +595,47 @@ gru_bwd_step_kernel(const bf16* __restrict__ dhp_next,  // (B, 3H) or null
   }
 }
 
+// The forward's instances, (NG, WG = BM / 64, BJ, BK, TMA), mirrored by
+// ops/cuda/gru_kernel.FWD_TILES (the TMA ones) and RAGGED_TILE.
+#define VQACX_FWD_TILES(X) \
+  X(1, 2, 80, 64, true)    \
+  X(3, 2, 80, 64, true)    \
+  X(1, 2, 80, 32, true)    \
+  X(3, 2, 80, 32, true)    \
+  X(1, 1, 40, 64, true)    \
+  X(3, 1, 40, 64, true)    \
+  X(1, 1, 40, 64, false)   \
+  X(3, 1, 40, 64, false)
+
+template <int NG, int WG, int BJ, int BK, bool TMA>
+cudaError_t fwd_launch(const CUtensorMap& tmA, const CUtensorMap& tmW,
+                       FwdStep p, int T, const bf16* xp, bf16* states,
+                       bf16* hproj, bf16* scratch, cudaStream_t s) {
+  using Tl = FwdTile<NG, WG, BJ, BK>;
+  auto kernel = gru_fwd_step_kernel<NG, WG, BJ, BK, TMA>;
+  const size_t smem = 1024 + Tl::RING(p.stages) + 16 * p.stages;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.H + BJ - 1) / BJ, (p.B + Tl::BM - 1) / Tl::BM);
+  const size_t step_h = (size_t)p.B * p.H, step_x = 3 * step_h;
+  const bool masked = p.mask != nullptr;
+  for (int t = 0; t < T; ++t) {
+    p.xp_t = xp + t * step_x;
+    p.h_prev = t > 0 ? states + (t - 1) * step_h : nullptr;
+    p.a_z = masked ? ((t - 1) & 1) * NG : t - 1;
+    p.a_src = masked ? scratch + ((t - 1) & 1) * NG * step_h : p.h_prev;
+    p.h_out = states + t * step_h;
+    p.hproj_t = hproj != nullptr ? hproj + t * step_x : nullptr;
+    p.hm_out = masked && t + 1 < T ? scratch + (t & 1) * NG * step_h
+                                   : nullptr;
+    kernel<<<grid, Tl::NT, smem, s>>>(tmA, tmW, p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 }  // namespace vqacx
 
@@ -424,43 +643,55 @@ VQACX_DEFINE_ERROR_STRING
 
 // states[t] = GRU step of states[t-1] (states[-1] = 0) for t in [0, T).
 // mask_gates: 0 (no mask: ones), 1 (one (B, H) mask), 3 ((3, B, H), one
-// mask per gate r, z, n).
+// mask per gate r, z, n).  scratch: (2, NG, B, H) bf16 when masked, else
+// null.  The tile (bm, bj, bk, tma) must be one of VQACX_FWD_TILES' for
+// NG = mask_gates == 3 ? 3 : 1; ``stages`` deep ring.
 extern "C" int vqacx_gru_fwd(const void* xp, const void* w, const void* b,
                              const void* mask, int mask_gates, void* states,
-                             void* hproj, int T, int B, int H, void* stream) {
-  using vqacx::bf16;
-  const bf16* xp_ = static_cast<const bf16*>(xp);
-  const bf16* w_ = static_cast<const bf16*>(w);
-  const float* b_ = static_cast<const float*>(b);
-  const bf16* mask_ = mask_gates > 0 ? static_cast<const bf16*>(mask)
-                                     : nullptr;
-  bf16* states_ = static_cast<bf16*>(states);
-  bf16* hproj_ = static_cast<bf16*>(hproj);
+                             void* hproj, void* scratch, int T, int B, int H,
+                             int bm, int bj, int bk, int tma, int stages,
+                             void* stream) {
+  using namespace vqacx;
   if (mask_gates != 0 && mask_gates != 1 && mask_gates != 3)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = (H % 8 == 0) && vqacx::aligned16(w) &&
-                   vqacx::aligned16(states) &&
-                   (mask_ == nullptr || vqacx::aligned16(mask_));
-  const dim3 grid((H + vqacx::BJ - 1) / vqacx::BJ,
-                  (B + vqacx::BM - 1) / vqacx::BM);
-  const size_t step_h = (size_t)B * H;
-  const size_t step_x = (size_t)B * 3 * H;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int t = 0; t < T; ++t) {
-    const bf16* hp = t > 0 ? states_ + (t - 1) * step_h : nullptr;
-    bf16* hpo = hproj_ != nullptr ? hproj_ + t * step_x : nullptr;
-    if (mask_gates == 3)
-      vqacx::gru_step_kernel<3><<<grid, vqacx::NT, 0, s>>>(
-          xp_ + t * step_x, w_, b_, mask_, hp, states_ + t * step_h, hpo, B,
-          H, vec);
-    else
-      vqacx::gru_step_kernel<1><<<grid, vqacx::NT, 0, s>>>(
-          xp_ + t * step_x, w_, b_, mask_, hp, states_ + t * step_h, hpo, B,
-          H, vec);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const int ng = mask_gates == 3 ? 3 : 1;
+  const bool masked = mask_gates > 0;
+  if (T <= 0 || B <= 0 || H <= 0 || stages < 2 ||
+      (masked && scratch == nullptr) || (tma && H % 8 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdStep p{};
+  p.w = static_cast<const bf16*>(w);
+  p.b = static_cast<const float*>(b);
+  p.mask = masked ? static_cast<const bf16*>(mask) : nullptr;
+  p.B = B;
+  p.H = H;
+  p.nk = (H + bk - 1) / bk;
+  p.stages = stages;
+  bf16* states_ = static_cast<bf16*>(states);
+  bf16* scratch_ = masked ? static_cast<bf16*>(scratch) : nullptr;
+  CUtensorMap tmA{}, tmW{};
+  if (tma) {
+    const uint64_t adims[3] = {(uint64_t)H, (uint64_t)B,
+                               (uint64_t)(masked ? 2 * ng : T)};
+    const uint32_t abox[3] = {(uint32_t)bk, (uint32_t)bm, 1};
+    const uint64_t wdims[2] = {(uint64_t)H, (uint64_t)3 * H};
+    const uint32_t wbox[2] = {(uint32_t)bk, (uint32_t)bj};
+    if (!bf16_tensor_map(&tmA, masked ? (const void*)scratch_ : states_, 3,
+                         adims, abox, 2 * bk) ||
+        !bf16_tensor_map(&tmW, w, 2, wdims, wbox, 2 * bk))
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xp_ = static_cast<const bf16*>(xp);
+  bf16* hproj_ = static_cast<bf16*>(hproj);
+#define VQACX_FWD_CASE(NG_, WG_, BJ_, BK_, TMA_)                          \
+  if (ng == NG_ && bm == 64 * WG_ && bj == BJ_ && bk == BK_ &&            \
+      (tma != 0) == TMA_)                                                 \
+    return static_cast<int>(fwd_launch<NG_, WG_, BJ_, BK_, TMA_>(         \
+        tmA, tmW, p, T, xp_, states_, hproj_, scratch_, s));
+  VQACX_FWD_TILES(VQACX_FWD_CASE)
+#undef VQACX_FWD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The reverse sweep over the forward's residuals: dxp and dh_proj

@@ -136,7 +136,12 @@ def train_epoch(train_step, state, loader, experiment, epoch: int,
 
     The steps' metrics stay on the device until a print (every
     ``print_freq`` batches) or the end of the epoch, which read them all
-    at once and update the meters in step order."""
+    at once and update the meters in step order.  The meters mean what
+    JAX's mean: ``data_time`` is the loader's time, and ``batch_time`` runs
+    from the end of the previous batch to the end of this one, the read
+    that waits for the card included, so an epoch's ``batch_time`` values
+    sum to its wall time (less the prints).  A batch that ends on no read
+    is timed when the next one starts, or after the epoch's last read."""
     meters = experiment.reset_meters("train")
     pending = []   # (metrics, batch size) not yet read from the device
 
@@ -149,15 +154,20 @@ def train_epoch(train_step, state, loader, experiment, epoch: int,
             pending.clear()
 
     end = time.time()
+    held = None   # (start, size) of a batch whose batch_time is not taken
     for i, batch in enumerate(loader):
-        batch_size = len(batch["answer"])
-        meters["data_time"].update(time.time() - end, n=batch_size)
+        if held is not None:
+            meters["batch_time"].update(end - held[0], n=held[1])
+            held = None
+        start, batch_size = end, len(batch["answer"])
+        meters["data_time"].update(time.time() - start, n=batch_size)
         state, m = train_step(state, batch)
         pending.append((m, batch_size))
-        meters["batch_time"].update(time.time() - end, n=batch_size)
-        end = time.time()
-        if i % print_freq == 0:
+        if i % print_freq != 0:
+            held = (start, batch_size)
+        else:
             flush()
+            meters["batch_time"].update(time.time() - start, n=batch_size)
             print("Epoch: [{0}][{1}]\t"
                   "Time {bt.val:.3f} ({bt.avg:.3f})\t"
                   "Loss {loss.val:.4f} ({loss.avg:.4f})\t"
@@ -166,7 +176,10 @@ def train_epoch(train_step, state, loader, experiment, epoch: int,
                       epoch, i, bt=meters["batch_time"],
                       loss=meters["loss"], acc1=meters["acc1"],
                       acc5=meters["acc5"]))
+        end = time.time()
     flush()
+    if held is not None:
+        meters["batch_time"].update(time.time() - held[0], n=held[1])
     experiment.log_meters("train", n=epoch)
     return state
 

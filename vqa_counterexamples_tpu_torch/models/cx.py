@@ -54,8 +54,9 @@ class CXModelBase(nn.Module):
         super().__init__()
         if trainable_vqa:
             raise NotImplementedError(
-                "a trainable VQA backbone needs the GRU backward kernel "
-                "(ROADMAP.md, Queue 1: trainable_vqa)")
+                "a trainable VQA backbone needs the backbone's backward "
+                "wired into the CX train step (ROADMAP.md, Queue 1: "
+                "[trainable_vqa])")
         self.trainable_vqa = trainable_vqa
         self.vqa_model = vqa_model
         self.knn_size = knn_size

@@ -30,14 +30,27 @@ per step on 34.6 MB of bf16 W_hh — followed by elementwise gate math.  The
 TPU kernels kept h (forward) and dh (backward) in VMEM across a sequential
 grid; CUDA blocks run in no order and cannot synchronise across the grid,
 so the design is one launch per timestep in both directions (T launches
-from one C call).  The forward reads ``states[t-1]`` and writes
-``states[t]``.  W_hh (34.6 MB) fits in the 50 MB L2, so after the first
-timestep the per-step weight reads are served from L2, not HBM.  A forward
-block owns a (64 batch rows x 32 hidden units) tile and computes all three
-gates' columns for those units with bf16 WMMA fragments (f32
-accumulators), so the gate epilogue needs no exchange between blocks; with
-per-gate masks it stages three masked A tiles, one per gate.  The
-backward's launch for step s first adds step s + 1's back product
+from one C call).  W_hh fits in the 50 MB L2, so after the first step the
+operands come from L2.  What a forward step costs on the card is latency,
+of the ring's loads and of the gate epilogue's, more than the bytes its
+blocks pull from L2 (halving those with clusters did not help).
+
+The forward reads ``states[t-1]`` and writes ``states[t]``.  A block owns
+BM batch rows x BJ hidden units and all three gates' columns for those
+units, so the gate epilogue needs no exchange between blocks.  The masked
+operand bf16(h * mask_g) is made once a step, in the epilogue of the step
+that writes h, into a ping-pong scratch the wrapper allocates (JAX's
+``hin_scr`` snapshot); without a mask the operand is ``states[t-1]``.  A
+producer warp streams A and W tiles through a TMA + mbarrier ring, and
+one or two consumer warpgroups run ``wgmma`` per gate on them; the sums
+then go through shared memory so that the gate math loads and stores 16
+bytes at a time along rows.  :func:`fwd_tile` picks (BM, BJ, BK,
+stages) from (B, H, gates) and the SM count: one wave of blocks where it
+can, the fewest L2 bytes per block.  Shapes off TMA's rules (H % 8 != 0,
+unaligned operands) run the same kernel template with plain loads
+(``tma=False``).
+
+The backward's launch for step s first adds step s + 1's back product
 ``dh_proj @ W`` to the f32 carry (it needs whole dh_proj rows, a
 grid-wide dependency, hence a launch per step), then runs step s's gate
 math in the same block's epilogue: the carry makes one round trip per
@@ -57,12 +70,96 @@ sums over all timesteps outside the TPU kernel too (``gru_kernel.py:
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
 _BF16 = torch.bfloat16
+
+# The forward's kernel instances (``VQACX_FWD_TILES`` in csrc/gru.cu), each
+# for one and for three gate masks: (BM, BJ, BK) of the TMA path, and the
+# one tile of the plain-load path for shapes off TMA's rules.  A mirror of
+# the C table, not read from the library, so that the chooser runs (and is
+# tested) where nothing is built; a CPU test holds the two equal.
+FWD_TILES = ((128, 80, 64), (128, 80, 32), (64, 40, 64))
+RAGGED_TILE = (64, 40, 64)
+# shared memory a block may use on the H100 (232,448 bytes), less the
+# kernel's alignment slack; the ring's depth is capped where more stages
+# stopped helping (cli/probe_kernels.py's tile sweep: with per-gate masks
+# 5 stages were slower than 4 at every batch)
+SMEM_BLOCK = 232448 - 1024
+MAX_STAGES = 6
+MAX_STAGES_PER_GATE = 4
+
+
+class FwdTile(NamedTuple):
+    """A forward launch's tile: BM batch rows x BJ hidden units a block,
+    BK deep stages, ``stages`` of them in the ring, TMA or plain loads."""
+    bm: int
+    bj: int
+    bk: int
+    stages: int
+    tma: bool
+
+
+def fwd_stage_bytes(gates: int, bm: int, bj: int, bk: int) -> int:
+    """One ring stage: an A box per gate mask (one without or with one
+    shared mask), three W boxes each in a 1024-byte slot, plus its two
+    mbarriers."""
+    ng = 3 if gates == 3 else 1
+    return ng * bm * bk * 2 + 3 * (-(-bj * bk * 2 // 1024) * 1024) + 16
+
+
+def fwd_max_stages(gates: int, bm: int, bj: int, bk: int) -> int:
+    """The deepest ring of this tile that fits a block's shared memory,
+    capped at MAX_STAGES (MAX_STAGES_PER_GATE with per-gate masks)."""
+    cap = MAX_STAGES_PER_GATE if gates == 3 else MAX_STAGES
+    return min(cap, SMEM_BLOCK // fwd_stage_bytes(gates, bm, bj, bk))
+
+
+def fwd_tile(batch: int, dim_h: int, gates: int, sm_count: int,
+             tma: bool = True) -> FwdTile:
+    """The forward's tile for (B, H, mask gates 0 / 1 / 3) on a card of
+    ``sm_count`` SMs.  Off TMA's rules the plain-load tile; else the TMA
+    tile whose blocks pull the fewest bytes each wave, waves x (A rows x
+    gates + W rows) x H: one wave where the grid allows it (B 128 takes
+    64 x 40, 120 blocks; B 512 128 x 80, 120 blocks), taller and wider
+    tiles as the batch grows, so A and W are re-read fewer times.  Ties go
+    to the earlier entry of FWD_TILES.  The ring is as deep as
+    :func:`fwd_max_stages` allows."""
+    ng = 3 if gates == 3 else 1
+    if not tma:
+        return FwdTile(*RAGGED_TILE, fwd_max_stages(gates, *RAGGED_TILE),
+                       False)
+    best = None
+    for bm, bj, bk in FWD_TILES:
+        blocks = -(-batch // bm) * -(-dim_h // bj)
+        cost = math.ceil(blocks / sm_count) * (ng * bm + 3 * bj)
+        stages = fwd_max_stages(gates, bm, bj, bk)
+        if stages >= 3 and (best is None or cost < best[0]):
+            best = (cost, FwdTile(bm, bj, bk, stages, True))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def forward_tile(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> FwdTile:
+    """The tile :func:`gru_recurrence` launches with on these operands (a
+    CUDA tensor's): TMA needs H % 8 == 0 and 16-byte aligned operands."""
+    batch, dim_h = xp.shape[1], xp.shape[2] // 3
+    tma = dim_h % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (xp, w_hh, b_hh, mask)
+        if t is not None)
+    return fwd_tile(batch, dim_h, _mask_gates(mask), _sm_count(xp.device),
+                    tma)
 
 
 def _mask_gates(mask: torch.Tensor | None) -> int:
@@ -142,14 +239,22 @@ def gru_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     """The recurrence over a whole sequence (see the module docstring).
 
     On a CPU tensor this is :func:`gru_recurrence_plain`; on a CUDA tensor
-    it launches the kernel (T launches) or raises.  A (3, B, H) mask takes
-    the per-gate variant, counted on :func:`gru_recurrence_pg`.  Forward
-    only: an operand that requires grad (with grad mode on) raises; the
-    trainable recurrence is :class:`GRURecurrence`.
+    it launches the kernel with :func:`forward_tile`'s tile (T launches)
+    or raises.  A (3, B, H) mask takes the per-gate variant, counted on
+    :func:`gru_recurrence_pg`.  Forward only: an operand that requires
+    grad (with grad mode on) raises; the trainable recurrence is
+    :class:`GRURecurrence`.
     """
     build.refuse_grad("gru_recurrence", xp, w_hh, b_hh, mask)
     if xp.device.type == "cpu":
         return gru_recurrence_plain(xp, w_hh, b_hh, mask, want_hproj)
+    return _gru_fwd(xp, w_hh, b_hh, mask, want_hproj, None)
+
+
+def _gru_fwd(xp, w_hh, b_hh, mask, want_hproj, tile: FwdTile | None):
+    """Launch the forward on CUDA tensors with ``tile`` (None: the one
+    :func:`forward_tile` picks).  The probe's tile sweep and the every-tile
+    card test pass a tile; every tile gives the same bits."""
     seq_len, batch, dim_h = _check_operands("gru_recurrence", xp, w_hh,
                                             mask)
     if tuple(b_hh.shape) != (3 * dim_h,) or b_hh.dtype != torch.float32:
@@ -157,16 +262,22 @@ def gru_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     gates = _mask_gates(mask)
     build.require_cuda("gru_recurrence", xp, w_hh, b_hh,
                        *([mask] if mask is not None else []))
+    tile = tile or forward_tile(xp, w_hh, b_hh, mask)
     lib = _lib()
     states = torch.empty((seq_len, batch, dim_h), dtype=_BF16,
                          device=xp.device)
     hproj = (torch.empty((seq_len, batch, 3 * dim_h), dtype=_BF16,
                          device=xp.device) if want_hproj else None)
+    # bf16(h_t * mask_g) for step t + 1, two slots used in turn
+    scratch = (torch.empty((2, 3 if gates == 3 else 1, batch, dim_h),
+                           dtype=_BF16, device=xp.device) if gates else None)
     rc = lib.vqacx_gru_fwd(build.ptr(xp), build.ptr(w_hh), build.ptr(b_hh),
                            build.ptr(mask), gates, build.ptr(states),
-                           build.ptr(hproj), seq_len, batch, dim_h,
+                           build.ptr(hproj), build.ptr(scratch), seq_len,
+                           batch, dim_h, tile.bm, tile.bj, tile.bk,
+                           int(tile.tma), tile.stages,
                            build.stream_of(xp.device))
-    build.check(lib, rc, "gru_recurrence")
+    build.check(lib, rc, "gru_recurrence (tile %s)" % (tile,))
     if gates == 3:
         gru_recurrence_pg.launches += 1
     else:
@@ -329,13 +440,14 @@ def gru_recurrence_train(xp, w_hh, b_hh, mask=None) -> torch.Tensor:
 
 def _lib():
     lib = build.load("gru")
-    # (name, pointer arguments before mask_gates, pointer arguments after)
-    for name, before, after in (("vqacx_gru_fwd", 4, 2),
-                                ("vqacx_gru_bwd", 3, 6)):
+    # (name, pointer arguments before mask_gates, pointer arguments after,
+    # int arguments before the stream)
+    for name, before, after, ints in (("vqacx_gru_fwd", 4, 3, 8),
+                                      ("vqacx_gru_bwd", 3, 6, 3)):
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.argtypes = ([ctypes.c_void_p] * before + [ctypes.c_int]
-                           + [ctypes.c_void_p] * after + [ctypes.c_int] * 3
-                           + [ctypes.c_void_p])
+                           + [ctypes.c_void_p] * after
+                           + [ctypes.c_int] * ints + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return lib
