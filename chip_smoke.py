@@ -11,9 +11,11 @@ ends the run with a nonzero exit and no result line.
    sm_90a, one process per source, all at once), runs each kernel at the
    shapes its path gives it and holds it against its plain PyTorch
    version on the same inputs, with the stated tolerances (the GRU
-   forwards, the three backwards and kNN also against themselves: reruns
-   are bit-equal); times
-   both with CUDA events after a warm-up.
+   forwards, mixture, the three backwards and kNN also against themselves:
+   reruns are bit-equal); times both with CUDA events after a warm-up,
+   and mixture also beside the one library composition that computes its
+   function (``torch.softmax(F.linear(z, w, b), dim=1)``, never called by
+   the port: ``library_ms``).
 2. Scoring at the flagship width (bench.py's configuration: dim_v 2048,
    K 24, BayesianUniSkip 620 -> 2400, MUTAN R 10 at 360, 2000 answers,
    NeuralCX 300 x 2, B 768; synthetic 2048 examples over 1024 images, random
@@ -96,8 +98,11 @@ TOL = {
     # vfeat backward: f32 sums over B*K = 18432 rows, in another order
     # than the plain f32 GEMM (g ~ 1e-2, |dW| up to about 6)
     "vfeat_bwd": dict(atol=1e-4, rtol=1e-4),
-    # mixture probs (tests/test_fused_head.py)
-    "mixture": dict(atol=2e-3, rtol=2e-2),
+    # mixture probs: bit-equal.  The kernel keeps the plain version's
+    # rounding points (its bf16 pair ops round as f32-then-bf16 does) and
+    # its product's k order, so any difference is a fault; a probability
+    # is about 5e-4 at A 2000, below any useful atol
+    "mixture": dict(atol=0.0, rtol=0.0),
     # GRU backward (dxp, dW, db) relative to each tensor's largest entry:
     # bf16 cotangents from f32 carries summed in another order
     "gru_bwd_rel": 2e-2,
@@ -282,19 +287,31 @@ def phase_kernels(dev, card):
     p1 = mixture_kernel.classify_softmax(z, w_cls, b_cls)
     p2 = mixture_kernel.classify_softmax_plain(z, w_cls, b_cls)
     err = check_close("mixture", p1, p2, TOL["mixture"])
+    again = mixture_kernel.classify_softmax(z, w_cls, b_cls)
+    if not torch.equal(p1, again):
+        raise AssertionError("mixture: a rerun on the same inputs differs")
+    log("  mixture    rerun on the same inputs: bit-equal")
     rows["mixture"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: mixture_kernel.classify_softmax(z, w_cls, b_cls)),
+        ms=time_ms(lambda: mixture_kernel.classify_softmax(z, w_cls, b_cls),
+                   reps=20),
         plain_ms=time_ms(lambda: mixture_kernel.classify_softmax_plain(
-            z, w_cls, b_cls)),
+            z, w_cls, b_cls), reps=20),
+        # the yardstick: one bf16 linear and ATen's softmax (the port
+        # never calls it; it rounds the row sum's reciprocal elsewhere)
+        library_ms=time_ms(lambda: torch.softmax(
+            torch.nn.functional.linear(z, w_cls, b_cls), dim=1), reps=20),
         work=(2 * M * DZ * A, (M * DZ + A * DZ + A + M * A) * 2))
+    del again
     del z, w_cls, b_cls, p1, p2
     rows.update(pretrain_kernel_rows(dev, gen, randn))
     rows.update(att_knn_kernel_rows(dev, gen, randn))
     for name, row in rows.items():
         row["bound_ms"], row["bound_by"] = bound(*row.pop("work"))
-        log("  %-9s kernel %.3f ms  plain %.3f ms  bound %.4f ms (%s)  (%s)"
-            % (name, row["ms"], row["plain_ms"], row["bound_ms"],
+        lib = ("  library %.3f ms" % row["library_ms"]
+               if "library_ms" in row else "")
+        log("  %-9s kernel %.3f ms  plain %.3f ms%s  bound %.4f ms (%s)  (%s)"
+            % (name, row["ms"], row["plain_ms"], lib, row["bound_ms"],
                row["bound_by"], card))
     return rows
 
@@ -1279,10 +1296,14 @@ def main():
                 mutan=launches_pre, attmutan=launches_att,
                 attmutan_bwd=launches_att, knn=launches_knn)
     on_path = {k: path.get(k, launches)[k] for k in KERNELS}
+    # library_ms: the one PyTorch call that computes the same function,
+    # where there is one (mixture's linear + softmax), else null
     kernels = [dict(name=name, route="cuda",
                     source="vqa_counterexamples_tpu_torch/csrc/%s.cu"
                     % SOURCES[name], replaces=REPLACES[name],
-                    launches=on_path[name], library_ms=None, **rows[name])
+                    launches=on_path[name],
+                    library_ms=rows[name].pop("library_ms", None),
+                    **rows[name])
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -699,3 +699,42 @@ def test_synthetic_att_data_matches_jax():
     assert ex_p == ex_j
     assert store_p.features.shape == (64, 14, 14, 24)
     np.testing.assert_array_equal(store_p.features, store_j.features)
+
+
+@pytest.mark.parametrize("batch,k,dh,rank,m", [
+    (128, 196, 310, 5, 510), (3, 5, 20, 2, 24), (5, 70, 72, 3, 130),
+    (2, 65, 40, 1, 64), (1, 196, 310, 5, 510), (13, 37, 42, 3, 66),
+    (3, 9, 21, 2, 25), (2, 20, 30, 7, 40), (300, 196, 310, 5, 510)])
+def test_folded_bwd_plan(batch, k, dh, rank, m):
+    """The folded backward's launch plan (``attmutan_kernel.bwd_plan``, a
+    pure function the kernels take as given): its 8 example groups, the
+    bounds the dweff CTAs of a cluster read, cover every example exactly
+    once, in order, ceil(B / 8) at most each; each launch's shared memory
+    fits the H100's 232,448 bytes; the scratch the kernels add in a fixed
+    order.  The shapes are the card tests'
+    (``tests/test_torch_cuda.py::_ATT_BWD_SHAPES``), MutanAtt's first, and
+    a batch past 8 * 32."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import attmutan_kernel
+
+    plan = attmutan_kernel.bwd_plan(batch, k, dh, rank, m)
+    groups = plan["groups"]
+    assert len(groups) == 8
+    assert [b for lo, hi in groups for b in range(lo, hi)] == list(
+        range(batch))
+    assert all(hi - lo <= -(-batch // 8) for lo, hi in groups)
+    assert groups[0][0] == 0 and groups[-1][1] == batch
+    assert all(g0[1] == g1[0] for g0, g1 in zip(groups, groups[1:]))
+    assert plan["dx_smem"] <= 232448 and plan["dweff_smem"] <= 232448
+    assert 2 <= plan["dx_stages"] <= 4
+    assert plan["scratch"] == {"pdhq": (-(-dh // 64), batch, rank, m),
+                               "gsum": (batch, m)}
+    if (batch, k, dh, rank, m) == (128, 196, 310, 5, 510):
+        # two dweff CTAs fit an SM
+        assert 2 * (plan["dweff_smem"] + 1024) <= 233472
+
+
+def test_folded_bwd_plan_refuses_what_does_not_fit():
+    from vqa_counterexamples_tpu_torch.ops.cuda import attmutan_kernel
+
+    with pytest.raises(ValueError, match="shared memory"):
+        attmutan_kernel.bwd_plan(4, 10, 64, 5, 700)

@@ -139,17 +139,49 @@ def test_forward_only_wrappers_refuse_grad(dev):
             torch.zeros(7, dtype=torch.bfloat16, device=dev))
 
 
+# ragged against the kernel's tiles (64 rows, 256-answer tiles, a cluster
+# of CTAs splitting the answers, 64-deep chunks): A below one tile, odd, at
+# the path's 2000 and past one cluster of two; M off and on 64; dz 360 and
+# off 8 (no TMA: the producer fills the stages by hand)
 @pytest.mark.parametrize("rows,dim_z,n_ans", [
-    (70, 24, 50), (129, 36, 100), (300, 360, 2000)])
+    (70, 24, 50), (129, 36, 100), (300, 360, 2000), (64, 360, 2000),
+    (200, 360, 1999), (65, 20, 7), (130, 100, 333), (3, 44, 129),
+    (96, 360, 4500)])
 def test_mixture_kernel_matches_plain(dev, rows, dim_z, n_ans):
     gen = torch.Generator().manual_seed(n_ans)
     z = _randn(gen, dev, rows, dim_z)
     w = _randn(gen, dev, n_ans, dim_z, scale=0.3)
     b = _randn(gen, dev, n_ans)
+    before = mixture_kernel.classify_softmax.launches
     p1 = mixture_kernel.classify_softmax(z, w, b)
     p2 = mixture_kernel.classify_softmax_plain(z, w, b)
+    again = mixture_kernel.classify_softmax(z, w, b)
     torch.cuda.synchronize()
-    torch.testing.assert_close(p1.float(), p2.float(), atol=2e-3, rtol=2e-2)
+    assert mixture_kernel.classify_softmax.launches == before + 2
+    # bit-equal to the plain version, no tolerance (a probability is about
+    # 5e-4 at A 2000, so an atol would hide a lost answer tile): the same
+    # rounding points, and the product summed in the order cuBLAS sums it
+    # where the logits' rows are whole 16-byte chunks (A % 8 == 0)
+    differ = (p1 != p2).sum().item()
+    if n_ans % 8 == 0:
+        assert differ == 0, "%d of %d differ" % (differ, p1.numel())
+    else:
+        # off 16 bytes cuBLAS takes another kernel, which sums the product
+        # in another order, so a few bf16 logits round the other way.  Held
+        # bit-equal instead to the plain version with the answers padded to
+        # a multiple of 8 by answers of bias -inf (probability 0), and at A
+        # itself only those few entries may differ
+        pad = -n_ans % 8
+        w_pad = torch.cat([w, torch.zeros(pad, dim_z, dtype=w.dtype,
+                                          device=dev)])
+        b_pad = torch.cat([b, torch.full((pad,), float("-inf"),
+                                         dtype=b.dtype, device=dev)])
+        p3 = mixture_kernel.classify_softmax_plain(z, w_pad, b_pad)
+        assert torch.equal(p1, p3[:, :n_ans])
+        assert differ <= 1e-4 * p1.numel(), "%d of %d differ" % (
+            differ, p1.numel())
+    # the row sums in one fixed order: the same inputs give the same bits
+    assert torch.equal(p1, again)
 
 
 def test_wrappers_refuse_bad_operands(dev):
@@ -392,7 +424,14 @@ def test_attmutan_kernel_matches_plain(dev, batch, k, dh, rank, m):
                                rtol=8e-3)
 
 
-@pytest.mark.parametrize("batch,k,dh,rank,m", _ATT_SHAPES)
+# the backward also at B 1 (seven empty example groups), at a B whose last
+# group is short (13 over 8 groups of 2), at odd widths (plain loads, no
+# cp.async) and at R 7 (two launches of the dweff kernel, 5 ranks each)
+_ATT_BWD_SHAPES = _ATT_SHAPES + [(1, 196, 310, 5, 510), (13, 37, 42, 3, 66),
+                                 (3, 9, 21, 2, 25), (2, 20, 30, 7, 40)]
+
+
+@pytest.mark.parametrize("batch,k,dh,rank,m", _ATT_BWD_SHAPES)
 def test_attmutan_bwd_kernel_matches_plain(dev, batch, k, dh, rank, m):
     """5b: dx_v and dhq (bf16 from f32 sums) and dw, db (f32 sums over
     every example, another order) within 1e-2 of each tensor's largest

@@ -112,7 +112,8 @@ def test_vfeat_plain_matches_pallas(n_rows, dim_v, batch, knn, dim_h):
         rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("rows,dim_z,n_ans", [(70, 24, 50), (33, 40, 130)])
+@pytest.mark.parametrize("rows,dim_z,n_ans", [(70, 24, 50), (33, 40, 130),
+                                             (40, 360, 2000)])
 def test_mixture_plain_matches_pallas(rows, dim_z, n_ans):
     rng = np.random.default_rng(rows + n_ans)
     z = _bf16(rng.normal(size=(rows, dim_z)))
@@ -129,6 +130,50 @@ def test_mixture_plain_matches_pallas(rows, dim_z, n_ans):
                                rtol=2e-2, atol=2e-3)
     np.testing.assert_allclose(out_p.float().numpy().sum(1), np.ones(rows),
                                rtol=2e-2)
+
+
+@pytest.mark.parametrize("dim_z,n_ans", [
+    (360, 2000), (24, 50), (20, 7), (100, 333), (360, 1999), (360, 4500),
+    (512, 2000), (36, 8000)])
+def test_mixture_plan_covers_the_answers_and_fits(dim_z, n_ans):
+    """The mixture kernel's plan: its cluster's CTAs cover every answer
+    (cl * cw >= A, each CTA's columns a whole number of 256-answer tiles,
+    no CTA wholly past A beyond the tiles' rounding), a W ring of 2 to
+    MAX_STAGES stages, one CTA's shared memory within the H100's 232,448
+    bytes; at the CX path's (dz 360, A 2000) four CTAs of 512 answers and
+    3 stages."""
+    cl, cw, stages = mixture_kernel.mixture_plan(dim_z, n_ans)
+    assert cl in (2, 4, 8) and cw % 256 == 0
+    assert 2 <= stages <= mixture_kernel.MAX_STAGES
+    assert cl * cw >= n_ans and cw - 256 < -(-n_ans // cl)
+    assert mixture_kernel.mixture_smem(-(-dim_z // 64), cw,
+                                       stages) <= 232448
+    if (dim_z, n_ans) == (360, 2000):
+        assert (cl, cw, stages) == (4, 512, 3)
+
+
+@pytest.mark.parametrize("sections,message", [
+    ("mixture,attmutan_bwd", "no CUDA device"), ("mixture,bogus", None)])
+def test_probe_kernels_needs_a_card_and_known_sections(monkeypatch, capsys,
+                                                       sections, message):
+    """``cli/probe_kernels`` runs only the sections it knows and only on a
+    card: a known pick without a card stops with its message, an unknown
+    one is refused by the parser (exit 2) before the card is asked for."""
+    from vqa_counterexamples_tpu_torch.cli import probe_kernels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as stop:
+        probe_kernels.main(["--sections", sections, "--out", "unused.json"])
+    if message is None:
+        assert stop.value.code == 2
+        assert "--sections" in capsys.readouterr().err
+    else:
+        assert message in str(stop.value.code)
+
+
+def test_mixture_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        mixture_kernel.mixture_plan(2048, 2000)
 
 
 def test_wrappers_count_only_kernel_launches():

@@ -1,7 +1,7 @@
-"""What holds the kNN kernel and the GRU kernels back, on one card.
+"""What holds the port's kernels back, on one card.
 
     python -m vqa_counterexamples_tpu_torch.cli.probe_kernels \\
-        [--out logs/probe_kernels.json]
+        [--out logs/probe_kernels.json] [--sections knn,gru_fwd,...]
 
 kNN, at the builder's chunk (1024 queries against 82,783 x 2048 f32 from
 the seed): the kernel's ms at k 1, 25 and 100 (k 1 leaves the threshold
@@ -23,7 +23,18 @@ GRU backward, at T 26, H 2400 with per-gate masks, for B 64, 128, 256 and
 device time of one step launch that carries a back product and of the
 first, which only runs the gate step.
 
-Needs a card: it refuses to run without one.  The JSON report goes to
+Mixture (the answer head's softmax), at the CX path's shape (M 18432,
+dz 360, A 2000): the kernel's ms, the plain version's, and the ms of the
+library composition ``torch.softmax(F.linear(z, w, b), dim=1)`` in bf16
+(a yardstick the port never calls), and the plan the wrapper picks.
+
+Folded MUTAN backward, at MutanAtt's shape (B 128, K 196, Dh 310, R 5,
+M 510): the wrapper's ms and, under ``torch.profiler``, the device us of
+each of its launches, by kernel name.
+
+``--sections`` picks some of knn, gru_fwd, gru_bwd, mixture,
+attmutan_bwd (all by default).  Needs a card: it refuses to run without
+one.  The JSON report goes to
 ``--out``.
 """
 
@@ -32,6 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 
 import torch
@@ -147,11 +159,81 @@ def probe_gru_bwd(dev, gen, batch):
     return out
 
 
+def probe_mixture(dev, gen):
+    from ..ops.cuda import mixture_kernel
+
+    rows, dim_z, n_ans = 18432, 360, 2000
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    z, w, b = randn(rows, dim_z), randn(n_ans, dim_z, scale=dim_z ** -0.5), \
+        randn(n_ans)
+    return {"shape": [rows, dim_z, n_ans],
+            "kernel_ms": _ms(lambda: mixture_kernel.classify_softmax(
+                z, w, b), reps=20),
+            "plain_ms": _ms(lambda: mixture_kernel.classify_softmax_plain(
+                z, w, b), reps=20),
+            "library_ms": _ms(lambda: torch.softmax(
+                torch.nn.functional.linear(z, w, b), dim=1), reps=20),
+            "plan": list(mixture_kernel.mixture_plan(dim_z, n_ans))}
+
+
+def _kernel_name(name):
+    """A device kernel's name without its namespace, template arguments
+    and parameters (``void ns::(anonymous namespace)::k<true>(P)`` ->
+    ``k``)."""
+    return re.sub(r"<.*", "", re.sub(r"\(.*", "", name.replace(
+        "(anonymous namespace)::", "")).split("::")[-1])
+
+
+def probe_attmutan_bwd(dev, gen, reps=10):
+    from ..ops.cuda import attmutan_kernel
+
+    batch, k, dim_h, rank, dim_m = 128, 196, 310, 5, 510
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    args = (randn(batch, k, dim_h), randn(rank * dim_m, dim_h,
+                                          scale=dim_h ** -0.5),
+            randn(rank * dim_m, scale=0.1, dtype=torch.float32),
+            randn(batch, rank, dim_m, dtype=torch.float32),
+            randn(batch, k, dim_m, scale=0.1))
+    out = {"shape": [batch, k, dim_h, rank, dim_m],
+           "wrapper_ms": _ms(lambda: attmutan_kernel.folded_mutan_bwd(*args),
+                             reps=20)}
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            attmutan_kernel.folded_mutan_bwd(*args)
+        torch.cuda.synchronize()
+    launches = {}
+    for e in prof.events():
+        if e.device_time_total > 0 and "attmutan" in e.name:
+            launches.setdefault(_kernel_name(e.name), []).append(
+                e.device_time_total)
+    out["launch_us"] = {n: sum(v) / len(v) for n, v in launches.items()}
+    out["launches_per_call"] = {n: len(v) / reps
+                                for n, v in launches.items()}
+    out["device_us_per_call"] = sum(sum(v) for v in launches.values()) / reps
+    return out
+
+
+SECTIONS = ("knn", "gru_fwd", "gru_bwd", "mixture", "attmutan_bwd")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default="logs/probe_kernels.json")
+    parser.add_argument("--sections", default=",".join(SECTIONS))
     args = parser.parse_args(argv)
+    sections = args.sections.split(",")
+    if not set(sections) <= set(SECTIONS):
+        parser.error("--sections: pick from %s" % ", ".join(SECTIONS))
     if not torch.cuda.is_available():
         raise SystemExit("probe_kernels: no CUDA device visible")
     dev = torch.device("cuda", 0)
@@ -159,12 +241,18 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    report = {"card": card, "knn": probe_knn(dev, gen),
-              "gru_fwd": [probe_gru_fwd(dev, gen, batch, per_gate)
-                          for batch in (128, 512, 2048)
-                          for per_gate in (False, True)],
-              "gru_bwd": [probe_gru_bwd(dev, gen, batch)
-                          for batch in (64, 128, 256, 512)]}
+    probes = {
+        "knn": lambda: probe_knn(dev, gen),
+        "gru_fwd": lambda: [probe_gru_fwd(dev, gen, batch, per_gate)
+                            for batch in (128, 512, 2048)
+                            for per_gate in (False, True)],
+        "gru_bwd": lambda: [probe_gru_bwd(dev, gen, batch)
+                            for batch in (64, 128, 256, 512)],
+        "mixture": lambda: probe_mixture(dev, gen),
+        "attmutan_bwd": lambda: probe_attmutan_bwd(dev, gen)}
+    report = {"card": card}
+    for name in sections:
+        report[name] = probes[name]()
     out = json.dumps(report, indent=1)
     print(out)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -3,7 +3,10 @@
 // Every kernel here is a tiled GEMM with a fused epilogue: bf16 WMMA
 // fragments (16x16x16, f32 accumulators) with synchronous tile loads; in
 // the kNN and GRU-backward kernels, mma.sync fed by a cp.async ring; in
-// the GRU forward, Hopper's wgmma fed by TMA through an mbarrier ring.
+// the GRU forward and the mixture kernel, Hopper's wgmma fed by TMA
+// through an mbarrier ring; in the folded MUTAN backward, wgmma (K- and
+// MN-major operands) fed by a cp.async ring, whose 4-byte copies take the
+// rows of 310 and 510 elements that TMA's 16-byte strides refuse.
 // WMMA operand tiles are staged in shared memory with a row stride of
 // BK + 8 elements: the 16-byte pad staggers rows across banks and keeps
 // every fragment pointer 32-byte aligned.
@@ -26,18 +29,50 @@ __device__ __forceinline__ bf16 rn(float x) { return __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ bf16 bf16_zero() { return __ushort_as_bfloat16(0); }
 
-// Eight bf16 values moved as one 16-byte word.
-union Pack8 {
+// Eight bf16 values moved as one 16-byte word.  The lanes are read and
+// written with shifts on the four 32-bit words, selected without
+// indexing, so a Pack8 stays in registers even where e is not a constant
+// (an indexed union would live in local memory).
+struct Pack8 {
   uint4 u;
-  unsigned short s[8];
 };
 
+__device__ __forceinline__ unsigned word8(const Pack8& p, int i) {
+  return i == 0 ? p.u.x : i == 1 ? p.u.y : i == 2 ? p.u.z : p.u.w;
+}
+
 __device__ __forceinline__ bf16 lane8(const Pack8& p, int e) {
-  return __ushort_as_bfloat16(p.s[e]);
+  return __ushort_as_bfloat16(
+      static_cast<unsigned short>(word8(p, e >> 1) >> (16 * (e & 1))));
+}
+
+// Lanes 2 k and 2 k + 1 as a bf16 pair, and back.
+__device__ __forceinline__ __nv_bfloat162 pair8(const Pack8& p, int k) {
+  const unsigned w = word8(p, k);
+  return *reinterpret_cast<const __nv_bfloat162*>(&w);
+}
+
+__device__ __forceinline__ void set_pair8(Pack8& p, int k,
+                                          __nv_bfloat162 v) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(&v);
+  switch (k) {
+    case 0: p.u.x = w; break;
+    case 1: p.u.y = w; break;
+    case 2: p.u.z = w; break;
+    default: p.u.w = w; break;
+  }
 }
 
 __device__ __forceinline__ void set_lane8(Pack8& p, int e, bf16 v) {
-  p.s[e] = __bfloat16_as_ushort(v);
+  const unsigned sh = 16 * (e & 1);
+  const unsigned x = (word8(p, e >> 1) & ~(0xffffu << sh)) |
+                     (static_cast<unsigned>(__bfloat16_as_ushort(v)) << sh);
+  switch (e >> 1) {
+    case 0: p.u.x = x; break;
+    case 1: p.u.y = x; break;
+    case 2: p.u.z = x; break;
+    default: p.u.w = x; break;
+  }
 }
 
 inline bool aligned16(const void* p) {
@@ -150,7 +185,7 @@ __device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
 
 
 // ------------------------------------------- Hopper: TMA, mbarrier, wgmma
-// (used by the GRU forward)
+// (used by the GRU forward, the mixture kernel and the folded backward)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -227,6 +262,27 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       : "memory");
 }
 
+// One TMA tile store, shared -> global, in the bulk group of this thread;
+// the tile's layout is the map's (box and swizzle), out-of-bounds parts
+// are not written.
+__device__ __forceinline__ void tma_store_2d(const void* map, const void* src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until the committed stores have read their shared memory.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // Byte offset of bf16 element (r, k) in a K-major tile of rows of RB
 // bytes (RB = 64 or 128) under the matching TMA swizzle (64B / 128B):
 // the 16-byte chunk index is XORed with address bits 7 and up.  The
@@ -271,49 +327,185 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x N, f32, the warpgroup's fragment) += A (64 x 16) B (16 x N)^T,
-// bf16, A and B K-major in shared memory (descriptors a, b).  Fragment
-// layout: thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4
-// (+ 8) and, in n8 block i, columns 8 i + 2 (t % 4) (+ 1), at d[4 i + 2 h
-// + c] for row half h and column c.
-template <int N>
-__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t a,
-                                              uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16_ss<40>(float (&d)[20], uint64_t a,
-                                                 uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19}, %20, %21, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-      : "l"(a), "l"(b), "r"(1));
+// wgmma shared-memory descriptor of an MN-major bf16 operand (the M or N
+// index contiguous: TA / TB = 1 below) in the 128B-swizzled layout: rows
+// of 64 elements (128 bytes) along M or N, one row per K index, 8 rows a
+// 1024-byte swizzle atom, as a TMA box of 64 x rows with 128B swizzle (or
+// ``swizzled<128>(k, mn)``) lays them out.  Both offsets are 1024 bytes:
+// SBO steps 8 K rows, LBO the next 64 elements along M or N, so an operand
+// more than 64 wide must put its 64-wide column blocks 1024 bytes apart;
+// every operand of this package's MN-major products is 64 wide, where LBO
+// is not read.  Adding 128 advances K by 16 (16 rows of 128 bytes).
+__device__ __forceinline__ uint64_t gmma_desc_mn(const void* smem) {
+  return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) |
+         ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
 }
 
-template <>
-__device__ __forceinline__ void wgmma_bf16_ss<80>(float (&d)[40], uint64_t a,
-                                                 uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
-      "%39}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+// d (64 x N, f32, the warpgroup's fragment) += A (64 x 16) B (16 x N)^T,
+// bf16, A and B in shared memory (descriptors a, b): K-major (TA / TB 0,
+// gmma_desc) or MN-major (1, gmma_desc_mn).  scale_d 0 makes it d = A B^T
+// (a tile's first product: zeroing d with other instructions instead
+// makes ptxas serialize the wgmmas).  Fragment layout: thread t of
+// the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and, in n8
+// block i, columns 8 i + 2 (t % 4) (+ 1), at d[4 i + 2 h + c] for row half
+// h and column c.
+template <int N, int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t a,
+                                              uint64_t b, int scale_d = 1) {
+  static_assert(N == 8 || N == 40 || N == 64 || N == 80 || N == 128 ||
+                    N == 160,
+                "an instantiated wgmma width");
+  if constexpr (false) {
+  } else if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 40) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19"
+        "}, %20, %21, p, 1, 1, %23, %24;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "l"(a), "l"(b), "r"(1));
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 80) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39"
+        "}, %40, %41, p, 1, 1, %43, %44;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 160) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+        "%74, %75, %76, %77, %78, %79"
+        "}, %80, %81, p, 1, 1, %83, %84;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+}
+
+// ------------------------------------------------------------ clusters
+// (the mixture kernel's CTA pairs, the folded backward's example groups)
+
+// All non-exited threads of the cluster; release / acquire order the
+// shared-memory accesses around it across the cluster's CTAs.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The f32 at ``local``'s offset in the shared memory of the cluster's CTA
+// ``rank`` (distributed shared memory).
+__device__ __forceinline__ float ld_cluster_f32(const float* local,
+                                                unsigned rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(local)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// Threads [0, NTH) of the block (whole warps) meet at named barrier ID.
+template <int ID, int NTH>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(NTH) : "memory");
 }
 
 // cuTensorMapEncodeTiled reached through the runtime's driver entry point,

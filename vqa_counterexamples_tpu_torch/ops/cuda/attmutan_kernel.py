@@ -24,11 +24,26 @@ R 5, M 510) the forward is 7.9 GFLOP on about 42 MB, the backward twice the
 GEMM work: about 8 / 16 us of tensor-core time against 13 / 26 us of
 memory, so bytes bound both.  weff (81 MB in f32 at this batch) never
 reaches device memory: each block builds the slice of it that it
-multiplies with in shared memory, as the TPU kernel built it in VMEM.  The
-backward's sums over examples (dw, db) and over Dh (dhq) cross blocks: a
-block owns a (64 of Dh, 64 of M) tile for a contiguous group of examples,
-and small second passes add the groups' and the tiles' partials in a fixed
-order, with no atomics, so reruns are bit-equal.
+multiplies with in shared memory, as the TPU kernel built it in VMEM.
+
+The backward (``csrc/attmutan.cu``, three launches, :func:`bwd_plan`) is
+bound in practice by its loads from L2: w (1.6 MB) once per example to
+build weff, and x_v and g once per output tile of dweff, in 4-byte copies
+whose latency the few stages that fit beside the weff slice and the w
+tile do not hide (``PERF.md`` §6).  A dx CTA owns
+an example and 160 of Dh over all 196 positions and builds its weff slice
+once, in JAX's rank order (each example's weff is built once in all), then
+streams g[b] into wgmma; a dweff CTA owns a 64 x 64 (M, Dh) tile for one
+of 8 groups of examples and computes dweff = x_v[b]^T g[b] on wgmma with
+both operands MN-major, its cp.async ring running across the examples,
+while dw and this tile's part of dhq accumulate in registers and a product
+against ones gives sum_k g.  The rows of x_v, g and w (620 and 1020
+bytes) are off TMA's 16-byte strides, so 4-byte cp.async copies fill the
+swizzled stages.  The cross-block sums go in a fixed order with no
+atomics, so reruns are bit-equal: the 8 groups of a tile form a cluster
+that adds its dw partials through distributed shared memory in group
+order; the d tiles' parts of dhq and the examples' terms of db are added
+by a last small launch.
 """
 
 from __future__ import annotations
@@ -42,7 +57,57 @@ from . import build
 _BF16 = torch.bfloat16
 _TILE = 64
 _SMEM_MAX = 232448          # the H100's per-block shared memory limit
-_SMS = 132
+_GROUPS = 8                 # example groups of a dweff cluster (WCL)
+_RANKS = 5                  # ranks per dweff launch (WRG)
+
+
+def bwd_plan(batch: int, k: int, dim_h: int, rank: int, dim_m: int):
+    """The backward's launch plan (pure Python; ``csrc/attmutan.cu`` takes
+    it as given).  Returns a dict:
+
+    - ``groups``: the 8 dweff example groups, ``(lo, hi)`` each, contiguous
+      and in order, ``ceil(B / 8)`` examples each at most (the last ones
+      short or empty when 8 does not divide B); CTA c of a dweff cluster
+      takes group c;
+    - ``dx_stages``: the dx kernel's ring depth, the deepest of 4, 3, 2 that
+      fits (``dx_smem`` bytes: the weff slice, the ring, hq in bf16);
+    - ``dweff_smem``: the dweff kernel's bytes (a ring of 3, the w tile);
+    - ``scratch``: the f32 scratch shapes, ``pdhq`` and ``gsum``.
+
+    ValueError when the dx kernel's weff slice does not fit (M beyond about
+    512)."""
+    mc = -(-dim_m // _TILE)
+    dt = -(-dim_h // _TILE)
+    per_group = -(-batch // _GROUPS)
+    groups = [(min(batch, g * per_group), min(batch, (g + 1) * per_group))
+              for g in range(_GROUPS)]
+    fits = [st for st in (4, 3, 2)
+            if dx_smem(mc, rank, st) <= _SMEM_MAX]
+    if not fits:
+        raise ValueError(
+            "folded_mutan_bwd: M %d, R %d: the dx kernel's weff slice and "
+            "ring need %d bytes of shared memory (at most %d)"
+            % (dim_m, rank, dx_smem(mc, rank, 2), _SMEM_MAX))
+    return {
+        "groups": groups,
+        "dx_stages": fits[0], "dx_smem": dx_smem(mc, rank, fits[0]),
+        "dweff_smem": dweff_smem(),
+        "scratch": {"pdhq": (dt, batch, rank, dim_m),
+                    "gsum": (batch, dim_m)}}
+
+
+def dx_smem(mc: int, rank: int, stages: int) -> int:
+    """The dx kernel's shared memory (bytes, with the alignment slack):
+    ``mc`` 64-wide M chunks of the 160-row weff slice (20 KB each), a ring
+    of 16 KB g stages, hq (R, 64 mc) in bf16.  Mirrors ``dx_bytes``."""
+    return 1024 + mc * 20480 + stages * 16384 + rank * mc * 64 * 2
+
+
+def dweff_smem() -> int:
+    """The dweff kernel's shared memory: a ring of 3 stages of two 8 KB
+    tiles and the example's hq (1 KB), a 1 KB tile of ones, the w tile
+    (5, 64, 72) bf16.  Mirrors ``dweff_bytes``."""
+    return 1024 + 3 * 17408 + 1024 + _RANKS * 64 * 72 * 2
 
 
 def _weff(w: torch.Tensor, hq: torch.Tensor) -> torch.Tensor:
@@ -118,13 +183,12 @@ def _check(what, x_v, w, b, hq, g=None):
         raise ValueError("%s: x_v, w and g must be bf16" % what)
 
 
-def _smem_ok(lib, what, dh, rank, m, kinds):
-    for kind in kinds:
-        need = lib.vqacx_attmutan_smem(kind, dh, rank, m)
-        if need > _SMEM_MAX:
-            raise ValueError("%s: Dh %d, R %d, M %d need %d bytes of shared "
-                             "memory per block (at most %d)"
-                             % (what, dh, rank, m, need, _SMEM_MAX))
+def _smem_ok(lib, what, dh, rank, m):
+    need = lib.vqacx_attmutan_smem(0, dh, rank, m, 0)
+    if need > _SMEM_MAX:
+        raise ValueError("%s: Dh %d, R %d, M %d need %d bytes of shared "
+                         "memory per block (at most %d)"
+                         % (what, dh, rank, m, need, _SMEM_MAX))
 
 
 def folded_mutan(x_v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -142,7 +206,7 @@ def folded_mutan(x_v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     batch, k, dh = x_v.shape
     rank, m = hq.shape[1:]
     lib = _lib()
-    _smem_ok(lib, "folded_mutan", dh, rank, m, (0,))
+    _smem_ok(lib, "folded_mutan", dh, rank, m)
     out = torch.empty((batch, k, m), dtype=_BF16, device=x_v.device)
     rc = lib.vqacx_attmutan_fwd(build.ptr(x_v), build.ptr(w), build.ptr(b16),
                                 build.ptr(hq16), build.ptr(out), batch, k, dh,
@@ -165,26 +229,23 @@ def folded_mutan_bwd(x_v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     build.require_cuda("folded_mutan_bwd", x_v, w, b16, hq16, g)
     batch, k, dh = x_v.shape
     rank, m = hq.shape[1:]
+    plan = bwd_plan(batch, k, dh, rank, m)
+    bounds = [lo for lo, _ in plan["groups"]] + [plan["groups"][-1][1]]
     lib = _lib()
-    _smem_ok(lib, "folded_mutan_bwd", dh, rank, m, (1, 2))
     dev = x_v.device
-    tiles = -(-dh // _TILE) * -(-m // _TILE)
-    groups = max(1, min(batch, _SMS // tiles))
-    per_group = -(-batch // groups)
-    groups = -(-batch // per_group)
     f32 = dict(dtype=torch.float32, device=dev)
     dxv = torch.empty((batch, k, dh), dtype=_BF16, device=dev)
     dhq = torch.empty((batch, rank, m), dtype=_BF16, device=dev)
     dw = torch.empty((rank * m, dh), **f32)
     db = torch.empty((rank * m,), **f32)
-    pdw = torch.empty((groups, rank * m, dh), **f32)
-    pdhq = torch.empty((-(-dh // _TILE), batch, rank, m), **f32)
-    gsum = torch.empty((batch, m), **f32)
+    pdhq = torch.empty(plan["scratch"]["pdhq"], **f32)
+    gsum = torch.empty(plan["scratch"]["gsum"], **f32)
     rc = lib.vqacx_attmutan_bwd(
         build.ptr(x_v), build.ptr(w), build.ptr(b16), build.ptr(hq16),
         build.ptr(g), build.ptr(dxv), build.ptr(dhq), build.ptr(dw),
-        build.ptr(db), build.ptr(pdw), build.ptr(pdhq), build.ptr(gsum),
-        batch, k, dh, rank, m, per_group, build.stream_of(dev))
+        build.ptr(db), build.ptr(pdhq), build.ptr(gsum), batch, k, dh, rank,
+        m, (ctypes.c_int * len(bounds))(*bounds), plan["dx_stages"],
+        build.stream_of(dev))
     build.check(lib, rc, "folded_mutan_bwd")
     folded_mutan_bwd.launches += 1
     return dxv, dw, db, dhq
@@ -198,12 +259,25 @@ folded_mutan_bwd.launches = 0
 def _lib():
     lib = build.load("attmutan")
     if lib.vqacx_attmutan_fwd.argtypes is None:
-        lib.vqacx_attmutan_smem.argtypes = [ctypes.c_int] * 4
+        lib.vqacx_attmutan_smem.argtypes = [ctypes.c_int] * 5
         lib.vqacx_attmutan_smem.restype = ctypes.c_size_t
+        # the plan's shared memory is dx_smem's and dweff_smem's: once, at
+        # load, they are held equal to the kernels' own counts over the
+        # plans' range
+        for mc, rank, stages in ((1, 1, 2), (8, 5, 4), (8, 5, 3), (3, 7, 2)):
+            need = lib.vqacx_attmutan_smem(1, 64, rank, 64 * mc, stages)
+            if need != dx_smem(mc, rank, stages):
+                raise RuntimeError(
+                    "folded_mutan_bwd: dx_smem(%d, %d, %d) disagrees with "
+                    "csrc/attmutan.cu's %d bytes" % (mc, rank, stages, need))
+        if lib.vqacx_attmutan_smem(2, 64, 1, 64, 0) != dweff_smem():
+            raise RuntimeError("folded_mutan_bwd: dweff_smem disagrees with "
+                               "csrc/attmutan.cu's")
+        lib.vqacx_attmutan_bwd.argtypes = [ctypes.c_void_p] * 11 \
+            + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int),
+                                    ctypes.c_int, ctypes.c_void_p]
+        lib.vqacx_attmutan_bwd.restype = ctypes.c_int
         lib.vqacx_attmutan_fwd.argtypes = [ctypes.c_void_p] * 5 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.vqacx_attmutan_fwd.restype = ctypes.c_int
-        lib.vqacx_attmutan_bwd.argtypes = [ctypes.c_void_p] * 12 \
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.vqacx_attmutan_bwd.restype = ctypes.c_int
     return lib
