@@ -11,8 +11,9 @@ ends the run with a nonzero exit and no result line.
    sm_90a, one process per source, all at once), runs each kernel at the
    shapes its path gives it and holds it against its plain PyTorch
    version on the same inputs, with the stated tolerances (the GRU
-   forwards, mixture, the three backwards and kNN also against themselves:
-   reruns are bit-equal); times both with CUDA events after a warm-up,
+   forwards, mixture, MUTAN, the folded forward, the three backwards and
+   kNN also against themselves: reruns are bit-equal); times both with
+   CUDA events after a warm-up,
    and mixture also beside the one library composition that computes its
    function (``torch.softmax(F.linear(z, w, b), dim=1)``, never called by
    the port: ``library_ms``).
@@ -65,11 +66,12 @@ ends the run with a nonzero exit and no result line.
    --json-out ...])`` through the kernel, counted; a 1024-query sample of
    its output held against ``knn_chunk_plain``; the build's seconds.
 
-Phase 1 also holds the folded MUTAN kernels (forward, and backward with a
-bit-equal rerun) at MutanAtt's attention shape, the kNN kernel at the
-builder's, the GRU forward at the val batches' shapes (B 512 and B 128,
-no mask) and the per-gate forward and the backward at MutanAtt's batch
-(B 128), and MUTAN at MutanAtt's classifier shape; every GRU forward row
+Phase 1 also holds the folded MUTAN kernels (forward and backward, each
+with a bit-equal rerun) at MutanAtt's attention shape, the kNN kernel at
+the builder's, the GRU forward at the val batches' shapes (B 512 and B
+128, no mask) and the per-gate forward and the backward at MutanAtt's
+batch (B 128), and MUTAN at MutanAtt's classifier shape (with a bit-equal
+rerun, as at B 512); every GRU forward row
 logs the tile it launches with.  It prints the card's
 name and power limit, a ``{"kernels": [...]}`` line and, last, ``{"ok":
 true, "device": {...}}``.
@@ -400,6 +402,14 @@ def gru_fwd_row(name, xp, w_hh, b_hh, mask, want_hproj):
                + (T * B * 3 * H if want_hproj else 0)) * 2 + 3 * H * 4))
 
 
+def check_rerun(name, first, again):
+    """A kernel's rerun on the same inputs gives the same bits (its sums
+    have one order, and no atomics)."""
+    if not torch.equal(first, again):
+        raise AssertionError("%s: a rerun on the same inputs differs" % name)
+    log("  %-10s rerun on the same inputs: bit-equal" % name)
+
+
 def pretrain_kernel_rows(dev, gen, randn):
     """Phase 1's rows for the pretraining kernels at its shapes: the
     per-gate GRU forward and the GRU backward (T 26, B 512, H 2400; the
@@ -439,8 +449,10 @@ def pretrain_kernel_rows(dev, gen, randn):
     bv, bq = (randn(R * DMM, scale=0.1, dtype=torch.float32)
               for _ in range(2))
     args = (xv, xq, wv, bv, wq, bq, R)
-    err = check_close("mutan", mutan_kernel.tucker_fusion(*args),
+    first = mutan_kernel.tucker_fusion(*args)
+    err = check_close("mutan", first,
                       mutan_kernel.tucker_fusion_plain(*args), TOL["mutan"])
+    check_rerun("mutan", first, mutan_kernel.tucker_fusion(*args))
     rows["mutan"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: mutan_kernel.tucker_fusion(*args), reps=20),
@@ -498,9 +510,11 @@ def att_knn_kernel_rows(dev, gen, randn):
     b = randn(R * M, scale=0.1, dtype=torch.float32)
     hq = randn(B, R, M, dtype=torch.float32)
     args = (xv, w, b, hq)
-    err = check_close("attmutan", attmutan_kernel.folded_mutan(*args),
+    first = attmutan_kernel.folded_mutan(*args)
+    err = check_close("attmutan", first,
                       attmutan_kernel.folded_mutan_plain(*args),
                       TOL["attmutan"])
+    check_rerun("attmutan", first, attmutan_kernel.folded_mutan(*args))
     gemm = 2 * B * K * DH * M
     fold = 2 * B * R * DH * M
     io_in = B * K * DH * 2 + R * M * DH * 2 + R * M * 4 + B * R * M * 4
@@ -539,8 +553,10 @@ def att_knn_kernel_rows(dev, gen, randn):
                                                          scale=DHQ ** -0.5)
     bv, bq = (randn(R * M, scale=0.1, dtype=torch.float32) for _ in range(2))
     margs = (xv, xq, wv, bv, wq, bq, R)
-    err = check_close("mutan_att", mutan_kernel.tucker_fusion(*margs),
+    first = mutan_kernel.tucker_fusion(*margs)
+    err = check_close("mutan_att", first,
                       mutan_kernel.tucker_fusion_plain(*margs), TOL["mutan"])
+    check_rerun("mutan_att", first, mutan_kernel.tucker_fusion(*margs))
     rows["mutan_att"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: mutan_kernel.tucker_fusion(*margs), reps=20),
@@ -866,8 +882,10 @@ def phase_cli(dev):
         raise AssertionError("checkpoint files %s" % files)
     if min(launches[k] for k in ("gru", "vfeat", "vfeat_bwd", "mixture")) <= 0:
         raise AssertionError("the CLI run missed a kernel: %s" % launches)
+    # one epoch: best_epoch is the epoch after the best checkpoint's, as
+    # the JAX CLI writes it
     if not (np.isfinite(res["loss"]) and 0.0 <= res["recall"] <= 1.0
-            and res["best_epoch"] == 1):
+            and res["best_epoch"] == 2):
         raise AssertionError("bad CLI results %s" % res)
 
 

@@ -733,6 +733,53 @@ def test_folded_bwd_plan(batch, k, dh, rank, m):
         assert 2 * (plan["dweff_smem"] + 1024) <= 233472
 
 
+@pytest.mark.parametrize("batch,k,dh,rank,m", [
+    (128, 196, 310, 5, 510), (3, 5, 20, 2, 24), (5, 70, 72, 3, 130),
+    (2, 65, 40, 1, 64), (1, 196, 310, 5, 510), (13, 37, 42, 3, 66),
+    (3, 9, 21, 2, 25), (2, 20, 30, 7, 40), (2, 9, 400, 2, 40),
+    (2, 9, 1536, 2, 40)])
+def test_folded_fwd_plan(batch, k, dh, rank, m):
+    """The folded forward's launch plan (``attmutan_kernel.fwd_plan``, a
+    pure function the kernel takes as given): its CTAs cover every example
+    and every column of M; every configuration that the plan can be asked
+    for fits the H100's 232,448 bytes with a ring of 2 to its limit; the
+    plan takes the first that fits (at MutanAtt's shape, 256 of M and two
+    warpgroups a CTA).  The shapes are the
+    card tests' (``tests/test_torch_cuda.py::_ATT_FWD_SHAPES``), MutanAtt's
+    first."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import attmutan_kernel
+
+    plan = attmutan_kernel.fwd_plan(batch, k, dh, rank, m)
+    nb, grid = plan["nb"], plan["grid"]
+    assert grid == (-(-m // nb), batch)
+    assert sorted({c for i in range(grid[0]) for c in range(
+        i * nb, min(m, (i + 1) * nb))}) == list(range(m))
+    dc = -(-dh // 64)
+    fits = []
+    for nb_c, nwg, most in attmutan_kernel.FWD_CONFIGS:
+        if attmutan_kernel.fwd_smem(nb_c, nwg, dc, rank, 2) > 232448:
+            continue
+        fits.append((nb_c, nwg))
+        c = attmutan_kernel.fwd_plan(batch, k, dh, rank, m, (nb_c, nwg))
+        assert c["smem"] <= 232448 and 2 <= c["stages"] <= most
+        assert c["smem"] == attmutan_kernel.fwd_smem(nb_c, nwg, dc, rank,
+                                                     c["stages"])
+        assert c["stages"] == most or attmutan_kernel.fwd_smem(
+            nb_c, nwg, dc, rank, c["stages"] + 1) > 232448
+    assert (plan["nb"], plan["nwg"]) == fits[0]
+    if (batch, k, dh, rank, m) == (128, 196, 310, 5, 510):
+        assert (nb, plan["nwg"], plan["stages"]) == (256, 2, 3)
+
+
+def test_folded_fwd_plan_refuses_what_does_not_fit():
+    from vqa_counterexamples_tpu_torch.ops.cuda import attmutan_kernel
+
+    with pytest.raises(ValueError, match="shared memory"):
+        attmutan_kernel.fwd_plan(4, 10, 1700, 5, 510)
+    with pytest.raises(ValueError, match="configuration"):
+        attmutan_kernel.fwd_plan(4, 10, 64, 5, 510, (96, 1))
+
+
 def test_folded_bwd_plan_refuses_what_does_not_fit():
     from vqa_counterexamples_tpu_torch.ops.cuda import attmutan_kernel
 

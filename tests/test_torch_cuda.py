@@ -351,9 +351,7 @@ def test_gru_function_grads_match_plain_autograd(dev):
         _assert_rel(got, ref, 2e-2, name)
 
 
-@pytest.mark.parametrize("batch,dhv,dhq,rank,dmm", [
-    (5, 24, 24, 3, 24), (70, 40, 36, 2, 50), (513, 360, 360, 10, 360)])
-def test_tucker_kernel_matches_plain(dev, batch, dhv, dhq, rank, dmm):
+def _tucker_inputs(dev, batch, dhv, dhq, rank, dmm):
     gen = torch.Generator().manual_seed(batch + dmm)
     xv = _randn(gen, dev, batch, dhv)
     xq = _randn(gen, dev, batch, dhq)
@@ -361,6 +359,20 @@ def test_tucker_kernel_matches_plain(dev, batch, dhv, dhq, rank, dmm):
     wq = _randn(gen, dev, rank * dmm, dhq, scale=dhq ** -0.5)
     bv = _randn(gen, dev, rank * dmm, scale=0.1, dtype=torch.float32)
     bq = _randn(gen, dev, rank * dmm, scale=0.1, dtype=torch.float32)
+    return xv, xq, wv, bv, wq, bq
+
+
+# 16-byte copies (widths % 8 == 0), 4-byte ones (70, 40, 36: and 37, 62,
+# 30 with R 7, seven CTAs a cluster), plain loads (odd widths); B 513 (a
+# row block of one), MutanAtt's classifier (128, 620, 310, 5, 510)
+_TUCKER_SHAPES = [(5, 24, 24, 3, 24), (70, 40, 36, 2, 50),
+                  (513, 360, 360, 10, 360), (128, 620, 310, 5, 510),
+                  (37, 62, 30, 7, 70), (9, 21, 23, 4, 33)]
+
+
+@pytest.mark.parametrize("batch,dhv,dhq,rank,dmm", _TUCKER_SHAPES)
+def test_tucker_kernel_matches_plain(dev, batch, dhv, dhq, rank, dmm):
+    xv, xq, wv, bv, wq, bq = _tucker_inputs(dev, batch, dhv, dhq, rank, dmm)
     before = mutan_kernel.tucker_fusion.launches
     got = mutan_kernel.tucker_fusion(xv, xq, wv, bv, wq, bq, rank)
     ref = mutan_kernel.tucker_fusion_plain(xv, xq, wv, bv, wq, bq, rank)
@@ -370,6 +382,17 @@ def test_tucker_kernel_matches_plain(dev, batch, dhv, dhq, rank, dmm):
     # f32 sums of exact bf16 products in another order
     torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(),
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("batch,dhv,dhq,rank,dmm", [
+    (512, 360, 360, 10, 360), (128, 620, 310, 5, 510)])
+def test_tucker_kernel_reruns_bit_equal(dev, batch, dhv, dhq, rank, dmm):
+    """The ranks' products are summed in one fixed order (no atomics)."""
+    args = _tucker_inputs(dev, batch, dhv, dhq, rank, dmm) + (rank,)
+    first = mutan_kernel.tucker_fusion(*args)
+    again = mutan_kernel.tucker_fusion(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 def test_new_wrappers_forward_only_and_refuse_bad_operands(dev):
@@ -406,8 +429,18 @@ def _attmutan_inputs(dev, batch, k, dh, rank, m, seed=0):
 _ATT_SHAPES = [(3, 5, 20, 2, 24), (5, 70, 72, 3, 130), (2, 65, 40, 1, 64),
                (128, 196, 310, 5, 510)]
 
+# the backward also at B 1 (seven empty example groups), at a B whose last
+# group is short (13 over 8 groups of 2), at odd widths (plain loads, no
+# cp.async) and at R 7 (two launches of the dweff kernel, 5 ranks each)
+_ATT_BWD_SHAPES = _ATT_SHAPES + [(1, 196, 310, 5, 510), (13, 37, 42, 3, 66),
+                                 (3, 9, 21, 2, 25), (2, 20, 30, 7, 40)]
 
-@pytest.mark.parametrize("batch,k,dh,rank,m", _ATT_SHAPES)
+# the forward at every backward shape, and at Dh whose weff slice fits
+# only the narrower configurations (128, then 64 of M a CTA)
+_ATT_FWD_SHAPES = _ATT_BWD_SHAPES + [(2, 9, 400, 2, 40), (2, 9, 1536, 2, 40)]
+
+
+@pytest.mark.parametrize("batch,k,dh,rank,m", _ATT_FWD_SHAPES)
 def test_attmutan_kernel_matches_plain(dev, batch, k, dh, rank, m):
     """5f: bf16 outputs from f32 sums of the same exact bf16 products in
     another order (one bf16 step of the output, 2^-8 relative)."""
@@ -424,11 +457,24 @@ def test_attmutan_kernel_matches_plain(dev, batch, k, dh, rank, m):
                                rtol=8e-3)
 
 
-# the backward also at B 1 (seven empty example groups), at a B whose last
-# group is short (13 over 8 groups of 2), at odd widths (plain loads, no
-# cp.async) and at R 7 (two launches of the dweff kernel, 5 ranks each)
-_ATT_BWD_SHAPES = _ATT_SHAPES + [(1, 196, 310, 5, 510), (13, 37, 42, 3, 66),
-                                 (3, 9, 21, 2, 25), (2, 20, 30, 7, 40)]
+@pytest.mark.parametrize("batch,k,dh,rank,m", [
+    (5, 70, 72, 3, 130), (3, 9, 21, 2, 25), (128, 196, 310, 5, 510)])
+def test_attmutan_fwd_every_config_gives_the_same_bits(dev, batch, k, dh,
+                                                       rank, m):
+    """5f reruns bit-equal, and every configuration of ``FWD_CONFIGS``
+    (each CTA's share of M and its warpgroups) gives the plan's bits: each
+    sum has one order whatever the tiling."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import attmutan_kernel
+
+    xv, w, b, hq, _ = _attmutan_inputs(dev, batch, k, dh, rank, m)
+    first = attmutan_kernel.folded_mutan(xv, w, b, hq)
+    again = attmutan_kernel.folded_mutan(xv, w, b, hq)
+    each = [attmutan_kernel._fwd_launch(xv, w, b, hq, config[:2])
+            for config in attmutan_kernel.FWD_CONFIGS]
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    for config, out in zip(attmutan_kernel.FWD_CONFIGS, each):
+        assert torch.equal(out, first), config
 
 
 @pytest.mark.parametrize("batch,k,dh,rank,m", _ATT_BWD_SHAPES)

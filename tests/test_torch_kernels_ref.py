@@ -153,7 +153,7 @@ def test_mixture_plan_covers_the_answers_and_fits(dim_z, n_ans):
 
 
 @pytest.mark.parametrize("sections,message", [
-    ("mixture,attmutan_bwd", "no CUDA device"), ("mixture,bogus", None)])
+    ("mixture,mutan,attmutan_fwd,attmutan_bwd", "no CUDA device"), ("mixture,bogus", None)])
 def test_probe_kernels_needs_a_card_and_known_sections(monkeypatch, capsys,
                                                        sections, message):
     """``cli/probe_kernels`` runs only the sections it knows and only on a

@@ -435,6 +435,49 @@ def test_tucker_matches_jax(monkeypatch, dtype):
                                    atol=1e-4 * np.abs(ref_k).max())
 
 
+# the card tests' shapes (tests/test_torch_cuda.py::_TUCKER_SHAPES), the
+# two path shapes, a B whose tiles fill the card alone, the largest R
+_TUCKER_PLAN_SHAPES = [
+    (5, 24, 24, 3, 24), (70, 40, 36, 2, 50), (513, 360, 360, 10, 360),
+    (128, 620, 310, 5, 510), (37, 62, 30, 7, 70), (9, 21, 23, 4, 33),
+    (512, 360, 360, 10, 360), (2048, 360, 360, 10, 360), (64, 8, 8, 80, 64)]
+
+
+@pytest.mark.parametrize("batch,dhv,dhq,rank,dmm", _TUCKER_PLAN_SHAPES)
+def test_tucker_plan(batch, dhv, dhq, rank, dmm):
+    """The Tucker kernel's launch plan (``mutan_kernel.tucker_plan``, a pure
+    function the kernel takes as given): the cluster's CTAs take every rank
+    once, in order, and each at least one; the grid covers every 64 x 64
+    output tile with one cluster; a CTA's shared memory fits the H100's
+    232,448 bytes; the grid is as large as 3 CTAs on each of 132 SMs
+    allow."""
+    plan = mutan_kernel.tucker_plan(batch, dhv, dhq, rank, dmm)
+    cl, rg = plan["cl"], plan["rg"]
+    assert 1 <= cl <= 8 and cl <= rank
+    ranks = [r for c in range(cl) for r in range(c * rg, min(rank, (c + 1)
+                                                              * rg))]
+    assert ranks == list(range(rank))
+    assert all(c * rg < rank for c in range(cl))
+    tiles = -(-batch // 64) * -(-dmm // 64)
+    assert plan["grid"] == cl * tiles
+    assert plan["smem"] == mutan_kernel.mutan_smem(rg) <= 232448
+    # as many CTAs as 3 on each SM take (one cluster a tile at least): a
+    # finer split of the ranks would overflow them or the cluster
+    assert plan["grid"] <= max(396, tiles)
+    assert rg == 1 or -(-rank // (rg - 1)) * tiles > 396 or -(-rank // (
+        rg - 1)) > 8
+    if (batch, dhv, rank) == (512, 360, 10):
+        assert (cl, rg, plan["grid"]) == (5, 2, 240)
+        assert 3 * (plan["smem"] + 1024) <= 233472   # three CTAs an SM
+    if (batch, dhv, rank) == (128, 620, 5):
+        assert (cl, rg, plan["grid"]) == (5, 1, 80)
+
+
+def test_tucker_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="cluster"):
+        mutan_kernel.tucker_plan(64, 8, 8, 81, 64)
+
+
 def test_tucker_function_grads_match_jax():
     """``TuckerFusion`` (the kernel's plain forward on the CPU, the
     recomputing backward) against ``jax.grad`` through the TPU kernel's

@@ -268,15 +268,13 @@ def main(argv=None):
         print("{}Saved checkpoint to {}".format("* " if is_best else "",
                                                 save_dir))
 
-    # ---- final test on the best checkpoint ----
+    # ---- final test on the best checkpoint (reference :373-386) ----
     if args.test:
         best_epoch = 0
         if epoch is not None:
-            # the epoch the best checkpoint was taken at (the JAX CLI
-            # writes the epoch after it)
-            state, best_info, _, _ = ckpt_lib.load_cx_checkpoint(
+            # the reference's value: load_cx_checkpoint's next epoch
+            state, _, best_epoch, _ = ckpt_lib.load_cx_checkpoint(
                 state, save_dir, resume_best=True)
-            best_epoch = len(best_info)
         test_arrays = vqacx.CXArrays.from_examples(
             testset["examples_list"], f_val.name_to_index)
         q_test, _, z_test, _ = cx_engine.build_frozen_caches(

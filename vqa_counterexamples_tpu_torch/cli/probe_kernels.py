@@ -28,14 +28,18 @@ dz 360, A 2000): the kernel's ms, the plain version's, and the ms of the
 library composition ``torch.softmax(F.linear(z, w, b), dim=1)`` in bf16
 (a yardstick the port never calls), and the plan the wrapper picks.
 
-Folded MUTAN backward, at MutanAtt's shape (B 128, K 196, Dh 310, R 5,
-M 510): the wrapper's ms and, under ``torch.profiler``, the device us of
-each of its launches, by kernel name.
+MUTAN's Tucker fusion, at MutanNoAtt's shape (B 512, dh 360 / 360, R 10,
+dmm 360) and MutanAtt's classifier (B 128, dhv 620, dhq 310, R 5, dmm
+510); the folded MUTAN forward and backward, at MutanAtt's attention
+shape (B 128, K 196, Dh 310, R 5, M 510): the wrapper's ms (CUDA events,
+after a warm-up), the plain version's, and, under ``torch.profiler``, the
+device us of each of the wrapper's launches, by kernel name; for the
+forward also the plan and the ms of every configuration of
+``attmutan_kernel.FWD_CONFIGS``.
 
-``--sections`` picks some of knn, gru_fwd, gru_bwd, mixture,
-attmutan_bwd (all by default).  Needs a card: it refuses to run without
-one.  The JSON report goes to
-``--out``.
+``--sections`` picks some of knn, gru_fwd, gru_bwd, mixture, mutan,
+attmutan_fwd, attmutan_bwd (all by default).  Needs a card: it refuses to
+run without one.  The JSON report goes to ``--out``.
 """
 
 from __future__ import annotations
@@ -188,41 +192,95 @@ def _kernel_name(name):
         "(anonymous namespace)::", "")).split("::")[-1])
 
 
-def probe_attmutan_bwd(dev, gen, reps=10):
-    from ..ops.cuda import attmutan_kernel
-
-    batch, k, dim_h, rank, dim_m = 128, 196, 310, 5, 510
-
-    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
-        return (torch.randn(*shape, generator=gen, device=dev)
-                * scale).to(dtype)
-
-    args = (randn(batch, k, dim_h), randn(rank * dim_m, dim_h,
-                                          scale=dim_h ** -0.5),
-            randn(rank * dim_m, scale=0.1, dtype=torch.float32),
-            randn(batch, rank, dim_m, dtype=torch.float32),
-            randn(batch, k, dim_m, scale=0.1))
-    out = {"shape": [batch, k, dim_h, rank, dim_m],
-           "wrapper_ms": _ms(lambda: attmutan_kernel.folded_mutan_bwd(*args),
-                             reps=20)}
+def _launches(fn, reps, match):
+    """Device us per launch and launches per call of the kernels whose
+    names hold ``match``, under ``torch.profiler`` over ``reps`` calls."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
-            attmutan_kernel.folded_mutan_bwd(*args)
+            fn()
         torch.cuda.synchronize()
     launches = {}
     for e in prof.events():
-        if e.device_time_total > 0 and "attmutan" in e.name:
+        if e.device_time_total > 0 and match in e.name:
             launches.setdefault(_kernel_name(e.name), []).append(
                 e.device_time_total)
-    out["launch_us"] = {n: sum(v) / len(v) for n, v in launches.items()}
-    out["launches_per_call"] = {n: len(v) / reps
-                                for n, v in launches.items()}
-    out["device_us_per_call"] = sum(sum(v) for v in launches.values()) / reps
+    return {"launch_us": {n: sum(v) / len(v) for n, v in launches.items()},
+            "launches_per_call": {n: len(v) / reps
+                                  for n, v in launches.items()},
+            "device_us_per_call": sum(sum(v) for v in launches.values())
+            / reps}
+
+
+def _timed(fn, plain, match, reps=20):
+    out = {"wrapper_ms": _ms(fn, reps=reps), "plain_ms": _ms(plain,
+                                                             reps=reps)}
+    out.update(_launches(fn, reps, match))
     return out
 
 
-SECTIONS = ("knn", "gru_fwd", "gru_bwd", "mixture", "attmutan_bwd")
+def _randn(gen, dev, *shape, scale=1.0, dtype=torch.bfloat16):
+    return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+def probe_mutan(dev, gen, batch, dhv, dhq, rank, dmm):
+    from ..ops.cuda import mutan_kernel
+
+    f32 = torch.float32
+    args = (_randn(gen, dev, batch, dhv), _randn(gen, dev, batch, dhq),
+            _randn(gen, dev, rank * dmm, dhv, scale=dhv ** -0.5),
+            _randn(gen, dev, rank * dmm, scale=0.1, dtype=f32),
+            _randn(gen, dev, rank * dmm, dhq, scale=dhq ** -0.5),
+            _randn(gen, dev, rank * dmm, scale=0.1, dtype=f32), rank)
+    out = {"shape": [batch, dhv, dhq, rank, dmm]}
+    out.update(_timed(lambda: mutan_kernel.tucker_fusion(*args),
+                      lambda: mutan_kernel.tucker_fusion_plain(*args),
+                      "mutan"))
+    return out
+
+
+_ATT = (128, 196, 310, 5, 510)   # B, K, Dh, R, M
+
+
+def _att_args(dev, gen):
+    batch, k, dim_h, rank, dim_m = _ATT
+    f32 = torch.float32
+    return (_randn(gen, dev, batch, k, dim_h),
+            _randn(gen, dev, rank * dim_m, dim_h, scale=dim_h ** -0.5),
+            _randn(gen, dev, rank * dim_m, scale=0.1, dtype=f32),
+            _randn(gen, dev, batch, rank, dim_m, dtype=f32))
+
+
+def probe_attmutan_fwd(dev, gen):
+    from ..ops.cuda import attmutan_kernel
+
+    args = _att_args(dev, gen)
+    out = {"shape": list(_ATT)}
+    out.update(_timed(lambda: attmutan_kernel.folded_mutan(*args),
+                      lambda: attmutan_kernel.folded_mutan_plain(*args),
+                      "attmutan"))
+    out["plan"] = attmutan_kernel.fwd_plan(*_ATT)
+    out["configs"] = [{"config": list(c), "ms": _ms(
+        lambda: attmutan_kernel._fwd_launch(*args, c[:2]), reps=20)}
+        for c in attmutan_kernel.FWD_CONFIGS]
+    return out
+
+
+def probe_attmutan_bwd(dev, gen):
+    from ..ops.cuda import attmutan_kernel
+
+    batch, k, _, _, dim_m = _ATT
+    args = _att_args(dev, gen) + (_randn(gen, dev, batch, k, dim_m,
+                                         scale=0.1),)
+    out = {"shape": list(_ATT)}
+    out.update(_timed(lambda: attmutan_kernel.folded_mutan_bwd(*args),
+                      lambda: attmutan_kernel.folded_mutan_bwd_plain(*args),
+                      "attmutan"))
+    return out
+
+
+SECTIONS = ("knn", "gru_fwd", "gru_bwd", "mixture", "mutan", "attmutan_fwd",
+            "attmutan_bwd")
 
 
 def main(argv=None):
@@ -249,6 +307,9 @@ def main(argv=None):
         "gru_bwd": lambda: [probe_gru_bwd(dev, gen, batch)
                             for batch in (64, 128, 256, 512)],
         "mixture": lambda: probe_mixture(dev, gen),
+        "mutan": lambda: [probe_mutan(dev, gen, *shape) for shape in (
+            (512, 360, 360, 10, 360), (128, 620, 310, 5, 510))],
+        "attmutan_fwd": lambda: probe_attmutan_fwd(dev, gen),
         "attmutan_bwd": lambda: probe_attmutan_bwd(dev, gen)}
     report = {"card": card}
     for name in sections:

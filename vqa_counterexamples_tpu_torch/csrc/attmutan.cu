@@ -8,10 +8,21 @@
 // reaches device memory: each block builds the slice it multiplies with in
 // shared memory.
 //
-// Forward: a block owns one example and 64 output columns.  It builds its
-// weff slice (all of Dh x 64 columns) once, then walks the positions in
-// tiles of 64 rows, Dh in chunks of 64, on bf16 WMMA fragments with f32
-// accumulators (4 warps, 2 x 2, four 16 x 16 fragments each).
+// Forward, one launch (the wrapper's plan, attmutan_kernel.fwd_plan): a
+// CTA owns (example, NB of M) over all K positions.  It builds its weff
+// slice once, in shared memory (K-major: NB rows of m, Dh along,
+// 128B-swizzled), from one pass over its rows of w: they are contiguous in
+// each rank, so a warp's load takes 256 bytes of one rank (8-byte loads),
+// 5 ranks x 4 loads a thread in flight and the next round's out before
+// this round's sums; the sums run in f32 in JAX's rank order and round
+// once; the first x_v stages load
+// meanwhile.  Then NWG warpgroups stream x_v (64 NWG positions x 64 of Dh
+// a stage) through a cp.async ring into wgmma (m64 x NB), stage bf16(acc +
+// bias) in the stage they just read and write whole rows of out.  Rows of
+// 620 bytes are off TMA's 16-byte strides, so 4-byte copies fill the
+// stages (16-byte ones where Dh % 8 == 0).  Each example's weff is built
+// once in all: w (1.6 MB at MutanAtt's shape) is read from L2 once per
+// example.
 //
 // Backward, three launches, no atomics (reruns are bit-equal).  At
 // MutanAtt's shape (B 128, K 196, Dh 310, R 5, M 510) the rows of x_v, g
@@ -42,136 +53,269 @@
 //          order + b3 * gsum); one warp per (r, m): db = sum_b gsum * hq,
 //          lanes over the examples, then a fixed shuffle tree.  dhq needs
 //          every d tile and db every example, hence a launch of its own.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace vqacx {
 namespace {
 
-constexpr int NT = 128;
-constexpr int T = 64;          // tile edge: positions, Dh and M
-constexpr int LDS = T + 8;     // bf16 operand tiles
-constexpr int LDC = T + 4;     // f32 result tile
-constexpr int PER = T * T / NT;
-
-__host__ __device__ inline int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-using namespace nvcuda;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                              wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                              wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                              wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// 2 x 2 warps, each a 32 x 32 quarter of the 64 x 64 result tile.
-__device__ __forceinline__ void zero(FragC (&acc)[2][2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-}
-
-__device__ __forceinline__ void store(FragC (&acc)[2][2], float* Cs) {
-  const int warp = threadIdx.x / 32;
-  const int wm = warp % 2, wn = warp / 2;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-}
-
 // ---------------------------------------------------------------- forward
 
-__global__ void __launch_bounds__(NT)
-attmutan_fwd_kernel(const bf16* __restrict__ xv,   // (B, K, Dh)
-                    const bf16* __restrict__ w,    // (R * M, Dh)
-                    const bf16* __restrict__ b3,   // (R, M)
-                    const bf16* __restrict__ hq,   // (B, R, M)
-                    bf16* __restrict__ out,        // (B, K, M)
-                    int K, int Dh, int R, int M, bool vec) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int DHP = round_up(Dh, T);
-  const int LDW = DHP + 8;
-  bf16* weffT = reinterpret_cast<bf16*>(smem);            // [T m][LDW d]
-  bf16* xs = weffT + T * LDW;                              // [T k][LDS d]
-  float* Cs = reinterpret_cast<float*>(xs + T * LDS);      // [T k][LDC m]
-  float* hq_s = Cs + T * LDC;                              // [R][T m]
-  float* bias_s = hq_s + R * T;                            // [T m]
+constexpr int FRB = 5;    // forward build: ranks whose loads fly together
+constexpr int FU = 4;     // forward build: items per thread per round
 
-  const int m0 = blockIdx.x * T;
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < R * T; i += NT) {
-    const int r = i / T, m = m0 + i % T;
-    hq_s[i] = m < M ? f32(hq[((size_t)b * R + r) * M + m]) : 0.0f;
+// Shared memory (bytes, with the 1024-byte alignment slack): the weff
+// slice (dc chunks of nb rows x 128 bytes), a ring of 64 nwg positions x
+// 128 bytes a stage, hq (R x nb) and the bias (nb) in f32.
+__host__ __device__ constexpr int fwd_bytes(int nb, int nwg, int dc, int R,
+                                            int stages) {
+  return 1024 + dc * nb * 128 + stages * nwg * 8192 + (R + 1) * nb * 4;
+}
+
+struct FwdParams {
+  const bf16* xv;    // (B, K, Dh)
+  const bf16* w;     // (R * M, Dh)
+  const bf16* b3;    // (R, M)
+  const bf16* hq;    // (B, R, M)
+  bf16* out;         // (B, K, M)
+  int B, K, Dh, R, M;
+  int stages;
+};
+
+// Element e of 4 bf16 loaded as one 8-byte word, as f32 (a shift).
+__device__ __forceinline__ float wlane(const uint2& v, int e) {
+  const unsigned x = e < 2 ? v.x : v.y;
+  return __uint_as_float(e % 2 ? x & 0xffff0000u : x << 16);
+}
+
+// The 128 threads of warpgroup wg meet (named barrier 1 + wg).
+__device__ __forceinline__ void wg_sync(int wg) {
+  if (wg) named_sync<2, 128>(); else named_sync<1, 128>();
+}
+
+// 5f: a CTA owns (example b, NB of M) over all K positions (see the note
+// at the top).  NB / WN wgmma products of width WN make the m64 x NB one.
+template <int NB, int NWG, int VEC>
+__global__ void __launch_bounds__(NWG * 128, 1)
+attmutan_fwd_kernel(const FwdParams p) {
+  constexpr int E = VEC > 1 ? 4 : 1;      // elements of w a load
+  using Word = std::conditional_t<E == 4, uint2, bf16>;
+  constexpr int NTH = NWG * 128;
+  constexpr int ROWS = NWG * 64;          // positions per stage
+  constexpr int STAGE = ROWS * 128;
+  constexpr int WN = NB < 128 ? NB : 128;
+  constexpr int NSUB = NB / WN;
+  extern __shared__ unsigned char fdyn[];
+  unsigned char* weff = fdyn + ((1024 - (smem_u32(fdyn) & 1023)) & 1023);
+  const int DC = (p.Dh + 63) / 64, S = p.stages;
+  unsigned char* ring = weff + DC * NB * 128;
+  float* hq_s = reinterpret_cast<float*>(ring + S * STAGE);   // [R][NB]
+  float* bias_s = hq_s + p.R * NB;                             // [NB]
+  const int m0 = blockIdx.x * NB, b = blockIdx.y;
+  const int nm = min(NB, p.M - m0);   // the slice's rows inside M
+  const int KP = (p.K + ROWS - 1) / ROWS;
+  const int nit = KP * DC;
+  const bf16* xb = p.xv + (size_t)b * p.K * p.Dh;
+  auto load = [&](int it) {
+    if (it < nit)
+      load_box<VEC, NTH>(ring + (it % S) * STAGE, xb, p.Dh, (it / DC) * ROWS,
+                         p.K, (it % DC) * 64, p.Dh, ROWS);
+    cp_async_commit();
+  };
+  for (int it = 0; it < S - 1; ++it) load(it);
+
+  // weff[m, d] = bf16(sum_r w[r M + m, d] hq[b, r, m]), the sum over the
+  // ranks in order, each product rounded on its own (JAX's order, no FMA).
+  // Item j is E elements at flat offset E j of the slice's nm x Dh
+  // elements: the same offset in each rank's nm rows of w, which are
+  // contiguous, so a warp's load takes 32 E x 2 bytes of one rank.  A
+  // round loads FRB ranks x FU items a thread; the next round's loads go
+  // out before this round's sums.
+  const int nitems = nm * p.Dh / E;
+  const size_t rstride = (size_t)p.M * p.Dh;
+  const bf16* wb = p.w + (size_t)m0 * p.Dh;
+  auto fetch = [&](Word (&v)[FRB][FU], int j0, int rb) {
+#pragma unroll
+    for (int rr = 0; rr < FRB; ++rr)
+#pragma unroll
+      for (int u = 0; u < FU; ++u) {
+        const int j = j0 + u * NTH + threadIdx.x;
+        const bool ok = j < nitems && rb + rr < p.R;
+        const bf16* q = wb + (rb + rr) * rstride + (size_t)E * j;
+        if constexpr (E == 4)
+          v[rr][u] = ok ? __ldg(reinterpret_cast<const uint2*>(q))
+                        : make_uint2(0, 0);
+        else
+          v[rr][u] = ok ? q[0] : bf16_zero();
+      }
+  };
+  Word cur[FRB][FU], nxt[FRB][FU];
+  fetch(cur, 0, 0);   // in flight while hq, the pad and the bias are set
+
+  for (int i = threadIdx.x; i < p.R * NB; i += NTH) {
+    const int r = i / NB, mm = i % NB;
+    hq_s[i] = mm < nm ? f32(p.hq[((size_t)b * p.R + r) * p.M + m0 + mm])
+                      : 0.0f;
   }
-  __syncthreads();
-  for (int mm = threadIdx.x; mm < T; mm += NT) {
+  // the slice's pad is zero: rows nm .. NB of every chunk (16-byte chunks),
+  // columns Dh .. 64 DC of the last chunk
+  for (int i = threadIdx.x; i < (NB - nm) * DC * 8; i += NTH) {
+    const int q = i % 8, row = nm + (i / 8) % (NB - nm);
+    const int c = i / (8 * (NB - nm));
+    *reinterpret_cast<uint4*>(weff + c * NB * 128 +
+                              swizzled<128>(row, 8 * q)) = uint4{0, 0, 0, 0};
+  }
+  const int tail = DC * 64 - p.Dh;
+  for (int i = threadIdx.x; i < nm * tail; i += NTH) {
+    const int row = i / tail, d = p.Dh + i % tail - (DC - 1) * 64;
+    *reinterpret_cast<bf16*>(weff + (DC - 1) * NB * 128 +
+                             swizzled<128>(row, d)) = bf16_zero();
+  }
+  __syncthreads();   // hq_s
+  for (int mm = threadIdx.x; mm < NB; mm += NTH) {
     float s = 0.0f;
-    if (m0 + mm < M)
-      for (int r = 0; r < R; ++r)
-        s = s + __fmul_rn(f32(b3[(size_t)r * M + m0 + mm]), hq_s[r * T + mm]);
+    if (mm < nm)
+      for (int r = 0; r < p.R; ++r)
+        s = s + __fmul_rn(f32(p.b3[(size_t)r * p.M + m0 + mm]),
+                          hq_s[r * NB + mm]);
     bias_s[mm] = s;
   }
-  // weff's slice, rounded to bf16; zero past Dh and M
-  for (int i = threadIdx.x; i < T * DHP; i += NT) {
-    const int mm = i / DHP, d = i % DHP;
-    const int m = m0 + mm;
-    float s = 0.0f;
-    if (m < M && d < Dh)
-      for (int r = 0; r < R; ++r)
-        s = s + __fmul_rn(f32(w[((size_t)r * M + m) * Dh + d]),
-                          hq_s[r * T + mm]);
-    weffT[mm * LDW + d] = rn(s);
-  }
-  __syncthreads();
 
-  const bf16* xb = xv + (size_t)b * K * Dh;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp % 2, wn = warp / 2;
-  for (int k0 = 0; k0 < K; k0 += T) {
-    FragC acc[2][2];
-    zero(acc);
-    for (int d0 = 0; d0 < DHP; d0 += T) {
-      load_tile<T, T, LDS, NT>(xs, xb, Dh, k0, K, d0, Dh, vec);
-      __syncthreads();
+  for (int j0 = 0; j0 < nitems; j0 += NTH * FU) {
+    // each item's row and column, and where its second pair lands (E 4:
+    // the pair may start the next row)
+    int row[FU], col[FU], row2[FU], col2[FU];
 #pragma unroll
-      for (int kk = 0; kk < T; kk += 16) {
-        FragA fa[2];
-        FragBc fb[2];
+    for (int u = 0; u < FU; ++u) {
+      const int f = E * (j0 + u * NTH + threadIdx.x);
+      row[u] = f / p.Dh;
+      col[u] = f - row[u] * p.Dh;
+      const bool wrap = E == 4 && col[u] + 2 >= p.Dh;
+      row2[u] = min(row[u] + (wrap ? 1 : 0), NB - 1);
+      col2[u] = wrap ? col[u] + 2 - p.Dh : col[u] + 2;
+      row[u] = min(row[u], NB - 1);
+    }
+    float acc[FU][E];
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], xs + (wm * 32 + i * 16) * LDS + kk,
-                                 LDS);
+    for (int u = 0; u < FU; ++u)
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(
-              fb[j], weffT + (wn * 32 + j * 16) * LDW + d0 + kk, LDW);
+      for (int e = 0; e < E; ++e) acc[u][e] = 0.0f;
+    for (int rb = 0; rb < p.R; rb += FRB) {
+      const bool last = rb + FRB >= p.R;
+      if (!last || j0 + NTH * FU < nitems)
+        fetch(nxt, last ? j0 + NTH * FU : j0, last ? 0 : rb + FRB);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+      for (int rr = 0; rr < FRB; ++rr) {
+        if (rb + rr >= p.R) break;
+        const float* hr = hq_s + (rb + rr) * NB;
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+        for (int u = 0; u < FU; ++u) {
+          const float h = hr[row[u]];
+          const float h2 = E == 4 ? hr[row2[u]] : h;
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            float wv;
+            if constexpr (E == 4)
+              wv = wlane(cur[rr][u], e);
+            else
+              wv = f32(cur[rr][u]);
+            acc[u][e] = acc[u][e] + __fmul_rn(wv, e < 2 ? h : h2);
+          }
+        }
       }
-      __syncthreads();
-    }
-    store(acc, Cs);
-    __syncthreads();
 #pragma unroll
-    for (int e = 0; e < PER; ++e) {
-      const int i = threadIdx.x + e * NT;
-      const int kk = i / T, mm = i % T;
-      if (k0 + kk < K && m0 + mm < M)
-        out[((size_t)b * K + k0 + kk) * M + m0 + mm] =
-            rn(Cs[kk * LDC + mm] + bias_s[mm]);
+      for (int rr = 0; rr < FRB; ++rr)
+#pragma unroll
+        for (int u = 0; u < FU; ++u) cur[rr][u] = nxt[rr][u];
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < FU; ++u) {
+      if (j0 + u * NTH + threadIdx.x >= nitems) continue;
+      if constexpr (E == 1) {
+        *reinterpret_cast<bf16*>(weff + (col[u] / 64) * NB * 128 +
+                                 swizzled<128>(row[u], col[u] % 64)) =
+            rn(acc[u][0]);
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {   // a pair never straddles a row
+          const int rw = h ? row2[u] : row[u], cl = h ? col2[u] : col[u];
+          __nv_bfloat162 pr;
+          pr.x = rn(acc[u][2 * h]);
+          pr.y = rn(acc[u][2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(
+              weff + (cl / 64) * NB * 128 + swizzled<128>(rw, cl % 64)) = pr;
+        }
+      }
+    }
+  }
+  fence_proxy_async();   // weff's generic stores, before wgmma reads them
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int qrow = (warp % 4) * 16 + lane / 4;
+  const int qcol = 2 * (lane % 4);
+  const bool pairs = p.M % 2 == 0;
+  float acc[NSUB][WN / 2];
+  for (int it = 0; it < nit; ++it) {
+    cp_async_wait_upto(S - 2);   // this thread's copies of stage it
+    fence_proxy_async();
+    __syncthreads();   // everyone's (and the bias); stage it - 1 is free
+    load(it + S - 1);
+    const int c = it % DC;
+    const unsigned char* st = ring + (it % S) * STAGE + wg * 8192;
+    const unsigned char* wc = weff + c * NB * 128;
+#pragma unroll
+    for (int n = 0; n < NSUB; ++n) fence_acc(acc[n]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int n = 0; n < NSUB; ++n)
+        wgmma_bf16_ss<WN>(acc[n], gmma_desc<128>(st) + 2 * kk,
+                          gmma_desc<128>(wc + n * WN * 128) + 2 * kk,
+                          c > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int n = 0; n < NSUB; ++n) fence_acc(acc[n]);
+    if (c != DC - 1) continue;
+    // out rows of this pass, 64 columns at a time: the warpgroup stages
+    // bf16(acc + bias) in its half of the stage it just read (the next
+    // load into it comes after the loop's barrier), then each warp writes
+    // whole rows, 128 contiguous bytes an instruction
+    unsigned char* tile = ring + (it % S) * STAGE + wg * 8192;
+    const int k0 = (it / DC) * ROWS + wg * 64;
+    bf16* ob = p.out + ((size_t)b * p.K + k0) * p.M + m0;
+#pragma unroll
+    for (int n = 0; n < NB / 64; ++n) {
+      const int sub = n * 64 / WN, i0 = (n * 64 % WN) / 8;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ml = n * 64 + 8 * i + qcol;
+          __nv_bfloat162 pr;
+          pr.x = rn(acc[sub][4 * (i0 + i) + 2 * h] + bias_s[ml]);
+          pr.y = rn(acc[sub][4 * (i0 + i) + 2 * h + 1] + bias_s[ml + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(
+              tile + swizzled<128>(qrow + 8 * h, 8 * i + qcol)) = pr;
+        }
+      wg_sync(wg);
+      const int ml = n * 64 + 2 * lane;
+      for (int r = warp % 4; r < 64 && k0 + r < p.K; r += 4) {
+        const __nv_bfloat162 pr = *reinterpret_cast<const __nv_bfloat162*>(
+            tile + swizzled<128>(r, 2 * lane));
+        bf16* q = ob + (size_t)r * p.M + ml;
+        if (pairs && ml + 1 < nm) {
+          *reinterpret_cast<__nv_bfloat162*>(q) = pr;
+        } else if (ml < nm) {
+          q[0] = pr.x;
+          if (ml + 1 < nm) q[1] = pr.y;
+        }
+      }
+      wg_sync(wg);   // the tile is free for the next 64 columns
+    }
   }
 }
 
@@ -204,57 +348,6 @@ __host__ __device__ constexpr int dweff_bytes() {
 static_assert(WSTAGES * WSTAGE + WONES + WRG * 64 * WLD * 2 >=
                   WRG * 64 * WLD * 4,
               "the dw partial fits in the ring, the ones and the w tile");
-
-// Wait until at most n (0 to 3) committed cp.async groups are pending.
-__device__ __forceinline__ void cp_async_wait_upto(int n) {
-  if (n >= 3) cp_async_wait<3>();
-  else if (n == 2) cp_async_wait<2>();
-  else if (n == 1) cp_async_wait<1>();
-  else cp_async_wait<0>();
-}
-
-// Copy n bf16 from g to s (both 4-byte aligned when V4, n then even),
-// zeros for [n, n_pad); threads tid0 .. tid0 + NTH - 1 of the block.
-template <bool V4, int NTH>
-__device__ __forceinline__ void load_row(bf16* s, const bf16* __restrict__ g,
-                                         int n, int n_pad) {
-  if constexpr (V4) {
-    for (int c = 2 * (threadIdx.x % NTH); c < n_pad; c += 2 * NTH)
-      cp_async4(s + c, c < n ? g + c : g, c < n ? 4 : 0);
-  } else {
-    for (int c = threadIdx.x % NTH; c < n_pad; c += NTH)
-      s[c] = c < n ? g[c] : bf16_zero();
-  }
-}
-
-// Copy a (rows x 64) bf16 box at (r0, c0) of a row-major (nrows, ncols)
-// matrix, row stride ld, into a 128B-swizzled tile (row r at r * 128
-// bytes), zeros outside.  V4: 4-byte cp.async copies (even widths, 4-byte
-// aligned base), else plain loads.
-template <bool V4, int NTH>
-__device__ __forceinline__ void load_box(unsigned char* tile,
-                                         const bf16* __restrict__ g, int ld,
-                                         int r0, int nrows, int c0,
-                                         int ncols, int rows) {
-  if constexpr (V4) {
-    // thread t: the column pair 2 (t % 32) of rows t / 32, + NTH / 32, ..
-    const int t = threadIdx.x % NTH, c = (t % 32) * 2;
-    const bool cok = c0 + c < ncols;
-    const bf16* src = g + (size_t)(r0 + t / 32) * ld + c0 + c;
-    for (int r = t / 32; r < rows; r += NTH / 32, src += (NTH / 32) * ld) {
-      const bool ok = cok && r0 + r < nrows;
-      cp_async4(tile + swizzled<128>(r, c), ok ? src : g, ok ? 4 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x % NTH; i < rows * 64; i += NTH) {
-      const int r = i / 64, c = i % 64;
-      *reinterpret_cast<bf16*>(tile + swizzled<128>(r, c)) =
-          r0 + r < nrows && c0 + c < ncols
-              ? g[(size_t)(r0 + r) * ld + c0 + c]
-              : bf16_zero();
-    }
-  }
-}
 
 struct BwdParams {
   const bf16* xv;    // (B, K, Dh)
@@ -292,8 +385,9 @@ attmutan_bwd_dx_kernel(const BwdParams p) {
   const bf16* gb = p.g + (size_t)b * p.K * p.M;
   auto load = [&](int it) {
     if (it < nit)
-      load_box<V4, XNT>(ring + (it % S) * XSTAGE, gb, p.M,
-                        (it / MC) * XROWS, p.K, (it % MC) * 64, p.M, XROWS);
+      load_box<V4 ? 2 : 1, XNT>(ring + (it % S) * XSTAGE, gb, p.M,
+                                (it / MC) * XROWS, p.K, (it % MC) * 64, p.M,
+                                XROWS);
     cp_async_commit();
   };
   for (int r = 0; r < p.R; ++r)
@@ -431,10 +525,10 @@ attmutan_bwd_dweff_kernel(const BwdParams p) {
     if (it < nit) {
       const int b = b_lo + it / KC, k0 = (it % KC) * 64;
       unsigned char* st = ring + (it % S) * WSTAGE;
-      load_box<V4, WNT>(st, p.g + (size_t)b * p.K * p.M, p.M, k0, p.K, m0,
-                        p.M, 64);
-      load_box<V4, WNT>(st + 8192, p.xv + (size_t)b * p.K * p.Dh, p.Dh, k0,
-                        p.K, d0, p.Dh, 64);
+      load_box<V4 ? 2 : 1, WNT>(st, p.g + (size_t)b * p.K * p.M, p.M, k0,
+                                p.K, m0, p.M, 64);
+      load_box<V4 ? 2 : 1, WNT>(st + 8192, p.xv + (size_t)b * p.K * p.Dh,
+                                p.Dh, k0, p.K, d0, p.Dh, 64);
       if (it % KC == KC - 1)   // the epilogue's hq[b, r0 + r, m0 ..]
         for (int r = 0; r < p.nr; ++r)
           load_row<V4, WNT>(
@@ -600,12 +694,6 @@ __global__ void attmutan_bwd_finish_kernel(const BwdParams p) {
   if (lane == 0) p.db[j] = s;
 }
 
-size_t fwd_smem(int Dh, int R) {
-  return (size_t)T * (round_up(Dh, T) + 8) * sizeof(bf16) +
-         (size_t)T * LDS * sizeof(bf16) + (size_t)T * LDC * sizeof(float) +
-         (size_t)(R + 1) * T * sizeof(float);
-}
-
 int set_smem(const void* fn, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -653,37 +741,64 @@ int bwd_launch(BwdParams p, int dx_stages, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NB, int NWG>
+int fwd_launch(const FwdParams& p, int vec, cudaStream_t st) {
+  auto k = vec == 8   ? attmutan_fwd_kernel<NB, NWG, 8>
+           : vec == 2 ? attmutan_fwd_kernel<NB, NWG, 2>
+                      : attmutan_fwd_kernel<NB, NWG, 1>;
+  const size_t smem = fwd_bytes(NB, NWG, (p.Dh + 63) / 64, p.R, p.stages);
+  int rc = set_smem(reinterpret_cast<const void*>(k), smem);
+  if (rc != 0) return rc;
+  k<<<dim3((p.M + NB - 1) / NB, p.B), NWG * 128, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace vqacx
 
 VQACX_DEFINE_ERROR_STRING
 
-// Shared memory the launches need (bytes): which 0 the forward, 1 the dx
-// kernel with a ring of ``stages``, 2 the dweff kernel (its ring is 3
-// deep); for the wrapper's plan and checks.
+// Shared memory the launches need (bytes): which 0 the forward with the
+// configuration nb / nwg (its ring ``stages`` deep), 1 the dx kernel with
+// a ring of ``stages``, 2 the dweff kernel (its ring is 3 deep); for the
+// wrapper's plans and checks.
 extern "C" size_t vqacx_attmutan_smem(int which, int Dh, int R, int M,
-                                      int stages) {
-  return which == 0 ? vqacx::fwd_smem(Dh, R)
+                                      int stages, int nb, int nwg) {
+  return which == 0 ? (size_t)vqacx::fwd_bytes(nb, nwg, (Dh + 63) / 64, R,
+                                               stages)
          : which == 1
              ? (size_t)vqacx::dx_bytes((M + 63) / 64, R, stages)
              : (size_t)vqacx::dweff_bytes();
 }
 
+// The forward (see the note at the top) with the wrapper's plan
+// (attmutan_kernel.fwd_plan): NB of M a CTA, NWG warpgroups, a ring of
+// ``stages`` (2 to 4) x_v stages.  Where Dh is even, M Dh % 4 == 0 and w
+// is 8-byte aligned, w arrives by 8-byte loads and x_v by 16-byte copies
+// (Dh % 8 == 0 and a 16-byte aligned base) or 4-byte ones; plain loads
+// otherwise.
 extern "C" int vqacx_attmutan_fwd(const void* xv, const void* w,
                                   const void* b3, const void* hq, void* out,
-                                  int B, int K, int Dh, int R, int M,
-                                  void* stream) {
+                                  int B, int K, int Dh, int R, int M, int nb,
+                                  int nwg, int stages, void* stream) {
   using namespace vqacx;
-  const size_t smem = fwd_smem(Dh, R);
-  int rc = set_smem(reinterpret_cast<const void*>(attmutan_fwd_kernel), smem);
-  if (rc != 0) return rc;
-  const bool vec = (Dh % 8 == 0) && aligned16(xv);
-  const dim3 grid((M + T - 1) / T, B);
-  attmutan_fwd_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(xv), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(b3), static_cast<const bf16*>(hq),
-      static_cast<bf16*>(out), K, Dh, R, M, vec);
-  return static_cast<int>(cudaGetLastError());
+  if (B <= 0 || K <= 0 || Dh <= 0 || R <= 0 || M <= 0 || stages < 2 ||
+      stages > 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdParams p{static_cast<const bf16*>(xv), static_cast<const bf16*>(w),
+              static_cast<const bf16*>(b3), static_cast<const bf16*>(hq),
+              static_cast<bf16*>(out), B, K, Dh, R, M, stages};
+  const uintptr_t ax = reinterpret_cast<uintptr_t>(xv);
+  const bool quads = Dh % 2 == 0 && (long long)M * Dh % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(w) & 7u) == 0;
+  const int vec = !quads || (ax & 3u) != 0      ? 1
+                  : Dh % 8 == 0 && (ax & 15u) == 0 ? 8
+                                                   : 2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nb == 256 && nwg == 2) return fwd_launch<256, 2>(p, vec, st);
+  if (nb == 128 && nwg == 2) return fwd_launch<128, 2>(p, vec, st);
+  if (nb == 64 && nwg == 1) return fwd_launch<64, 1>(p, vec, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The backward (see the note at the top), with the wrapper's plan

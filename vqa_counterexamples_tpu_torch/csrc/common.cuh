@@ -1,15 +1,17 @@
 // Shared helpers for the hand-written sm_90a kernels of this package.
 //
-// Every kernel here is a tiled GEMM with a fused epilogue: bf16 WMMA
-// fragments (16x16x16, f32 accumulators) with synchronous tile loads; in
-// the kNN and GRU-backward kernels, mma.sync fed by a cp.async ring; in
-// the GRU forward and the mixture kernel, Hopper's wgmma fed by TMA
-// through an mbarrier ring; in the folded MUTAN backward, wgmma (K- and
-// MN-major operands) fed by a cp.async ring, whose 4-byte copies take the
-// rows of 310 and 510 elements that TMA's 16-byte strides refuse.
-// WMMA operand tiles are staged in shared memory with a row stride of
-// BK + 8 elements: the 16-byte pad staggers rows across banks and keeps
-// every fragment pointer 32-byte aligned.
+// Every kernel here is a tiled GEMM with a fused epilogue: in the vfeat
+// kernels, bf16 WMMA fragments (16x16x16, f32 accumulators) with
+// synchronous tile loads; in the kNN and GRU-backward kernels, mma.sync
+// fed by a cp.async ring; in the GRU forward and the mixture kernel,
+// Hopper's wgmma fed by TMA through an mbarrier ring; in the folded MUTAN
+// forward and backward and the MUTAN Tucker kernel, wgmma (K- and MN-major
+// operands) fed by a cp.async ring (``load_box``), whose 4-byte copies take
+// the rows of 310, 510 and 620 elements that TMA's 16-byte strides refuse
+// (16-byte copies where a row allows them).  WMMA operand tiles are staged
+// in shared memory with a row stride of BK + 8 elements: the 16-byte pad
+// staggers rows across banks and keeps every fragment pointer 32-byte
+// aligned.
 #pragma once
 
 #include <cuda.h>
@@ -291,6 +293,65 @@ template <int RB>
 __device__ __forceinline__ int swizzled(int r, int k) {
   const int o = r * RB + k * 2;
   return o ^ ((((o >> 7) & (RB / 16 - 1))) << 4);
+}
+
+// Wait until at most n (0 to 3) committed cp.async groups are pending.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 3) cp_async_wait<3>();
+  else if (n == 2) cp_async_wait<2>();
+  else if (n == 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+// Copy n bf16 from g to s (both 4-byte aligned when V4, n then even),
+// zeros for [n, n_pad); threads tid0 .. tid0 + NTH - 1 of the block.
+template <bool V4, int NTH>
+__device__ __forceinline__ void load_row(bf16* s, const bf16* __restrict__ g,
+                                         int n, int n_pad) {
+  if constexpr (V4) {
+    for (int c = 2 * (threadIdx.x % NTH); c < n_pad; c += 2 * NTH)
+      cp_async4(s + c, c < n ? g + c : g, c < n ? 4 : 0);
+  } else {
+    for (int c = threadIdx.x % NTH; c < n_pad; c += NTH)
+      s[c] = c < n ? g[c] : bf16_zero();
+  }
+}
+
+// Copy a (rows x 64) bf16 box at (r0, c0) of a row-major (nrows, ncols)
+// matrix, row stride ld, into a 128B-swizzled tile (row r at r * 128
+// bytes; the layout of ``gmma_desc<128>``), zeros outside.  VEC 8:
+// 16-byte cp.async copies (ld and ncols multiples of 8, c0 of 64, a
+// 16-byte aligned base); 2: 4-byte copies (even widths, 4-byte aligned
+// base); 1: plain loads.
+template <int VEC, int NTH>
+__device__ __forceinline__ void load_box(unsigned char* tile,
+                                         const bf16* __restrict__ g, int ld,
+                                         int r0, int nrows, int c0,
+                                         int ncols, int rows) {
+  static_assert(VEC == 1 || VEC == 2 || VEC == 8, "1, 2 or 8 elements");
+  if constexpr (VEC > 1) {
+    // thread t: the chunk of VEC columns (t % (64 / VEC)) of rows
+    // t / (64 / VEC), + NTH / (64 / VEC), ..
+    constexpr int PER_ROW = 64 / VEC, STEP = NTH / PER_ROW;
+    const int t = threadIdx.x % NTH, c = (t % PER_ROW) * VEC;
+    const bool cok = c0 + c < ncols;
+    const bf16* src = g + (size_t)(r0 + t / PER_ROW) * ld + c0 + c;
+    for (int r = t / PER_ROW; r < rows; r += STEP, src += (size_t)STEP * ld) {
+      const bool ok = cok && r0 + r < nrows;
+      if constexpr (VEC == 8)
+        cp_async16(tile + swizzled<128>(r, c), ok ? src : g, ok ? 16 : 0);
+      else
+        cp_async4(tile + swizzled<128>(r, c), ok ? src : g, ok ? 4 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x % NTH; i < rows * 64; i += NTH) {
+      const int r = i / 64, c = i % 64;
+      *reinterpret_cast<bf16*>(tile + swizzled<128>(r, c)) =
+          r0 + r < nrows && c0 + c < ncols
+              ? g[(size_t)(r0 + r) * ld + c0 + c]
+              : bf16_zero();
+    }
+  }
 }
 
 // wgmma shared-memory descriptor of a K-major bf16 tile with rows of RB

@@ -26,6 +26,17 @@ memory, so bytes bound both.  weff (81 MB in f32 at this batch) never
 reaches device memory: each block builds the slice of it that it
 multiplies with in shared memory, as the TPU kernel built it in VMEM.
 
+The forward (``csrc/attmutan.cu``, one launch, :func:`fwd_plan`) is bound
+in practice by w's reads from L2 (each example's weff is built once, from
+all of w: 1.6 MB an example, 203 MB a call) and by its product, which a
+CTA runs only after its build.  A CTA owns (example, NB of M) over all 196
+positions: it builds its weff slice once from 8-byte loads of 5 ranks'
+rows of w (contiguous), the next round's loads in flight under this
+round's sums, summing in JAX's rank order and rounding once, while the
+first x_v stages load; then it streams x_v[b] through a cp.async ring into
+wgmma, adds the folded bias in f32 and writes whole rows of out through
+shared memory.
+
 The backward (``csrc/attmutan.cu``, three launches, :func:`bwd_plan`) is
 bound in practice by its loads from L2: w (1.6 MB) once per example to
 build weff, and x_v and g once per output tile of dweff, in 4-byte copies
@@ -49,6 +60,7 @@ by a last small launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -59,6 +71,49 @@ _TILE = 64
 _SMEM_MAX = 232448          # the H100's per-block shared memory limit
 _GROUPS = 8                 # example groups of a dweff cluster (WCL)
 _RANKS = 5                  # ranks per dweff launch (WRG)
+
+
+# The forward's configurations (NB of M a CTA, warpgroups, the deepest
+# ring tried), in the order fwd_plan tries them; csrc/attmutan.cu
+# instantiates each.  The first is the fastest at MutanAtt's shape
+# (``cli/probe_kernels`` sweeps them; ``PERF.md`` §6); the others take a Dh
+# whose slice the first cannot hold (above 320; the last up to about
+# 1,600).
+FWD_CONFIGS = ((256, 2, 3), (128, 2, 4), (64, 1, 4))
+
+
+def fwd_smem(nb: int, nwg: int, dc: int, rank: int, stages: int) -> int:
+    """The forward's shared memory (bytes, with the alignment slack): the
+    weff slice (``dc`` 64-wide chunks of Dh x ``nb`` rows, 128 bytes a
+    row), a ring of 8 KB x ``nwg`` x_v stages, hq and the bias in f32.
+    Mirrors ``fwd_bytes``."""
+    return 1024 + dc * nb * 128 + stages * nwg * 8192 + (rank + 1) * nb * 4
+
+
+def fwd_plan(batch: int, k: int, dim_h: int, rank: int, dim_m: int,
+             config=None):
+    """The forward's launch plan (pure Python; ``csrc/attmutan.cu`` takes it
+    as given): the first of :data:`FWD_CONFIGS` (or ``config``, an (nb,
+    nwg) pair of them) whose weff slice and a ring of at least 2 stages fit
+    a CTA's shared memory, with the deepest ring up to its limit.  Returns
+    ``nb``, ``nwg``, ``stages``, ``smem`` and the ``grid`` (M blocks,
+    examples).  ValueError when none fits (Dh beyond about 1,600)."""
+    dc = -(-dim_h // _TILE)
+    configs = FWD_CONFIGS if config is None else [
+        c for c in FWD_CONFIGS if tuple(c[:2]) == tuple(config)]
+    if not configs:
+        raise ValueError("folded_mutan: no configuration %s" % (config,))
+    for nb, nwg, most in configs:
+        fits = [st for st in range(most, 1, -1)
+                if fwd_smem(nb, nwg, dc, rank, st) <= _SMEM_MAX]
+        if fits:
+            return {"nb": nb, "nwg": nwg, "stages": fits[0],
+                    "smem": fwd_smem(nb, nwg, dc, rank, fits[0]),
+                    "grid": (-(-dim_m // nb), batch)}
+    raise ValueError(
+        "folded_mutan: Dh %d, R %d: the weff slice and a ring of 2 stages "
+        "need %d bytes of shared memory (at most %d)"
+        % (dim_h, rank, fwd_smem(*configs[-1][:2], dc, rank, 2), _SMEM_MAX))
 
 
 def bwd_plan(batch: int, k: int, dim_h: int, rank: int, dim_m: int):
@@ -183,14 +238,6 @@ def _check(what, x_v, w, b, hq, g=None):
         raise ValueError("%s: x_v, w and g must be bf16" % what)
 
 
-def _smem_ok(lib, what, dh, rank, m):
-    need = lib.vqacx_attmutan_smem(0, dh, rank, m, 0)
-    if need > _SMEM_MAX:
-        raise ValueError("%s: Dh %d, R %d, M %d need %d bytes of shared "
-                         "memory per block (at most %d)"
-                         % (what, dh, rank, m, need, _SMEM_MAX))
-
-
 def folded_mutan(x_v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  hq: torch.Tensor) -> torch.Tensor:
     """The forward (see the module docstring).  On CPU tensors this is
@@ -199,18 +246,25 @@ def folded_mutan(x_v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     build.refuse_grad("folded_mutan", x_v, w, b, hq)
     if x_v.device.type == "cpu":
         return folded_mutan_plain(x_v, w, b, hq)
+    return _fwd_launch(x_v, w, b, hq)
+
+
+def _fwd_launch(x_v, w, b, hq, config=None):
+    """The kernel at :func:`fwd_plan`'s pick, or at ``config`` (an (nb,
+    nwg) pair of :data:`FWD_CONFIGS`: every one gives the same bits)."""
     _check("folded_mutan", x_v, w, b, hq)
     b16 = b.to(_BF16).contiguous()
     hq16 = hq.to(_BF16).contiguous()
     build.require_cuda("folded_mutan", x_v, w, b16, hq16)
     batch, k, dh = x_v.shape
     rank, m = hq.shape[1:]
+    plan = _fwd_plan(batch, k, dh, rank, m, config)
     lib = _lib()
-    _smem_ok(lib, "folded_mutan", dh, rank, m)
     out = torch.empty((batch, k, m), dtype=_BF16, device=x_v.device)
     rc = lib.vqacx_attmutan_fwd(build.ptr(x_v), build.ptr(w), build.ptr(b16),
                                 build.ptr(hq16), build.ptr(out), batch, k, dh,
-                                rank, m, build.stream_of(x_v.device))
+                                rank, m, plan["nb"], plan["nwg"],
+                                plan["stages"], build.stream_of(x_v.device))
     build.check(lib, rc, "folded_mutan")
     folded_mutan.launches += 1
     return out
@@ -254,23 +308,34 @@ def folded_mutan_bwd(x_v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 # one count per launch
 folded_mutan.launches = 0
 folded_mutan_bwd.launches = 0
+# the forward's plans, once per shape (the wrapper never modifies them)
+_fwd_plan = functools.lru_cache(maxsize=64)(fwd_plan)
 
 
 def _lib():
     lib = build.load("attmutan")
     if lib.vqacx_attmutan_fwd.argtypes is None:
-        lib.vqacx_attmutan_smem.argtypes = [ctypes.c_int] * 5
+        lib.vqacx_attmutan_smem.argtypes = [ctypes.c_int] * 7
         lib.vqacx_attmutan_smem.restype = ctypes.c_size_t
-        # the plan's shared memory is dx_smem's and dweff_smem's: once, at
-        # load, they are held equal to the kernels' own counts over the
-        # plans' range
+        # the plans' shared memory is fwd_smem's, dx_smem's and
+        # dweff_smem's: once, at load, they are held equal to the kernels'
+        # own counts over the plans' range
+        for nb, nwg, most in FWD_CONFIGS:
+            for dc, rank, stages in ((1, 1, 2), (5, 5, most), (25, 3, 2)):
+                need = lib.vqacx_attmutan_smem(0, 64 * dc, rank, 64, stages,
+                                               nb, nwg)
+                if need != fwd_smem(nb, nwg, dc, rank, stages):
+                    raise RuntimeError(
+                        "folded_mutan: fwd_smem(%d, %d, %d, %d, %d) disagrees"
+                        " with csrc/attmutan.cu's %d bytes"
+                        % (nb, nwg, dc, rank, stages, need))
         for mc, rank, stages in ((1, 1, 2), (8, 5, 4), (8, 5, 3), (3, 7, 2)):
-            need = lib.vqacx_attmutan_smem(1, 64, rank, 64 * mc, stages)
+            need = lib.vqacx_attmutan_smem(1, 64, rank, 64 * mc, stages, 0, 0)
             if need != dx_smem(mc, rank, stages):
                 raise RuntimeError(
                     "folded_mutan_bwd: dx_smem(%d, %d, %d) disagrees with "
                     "csrc/attmutan.cu's %d bytes" % (mc, rank, stages, need))
-        if lib.vqacx_attmutan_smem(2, 64, 1, 64, 0) != dweff_smem():
+        if lib.vqacx_attmutan_smem(2, 64, 1, 64, 0, 0, 0) != dweff_smem():
             raise RuntimeError("folded_mutan_bwd: dweff_smem disagrees with "
                                "csrc/attmutan.cu's")
         lib.vqacx_attmutan_bwd.argtypes = [ctypes.c_void_p] * 11 \
@@ -278,6 +343,6 @@ def _lib():
                                     ctypes.c_int, ctypes.c_void_p]
         lib.vqacx_attmutan_bwd.restype = ctypes.c_int
         lib.vqacx_attmutan_fwd.argtypes = [ctypes.c_void_p] * 5 \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.vqacx_attmutan_fwd.restype = ctypes.c_int
     return lib
