@@ -11,12 +11,14 @@ ends the run with a nonzero exit and no result line.
    sm_90a, one process per source, all at once), runs each kernel at the
    shapes its path gives it and holds it against its plain PyTorch
    version on the same inputs, with the stated tolerances (the GRU
-   forwards, mixture, MUTAN, the folded forward, the three backwards and
-   kNN also against themselves: reruns are bit-equal); times both with
-   CUDA events after a warm-up,
-   and mixture also beside the one library composition that computes its
-   function (``torch.softmax(F.linear(z, w, b), dim=1)``, never called by
-   the port: ``library_ms``).
+   forwards, the vfeat forward, mixture, MUTAN, the folded forward, the
+   three backwards and kNN also against themselves: reruns are
+   bit-equal); times both with CUDA events after a warm-up, mixture also
+   beside the one library composition that computes its function
+   (``torch.softmax(F.linear(z, w, b), dim=1)``), and the vfeat forward
+   and backward beside cuBLAS on their two bf16 products, operands
+   gathered beforehand (``torch.mm``); neither is called by the port
+   (``library_ms``).
 2. Scoring at the flagship width (bench.py's configuration: dim_v 2048,
    K 24, BayesianUniSkip 620 -> 2400, MUTAN R 10 at 360, 2000 answers,
    NeuralCX 300 x 2, B 768; synthetic 2048 examples over 1024 images, random
@@ -257,11 +259,22 @@ def phase_kernels(dev, card):
     h2, d2 = vfeat_kernel.vfeat_scores_plain(table, idx, w_o, w_m)
     err = max(check_close("vfeat h", h1, h2, TOL["vfeat_h"]),
               check_close("vfeat dist", d1, d2, TOL["vfeat_dist"]))
+    again = vfeat_kernel.vfeat_scores(table, idx, w_o, w_m)
+    if not (torch.equal(h1, again[0]) and torch.equal(d1, again[1])):
+        raise AssertionError("vfeat: a rerun on the same inputs differs")
+    log("  vfeat      rerun on the same inputs: bit-equal")
+    # the yardstick for both directions: cuBLAS on the kernels' two bf16
+    # products, operands gathered beforehand (the port never calls it)
+    x = table[idx[:, 1:].long()].reshape(-1, DV)
+    m = (x.view(B, K, DV) * table[idx[:, 0].long()][:, None]).reshape(-1, DV)
     rows["vfeat"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: vfeat_kernel.vfeat_scores(table, idx, w_o, w_m)),
+        ms=time_ms(lambda: vfeat_kernel.vfeat_scores(table, idx, w_o, w_m),
+                   reps=20),
         plain_ms=time_ms(lambda: vfeat_kernel.vfeat_scores_plain(
             table, idx, w_o, w_m)),
+        library_ms=time_ms(lambda: (torch.mm(x, w_o.t()),
+                                    torch.mm(m, w_m.t())), reps=20),
         work=(4 * B * K * DV * HID,
               N * DV * 2 + B * (K + 1) * 4 + 2 * HID * DV * 2
               + B * K * HID * 2 + B * K * 4))
@@ -275,11 +288,15 @@ def phase_kernels(dev, card):
         raise AssertionError("vfeat_bwd: a rerun on the same inputs "
                              "differs")
     log("  vfeat_bwd  rerun on the same inputs: bit-equal")
+    g2 = g.reshape(-1, HID)
     rows["vfeat_bwd"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: vfeat_kernel.vfeat_weight_grads(table, idx, g)),
+        ms=time_ms(lambda: vfeat_kernel.vfeat_weight_grads(table, idx, g),
+                   reps=20),
         plain_ms=time_ms(lambda: vfeat_kernel.vfeat_weight_grads_plain(
             table, idx, g)),
+        library_ms=time_ms(lambda: (torch.mm(g2.t(), x),
+                                    torch.mm(g2.t(), m)), reps=20),
         work=(4 * B * K * DV * HID,
               N * DV * 2 + B * (K + 1) * 4 + B * K * HID * 2
               + 2 * HID * DV * 4))
@@ -1315,7 +1332,8 @@ def main():
                 attmutan_bwd=launches_att, knn=launches_knn)
     on_path = {k: path.get(k, launches)[k] for k in KERNELS}
     # library_ms: the one PyTorch call that computes the same function,
-    # where there is one (mixture's linear + softmax), else null
+    # where there is one (mixture's linear + softmax), the vfeat rows'
+    # cuBLAS products on pre-gathered operands (their yardstick), else null
     kernels = [dict(name=name, route="cuda",
                     source="vqa_counterexamples_tpu_torch/csrc/%s.cu"
                     % SOURCES[name], replaces=REPLACES[name],

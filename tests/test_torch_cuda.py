@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small ragged shapes (edges that the slice's shapes do not reach: batch
 and hidden sizes off the tile multiples, unaligned widths, dropout masks
-shared or per gate) and, for the vfeat backward, the GRU backward and
-kNN, at their paths' full shapes too.
+shared or per gate) and, for the vfeat forward and backward, the GRU
+backward and kNN, at their paths' full shapes too (vfeat also over
+COCO-train's 82,783-row table).
 
 Marked ``cuda``: they skip where no card is visible.  On a host with a card
 and no JAX (the tests' conftest imports jax), run them as
@@ -49,8 +50,14 @@ def test_gru_kernel_matches_plain(dev, seq, batch, dim_h, masked):
     torch.testing.assert_close(h1.float(), h2.float(), atol=5e-2, rtol=5e-2)
 
 
+# the small ragged shapes; B K off the forward's 128-row tile and the
+# backward's 64-row chunk with H off the 152-column tile (158: two column
+# tiles, the second of 6); the CX path's shape over chip_smoke's table and
+# over COCO-train's 82,783 rows (339 MB, beyond L2)
 @pytest.mark.parametrize("n_rows,dim_v,batch,knn,dim_h", [
-    (40, 40, 5, 6, 20), (50, 36, 3, 24, 70), (100, 128, 70, 24, 300)])
+    (40, 40, 5, 6, 20), (50, 36, 3, 24, 70), (100, 128, 70, 24, 300),
+    (300, 256, 45, 7, 158), (1024, 2048, 768, 24, 300),
+    (82783, 2048, 768, 24, 300)])
 def test_vfeat_kernel_matches_plain(dev, n_rows, dim_v, batch, knn, dim_h):
     gen = torch.Generator().manual_seed(dim_v)
     table = _randn(gen, dev, n_rows, dim_v)
@@ -58,11 +65,16 @@ def test_vfeat_kernel_matches_plain(dev, n_rows, dim_v, batch, knn, dim_h):
         torch.int32).to(dev)
     w_o = _randn(gen, dev, dim_h, dim_v, scale=dim_v ** -0.5)
     w_m = _randn(gen, dev, dim_h, dim_v, scale=dim_v ** -0.5)
+    before = vfeat_kernel.vfeat_scores.launches
     h1, d1 = vfeat_kernel.vfeat_scores(table, idx, w_o, w_m)
     h2, d2 = vfeat_kernel.vfeat_scores_plain(table, idx, w_o, w_m)
     torch.cuda.synchronize()
+    assert vfeat_kernel.vfeat_scores.launches == before + 1
     torch.testing.assert_close(h1.float(), h2.float(), atol=3e-2, rtol=3e-2)
     torch.testing.assert_close(d1, d2, atol=1e-4, rtol=1e-4)
+    # fixed sums: the same inputs give the same bits
+    h3, d3 = vfeat_kernel.vfeat_scores(table, idx, w_o, w_m)
+    assert torch.equal(h1, h3) and torch.equal(d1, d3)
 
 
 def _vfeat_bwd_inputs(dev, n_rows, dim_v, batch, knn, dim_h):
@@ -84,7 +96,8 @@ def _assert_grads_close(got, ref, rel=1e-4):
 
 @pytest.mark.parametrize("n_rows,dim_v,batch,knn,dim_h", [
     (40, 40, 5, 6, 20), (50, 36, 3, 24, 70), (100, 128, 71, 23, 300),
-    (1024, 2048, 768, 24, 300)])
+    (300, 256, 45, 7, 158), (1024, 2048, 768, 24, 300),
+    (82783, 2048, 768, 24, 300)])
 def test_vfeat_bwd_kernel_matches_plain(dev, n_rows, dim_v, batch, knn,
                                         dim_h):
     table, idx, g = _vfeat_bwd_inputs(dev, n_rows, dim_v, batch, knn, dim_h)

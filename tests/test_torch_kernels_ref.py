@@ -153,7 +153,8 @@ def test_mixture_plan_covers_the_answers_and_fits(dim_z, n_ans):
 
 
 @pytest.mark.parametrize("sections,message", [
-    ("mixture,mutan,attmutan_fwd,attmutan_bwd", "no CUDA device"), ("mixture,bogus", None)])
+    ("mixture,mutan,attmutan_fwd,attmutan_bwd", "no CUDA device"), ("mixture,bogus", None),
+    ("vfeat", "no CUDA device")])
 def test_probe_kernels_needs_a_card_and_known_sections(monkeypatch, capsys,
                                                        sections, message):
     """``cli/probe_kernels`` runs only the sections it knows and only on a
@@ -169,6 +170,89 @@ def test_probe_kernels_needs_a_card_and_known_sections(monkeypatch, capsys,
         assert "--sections" in capsys.readouterr().err
     else:
         assert message in str(stop.value.code)
+
+
+# (B, K, dim_v, H): the CX path's, the card tests' ragged ones, and K 2
+_VFEAT_SHAPES = [(768, 24, 2048, 300), (5, 6, 40, 20), (3, 24, 36, 70),
+                 (70, 24, 128, 300), (71, 23, 128, 300), (45, 7, 256, 158),
+                 (33, 2, 256, 300), (3000, 24, 4096, 600)]
+
+
+def _distinct_examples(rows, k, tile):
+    """The most examples any ``tile`` consecutive GEMM rows (from a tile
+    boundary) touch."""
+    return max((min(rows, r0 + tile) - 1) // k - r0 // k + 1
+               for r0 in range(0, rows, tile))
+
+
+@pytest.mark.parametrize("batch,k,dim_v,dim_h", _VFEAT_SHAPES)
+def test_vfeat_fwd_plan_covers_the_rows_and_fits(batch, k, dim_v, dim_h):
+    """The vfeat forward's plan: 128-row x 152-column CTAs cover every
+    candidate row and output column with no CTA wholly outside, a stage
+    holds every distinct o row a tile touches, the ring (2 or 3 stages)
+    fits the H100's 232,448 bytes of shared memory and a consumer's f32
+    accumulators (both products' m64 x 152 fragments) its register budget;
+    at the CX path's shape 144 x 2 CTAs with 7 o rows and 3 stages."""
+    rows = batch * k
+    row_tiles, col_tiles, n_o, stages, smem = vfeat_kernel.fwd_plan(
+        batch, k, dim_v, dim_h)
+    assert (row_tiles - 1) * 128 < rows <= row_tiles * 128
+    assert (col_tiles - 1) * 152 < dim_h <= col_tiles * 152
+    assert _distinct_examples(rows, k, 128) <= n_o <= 128
+    assert stages in (2, 3)
+    assert smem == vfeat_kernel.fwd_smem(n_o, stages) <= 232448
+    assert vfeat_kernel.ACC_PER_THREAD <= vfeat_kernel.ACC_MAX
+    if (batch, k, dim_v, dim_h) == (768, 24, 2048, 300):
+        assert (row_tiles, col_tiles, n_o, stages) == (144, 2, 7, 3)
+
+
+# clusters of 1 to 8 backward CTAs (about 200 KB of shared memory each)
+# that an H100 80GB HBM3 (132 SMs) holds at once, as
+# cudaOccupancyMaxActiveClusters reports them
+_H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
+@pytest.mark.parametrize("batch,k,dim_v,dim_h", _VFEAT_SHAPES)
+def test_vfeat_bwd_plan_covers_the_tile_and_fits(batch, k, dim_v, dim_h):
+    """The vfeat backward's plan on an H100's cluster occupancy: 64 (d) x
+    304 (h) tiles cover both weight gradients; the cluster's CTAs split the
+    64-row chunks so that every CTA has at least one and their ranges cover
+    all of them; the split takes the fewest chunks a CTA times waves of
+    clusters; a stage holds every distinct o row a chunk touches; the ring
+    (which also stages the f32 partials) fits shared memory at 2 or 3
+    stages.  At the CX path's shape: 32 x 1 tiles in clusters of 3, one
+    wave of 96 CTAs (clusters of 4 would take two waves: the card holds 30),
+    4 o rows, 3 stages."""
+    rows = batch * k
+    d_tiles, h_tiles, cl, n_o, stages, smem = vfeat_kernel.bwd_plan(
+        batch, k, dim_v, dim_h, _H100_CLUSTERS.get)
+    assert (d_tiles - 1) * 64 < dim_v <= d_tiles * 64
+    assert (h_tiles - 1) * 304 < dim_h <= h_tiles * 304
+    chunks = -(-rows // 64)
+    assert 1 <= cl <= min(8, chunks)
+    ranges = [(r * chunks // cl, (r + 1) * chunks // cl) for r in range(cl)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == chunks
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+    def cost(c):
+        return -(-d_tiles * h_tiles // _H100_CLUSTERS[c]) * -(-chunks // c)
+
+    assert cost(cl) == min(cost(c) for c in range(1, min(8, chunks) + 1))
+    assert _distinct_examples(rows, k, 64) <= n_o <= 64
+    assert stages in (2, 3)
+    assert smem == vfeat_kernel.bwd_smem(n_o, stages) <= 232448
+    if (batch, k, dim_v, dim_h) == (768, 24, 2048, 300):
+        assert (d_tiles, h_tiles, cl, n_o, stages) == (32, 1, 3, 4, 3)
+
+
+def test_vfeat_plans_refuse_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="even"):
+        vfeat_kernel.fwd_plan(4, 24, 37, 300)
+    with pytest.raises(ValueError, match="even"):
+        vfeat_kernel.bwd_plan(4, 24, 2048, 301, _H100_CLUSTERS.get)
+    # K 1: 128 distinct o rows a stage still fit a 2-stage ring
+    assert vfeat_kernel.fwd_plan(768, 1, 2048, 300)[2:4] == (128, 2)
 
 
 def test_mixture_plan_refuses_what_does_not_fit():

@@ -151,11 +151,25 @@ def test_knn_driver_matches_jax(engine, queries):
     q = _corpus(150, 24, seed=4) if queries else None
     d_ref, i_ref = jax_topk.knn(corpus, k=6, queries=q, batch_size=64)
     dist, idx = port_topk.knn(corpus, k=6, queries=q, batch_size=64,
-                              engine=engine)
+                              engine=engine, device="cpu")
     assert isinstance(dist, np.ndarray) and idx.dtype == np.int32
     assert dist.shape == (150 if queries else 230, 6)
     np.testing.assert_array_equal(idx, i_ref)
     np.testing.assert_allclose(dist, d_ref, **TOL)
+
+
+def test_knn_defaults_to_the_card(monkeypatch):
+    """A numpy corpus with no ``device`` goes to the card; where none is
+    visible the call raises and names ``device="cpu"`` instead of running
+    on the CPU unasked.  A tensor corpus keeps its own device."""
+    corpus = _corpus(20, 4, seed=0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port_topk.knn(corpus, k=3)
+    dist, idx = port_topk.knn(torch.from_numpy(corpus), k=3)
+    d_ref, i_ref = port_topk.knn(corpus, k=3, device="cpu")
+    np.testing.assert_array_equal(idx, i_ref)
+    np.testing.assert_array_equal(dist, d_ref)
 
 
 def test_knn_windows_match_jax_chunking():

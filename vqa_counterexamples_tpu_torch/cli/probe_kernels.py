@@ -37,8 +37,18 @@ device us of each of the wrapper's launches, by kernel name; for the
 forward also the plan and the ms of every configuration of
 ``attmutan_kernel.FWD_CONFIGS``.
 
+The vfeat forward and backward, at the CX path's shape (B 768, K 24,
+dim_v 2048, H 300, bf16) over a table of 1,024 rows (chip_smoke's, 4 MB:
+it stays in L2) and of 82,783 rows (COCO-train2014, 339 MB: the gathered
+rows come from HBM): the wrapper's ms (CUDA events, after a warm-up), the
+plain version's, the device us of each launch under ``torch.profiler``
+by kernel name, and a yardstick the port never calls: the two bf16
+``torch.mm`` of the kernel's products on operands gathered beforehand
+(the gather not timed), (18432 x 2048) @ (2048 x 300) for x and bf16(o
+* x) forward, (300 x 18432) @ (18432 x 2048) for each backward.
+
 ``--sections`` picks some of knn, gru_fwd, gru_bwd, mixture, mutan,
-attmutan_fwd, attmutan_bwd (all by default).  Needs a card: it refuses to
+attmutan_fwd, attmutan_bwd, vfeat (all by default).  Needs a card: it refuses to
 run without one.  The JSON report goes to ``--out``.
 """
 
@@ -279,8 +289,40 @@ def probe_attmutan_bwd(dev, gen):
     return out
 
 
+def probe_vfeat(dev, gen, n_rows):
+    from ..ops.cuda import vfeat_kernel
+
+    batch, k, dim_v, dim_h = 768, 24, 2048, 300
+    table = _randn(gen, dev, n_rows, dim_v)
+    idx = torch.randint(0, n_rows, (batch, k + 1), generator=gen,
+                        device=dev, dtype=torch.int32)
+    w_o = _randn(gen, dev, dim_h, dim_v, scale=dim_v ** -0.5)
+    w_m = _randn(gen, dev, dim_h, dim_v, scale=dim_v ** -0.5)
+    g = _randn(gen, dev, batch, k, dim_h, scale=1e-2)
+    out = {"shape": [n_rows, dim_v, batch, k, dim_h]}
+    with torch.no_grad():
+        out["fwd"] = _timed(
+            lambda: vfeat_kernel.vfeat_scores(table, idx, w_o, w_m),
+            lambda: vfeat_kernel.vfeat_scores_plain(table, idx, w_o, w_m),
+            "vfeat")
+    out["bwd"] = _timed(
+        lambda: vfeat_kernel.vfeat_weight_grads(table, idx, g),
+        lambda: vfeat_kernel.vfeat_weight_grads_plain(table, idx, g),
+        "vfeat")
+    # the yardstick: cuBLAS on the same products, operands gathered first
+    x = table[idx[:, 1:].long()].reshape(-1, dim_v)
+    m = (x.view(batch, k, dim_v) * table[idx[:, 0].long()][:, None]
+         ).reshape(-1, dim_v)
+    g2 = g.reshape(-1, dim_h)
+    out["fwd"]["library_ms"] = _ms(
+        lambda: (torch.mm(x, w_o.t()), torch.mm(m, w_m.t())), reps=20)
+    out["bwd"]["library_ms"] = _ms(
+        lambda: (torch.mm(g2.t(), x), torch.mm(g2.t(), m)), reps=20)
+    return out
+
+
 SECTIONS = ("knn", "gru_fwd", "gru_bwd", "mixture", "mutan", "attmutan_fwd",
-            "attmutan_bwd")
+            "attmutan_bwd", "vfeat")
 
 
 def main(argv=None):
@@ -310,7 +352,9 @@ def main(argv=None):
         "mutan": lambda: [probe_mutan(dev, gen, *shape) for shape in (
             (512, 360, 360, 10, 360), (128, 620, 310, 5, 510))],
         "attmutan_fwd": lambda: probe_attmutan_fwd(dev, gen),
-        "attmutan_bwd": lambda: probe_attmutan_bwd(dev, gen)}
+        "attmutan_bwd": lambda: probe_attmutan_bwd(dev, gen),
+        "vfeat": lambda: [probe_vfeat(dev, gen, n_rows)
+                          for n_rows in (1024, 82783)]}
     report = {"card": card}
     for name in sections:
         report[name] = probes[name]()

@@ -1,23 +1,19 @@
 // Shared helpers for the hand-written sm_90a kernels of this package.
 //
-// Every kernel here is a tiled GEMM with a fused epilogue: in the vfeat
-// kernels, bf16 WMMA fragments (16x16x16, f32 accumulators) with
-// synchronous tile loads; in the kNN and GRU-backward kernels, mma.sync
-// fed by a cp.async ring; in the GRU forward and the mixture kernel,
-// Hopper's wgmma fed by TMA through an mbarrier ring; in the folded MUTAN
-// forward and backward and the MUTAN Tucker kernel, wgmma (K- and MN-major
-// operands) fed by a cp.async ring (``load_box``), whose 4-byte copies take
-// the rows of 310, 510 and 620 elements that TMA's 16-byte strides refuse
-// (16-byte copies where a row allows them).  WMMA operand tiles are staged
-// in shared memory with a row stride of BK + 8 elements: the 16-byte pad
-// staggers rows across banks and keeps every fragment pointer 32-byte
-// aligned.
+// Every kernel here is a tiled GEMM with a fused epilogue: in the kNN and
+// GRU-backward kernels, mma.sync fed by a cp.async ring; in the GRU
+// forward and the mixture kernel, Hopper's wgmma fed by TMA through an
+// mbarrier ring; in the vfeat forward and backward, the folded MUTAN
+// forward and backward and the MUTAN Tucker kernel, wgmma (K- and
+// MN-major operands) fed by a cp.async ring (``load_box`` and the vfeat
+// row gathers), whose 4-byte copies take the rows of 310, 510, 600 and
+// 620 elements or bytes that TMA's 16-byte strides refuse (16-byte copies
+// where a row allows them).
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace vqacx {
@@ -79,34 +75,6 @@ __device__ __forceinline__ void set_lane8(Pack8& p, int e, bf16 v) {
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-// Copy rows [row0, row0 + ROWS) x columns [k0, k0 + BK) of a row-major bf16
-// matrix (nrows x ncols, row stride ld) into shared memory with row stride
-// LDS, writing zeros outside the matrix.  ``vec`` allows 16-byte loads
-// (ld % 8 == 0 and a 16-byte aligned base).
-template <int ROWS, int BK, int LDS, int NT>
-__device__ __forceinline__ void load_tile(bf16* __restrict__ s,
-                                          const bf16* __restrict__ g, int ld,
-                                          int row0, int nrows, int k0,
-                                          int ncols, bool vec) {
-  constexpr int CH = BK / 8;
-  for (int c = threadIdx.x; c < ROWS * CH; c += NT) {
-    const int r = c / CH;
-    const int kc = (c % CH) * 8;
-    const int gr = row0 + r;
-    const int gk = k0 + kc;
-    bf16* dst = s + r * LDS + kc;
-    if (gr < nrows && vec && gk + 8 <= ncols) {
-      *reinterpret_cast<uint4*>(dst) =
-          *reinterpret_cast<const uint4*>(g + (size_t)gr * ld + gk);
-    } else {
-      for (int e = 0; e < 8; ++e) {
-        dst[e] = (gr < nrows && gk + e < ncols) ? g[(size_t)gr * ld + gk + e]
-                                                : bf16_zero();
-      }
-    }
-  }
 }
 
 // ------------------------------------------------ async copies, mma.sync
@@ -392,14 +360,16 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 // index contiguous: TA / TB = 1 below) in the 128B-swizzled layout: rows
 // of 64 elements (128 bytes) along M or N, one row per K index, 8 rows a
 // 1024-byte swizzle atom, as a TMA box of 64 x rows with 128B swizzle (or
-// ``swizzled<128>(k, mn)``) lays them out.  Both offsets are 1024 bytes:
-// SBO steps 8 K rows, LBO the next 64 elements along M or N, so an operand
-// more than 64 wide must put its 64-wide column blocks 1024 bytes apart;
-// every operand of this package's MN-major products is 64 wide, where LBO
-// is not read.  Adding 128 advances K by 16 (16 rows of 128 bytes).
-__device__ __forceinline__ uint64_t gmma_desc_mn(const void* smem) {
+// ``swizzled<128>(k, mn)``) lays them out.  SBO (1024 bytes) steps 8 K
+// rows; LBO steps to the next 64 elements along M or N, so an operand
+// more than 64 wide keeps its 64-wide column blocks ``lbo`` bytes apart
+// (the vfeat backward's g tile: blocks of 64 K rows, 8192 bytes); a
+// 64-wide operand never reads it.  Adding 128 advances K by 16 (16 rows
+// of 128 bytes).
+__device__ __forceinline__ uint64_t gmma_desc_mn(const void* smem,
+                                                 int lbo = 1024) {
   return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) |
-         ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
          ((uint64_t)1 << 62);
 }
 
@@ -415,7 +385,7 @@ template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t a,
                                               uint64_t b, int scale_d = 1) {
   static_assert(N == 8 || N == 40 || N == 64 || N == 80 || N == 128 ||
-                    N == 160,
+                    N == 152 || N == 160,
                 "an instantiated wgmma width");
   if constexpr (false) {
   } else if constexpr (N == 8) {
@@ -496,6 +466,35 @@ __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 152) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %78, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n152k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+        "%74, %75"
+        "}, %76, %77, p, 1, 1, %79, %80;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   } else if constexpr (N == 160) {
     asm volatile(

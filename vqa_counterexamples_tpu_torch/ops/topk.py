@@ -33,9 +33,12 @@ def knn(features, k: int = 25, queries=None, batch_size: int = 1024,
         device=None):
     """k-NN of every query row against ``features`` (the corpus, (N, D));
     ``queries`` defaults to the corpus itself.  Arrays (numpy or tensors)
-    go to ``device`` (default: the corpus tensor's device, else the CPU) in
-    f32; the corpus's squared norms are computed once.  Returns numpy
-    (dist (Nq, k) f32, idx (Nq, k) int32)."""
+    go to ``device`` in f32: by default the corpus tensor's own device,
+    else the card (as JAX's ``topk.knn`` runs on the default device, the
+    accelerator); with no CUDA device visible that default raises, and the
+    CPU must be asked for with ``device="cpu"``.  The corpus's squared
+    norms are computed once.  Returns numpy (dist (Nq, k) f32, idx (Nq, k)
+    int32)."""
     if approx:
         raise NotImplementedError("approximate top-k (the TPU's "
                                   "approx_max_k) is not ported (ROADMAP.md, "
@@ -46,8 +49,14 @@ def knn(features, k: int = 25, queries=None, batch_size: int = 1024,
     if engine not in ENGINES:
         raise ValueError("engine %r: one of %s" % (engine, ENGINES))
     if device is None:
-        device = (features.device if isinstance(features, torch.Tensor)
-                  else torch.device("cpu"))
+        if isinstance(features, torch.Tensor):
+            device = features.device
+        elif torch.cuda.is_available():
+            device = torch.device("cuda")
+        else:
+            raise RuntimeError("no CUDA device is visible: the port runs on "
+                               "the card; pass device=\"cpu\" to run on the "
+                               "CPU")
 
     def to_dev(a):
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
