@@ -28,14 +28,23 @@ ends the run with a nonzero exit and no result line.
    held against the same computation through the plain versions.
 3. Training at the flagship width (dropout 0.25, Adam at 1e-4): the
    caches, then 2 epochs of ``train_epoch`` with a per-epoch
-   ``eval_model``, counted: the vfeat forward, vfeat backward and mixture
-   counters must move once per step (plus the eval batches), every loss
-   must be finite; one step's gradients through the kernels are held
-   against the same step through the plain versions (dropout off); then
-   the warm train rate.
+   ``eval_model``, counted (the steps are captured CUDA graphs, as the
+   CLI runs them; a replay adds the launches its capture recorded): the
+   vfeat forward, vfeat backward and mixture counters must move once per
+   step (plus the eval batches), every loss must be finite; one step's
+   gradients through the kernels are held against the same step through
+   the plain versions (dropout off); the warm train rate.  Then, from one
+   starting state with dropout on, an epoch of captured steps against the
+   same epoch of eager ones, and through ``make_cx_train_scan`` with S 3
+   against the single steps (per-step losses and recall counts, every
+   trained parameter and Adam moment: bit-equal), the captured eval pass
+   against the eager one (equal results), and the ms a step of each,
+   unprofiled and profiled (idle share, kernels and host launches a
+   step).
 4. The CLI: ``cli.counterexamples.main([... --synthetic 2048 --z_cache
-   --epochs 1 --test -b 768])`` in a temporary directory: the checkpoint
-   files and ``best_epoch``.
+   --epochs 1 --test -b 768])`` in a temporary directory, once as it is
+   and once with ``--scan_steps 2``: the checkpoint files, ``best_epoch``
+   and the same ``final_results.txt`` from both.
 5. VQA pretraining at full width through ``engines/vqa_engine``
    (``configs/vqa2/mutan_noatt_train.yaml``: dim_v 2048, BayesianUniSkip
    620 -> 2400 with per-gate masks, MUTAN R 10 at 360, 2000 answers, B 512,
@@ -45,7 +54,11 @@ ends the run with a nonzero exit and no result line.
    batch; every loss finite; one step's gradients of every parameter
    through the kernels against the same step through the plain versions,
    dropout on (both draw the same masks); then the warm train and val
-   rates.
+   rates; PyTorch's default embedding backward against the port's
+   (``models/seq2vec.embedding``) on one batch's word ids, five calls
+   each: the port's must give the same bits every call; then an epoch of
+   captured steps against eager ones from one starting state, dropout on
+   (bit-equal), and the ms a step of each, as in phase 3.
 6. The pretraining CLI: ``cli.train.main([... --synthetic 2048 --epochs 1
    -b 512])`` in a temporary directory: the checkpoint files,
    ``logger.json`` and the val result rows.
@@ -60,7 +73,8 @@ ends the run with a nonzero exit and no result line.
    backward and MUTAN once per train step, the folded forward, the shared
    GRU forward and MUTAN once per val batch; every loss finite; one step's
    gradients through the kernels against the plain versions, dropout on;
-   the warm train and val rates.
+   the warm train and val rates; captured against eager steps (bit-equal)
+   and their ms a step, as in phase 3.
 8. The pretraining CLI with ``mutan_att_train.yaml``: ``--synthetic 1024
    --epochs 1 -b 128``, its files and val rows.
 9. The kNN builder at COCO-train scale: 82,783 x 2048 f32 features from the
@@ -74,7 +88,8 @@ the builder's, the GRU forward at the val batches' shapes (B 512 and B
 128, no mask) and the per-gate forward and the backward at MutanAtt's
 batch (B 128), and MUTAN at MutanAtt's classifier shape (with a bit-equal
 rerun, as at B 512); every GRU forward row
-logs the tile it launches with.  It prints the card's
+logs the tile it launches with.  Phases 3-5 and 7 log the peak of
+allocated device memory.  It prints the card's
 name and power limit, a ``{"kernels": [...]}`` line and, last, ``{"ok":
 true, "device": {...}}``.
 """
@@ -133,8 +148,7 @@ TOL = {
     # cancellation noise of about sqrt(eps |q|^2), some 2e-2 at dim 2048
     "knn": dict(rtol=1e-4, self_atol=2e-2),
 }
-KERNELS = ("gru", "gru_pg", "gru_bwd", "vfeat", "vfeat_bwd", "mixture",
-           "mutan", "attmutan", "attmutan_bwd", "knn")
+# each kernel wrapper (``ops/cuda.launch_counters``) by name: its source
 SOURCES = {"gru": "gru", "gru_pg": "gru", "gru_bwd": "gru", "vfeat": "vfeat",
            "vfeat_bwd": "vfeat", "mixture": "mixture", "mutan": "mutan",
            "attmutan": "attmutan", "attmutan_bwd": "attmutan", "knn": "knn"}
@@ -209,6 +223,104 @@ def time_ms(fn, reps=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def memory_line(card) -> str:
+    """The phase's peak of allocated device memory (the counter is reset
+    at each phase's start)."""
+    return "max_memory_allocated %.1f MiB (%s)" % (
+        torch.cuda.max_memory_allocated() / 2 ** 20, card)
+
+
+def recorded(step, rows, keys):
+    """``step`` (a train step or a scan trainer) with its metrics ``keys``
+    appended to ``rows``, one (n, len(keys)) tensor a call."""
+    def wrapped(*args, **kwargs):
+        state, m = step(*args, **kwargs)
+        rows.append(torch.stack([torch.as_tensor(m[k]).float().reshape(-1)
+                                 .to(m[keys[0]].device) for k in keys], 1))
+        return state, m
+    return wrapped
+
+
+def training_tensors(model, optimizer):
+    """``(name, tensor)`` of every parameter the optimizer trains, then of
+    its Adam moments (``<name>/exp_avg``, ``<name>/exp_avg_sq``)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    return ([(names[id(p)], p) for p in params]
+            + [("%s/%s" % (names[id(p)], k), optimizer.state[p][k])
+               for p in params for k in ("exp_avg", "exp_avg_sq")])
+
+
+def hold_equal(what, run_a, run_b):
+    """Two runs from one starting state, each ``(rows, model,
+    optimizer)``: the per-step metrics and the trained tensors must be
+    bit-equal."""
+    rows_a, rows_b = (torch.cat(r[0]).cpu() for r in (run_a, run_b))
+    tens_a, tens_b = (training_tensors(*r[1:]) for r in (run_a, run_b))
+    if rows_a.shape != rows_b.shape or [n for n, _ in tens_a] != [
+            n for n, _ in tens_b]:
+        raise AssertionError("%s: the runs differ in shape" % what)
+    differ = ["%s %.2e" % (name, (a.float() - b.float()).abs().max().item())
+              for (name, a), (_, b) in zip(tens_a, tens_b)
+              if not torch.equal(a, b)]
+    rows_ok = torch.equal(rows_a, rows_b)
+    log("  %s: %d steps' metrics (largest difference %.3e), %d trained "
+        "tensors (parameters, Adam moments): %s"
+        % (what, rows_a.shape[0], (rows_a - rows_b).abs().max().item(),
+           len(tens_a), "bit-equal" if not differ else
+           "DIFFERENT: %s" % ", ".join(differ)))
+    if differ or not rows_ok:
+        raise AssertionError("%s: not bit-equal" % what)
+
+
+# each wrapper's kernels in a profiler trace: a name that its kernel
+# launches carry, and the launches a call makes ("T": one a timestep)
+TRACED = {"gru": ("gru_fwd_step_kernel<1,", "T"),
+          "gru_pg": ("gru_fwd_step_kernel<3,", "T"),
+          "gru_bwd": ("gru_bwd_step_kernel<", "T"),
+          "vfeat": ("vfeat_fwd_kernel<", 1),
+          "vfeat_bwd": ("vfeat_bwd_kernel<", 1),
+          "mixture": ("::mixture_kernel<", 1),
+          "mutan": ("::mutan_fwd_kernel<", 1),
+          "attmutan": ("attmutan_fwd_kernel<", 1),
+          "attmutan_bwd": ("attmutan_bwd_dx_kernel<", 1),
+          "knn": ("knn_merge_kernel", 1)}
+
+
+def step_profile(label, run_pass, passes, per_pass, card, seq_len=0):
+    """Unprofiled ms a step and the profiled breakdown of ``passes`` calls
+    of ``run_pass`` (``per_pass`` steps each) after a warm call, logged.
+    The launch counters must agree with the trace: each wrapper's count
+    over the timed and the profiled calls is twice the launches of its
+    kernel that the profiler saw (per call, ``seq_len`` for the GRU's
+    per-timestep launches)."""
+    from vqa_counterexamples_tpu_torch.cli.profile_cx import profile_calls
+
+    run_pass()   # warm: builds, captures
+    before = read_counters()
+    r = profile_calls(run_pass, passes, per_pass)
+    counted = {k: n - before[k] for k, n in read_counters().items()}
+    seen = {k: sum(n for name, n in r["kernel_launches"].items()
+                   if pattern in name) for k, (pattern, _) in TRACED.items()}
+    per_call = {k: seq_len if per == "T" else per
+                for k, (_, per) in TRACED.items()}
+    if any(2 * seen[k] != per_call[k] * counted[k]
+           or (counted[k] and not per_call[k]) for k in TRACED):
+        raise AssertionError("%s: launch counters %s over the timed and the "
+                             "profiled calls, the trace's kernels %s"
+                             % (label, counted, seen))
+    log("  %s: %.3f ms a step unprofiled (host %.3f, drain %.3f ms); "
+        "profiled %.3f ms a step, device busy %.3f ms, idle share %.1f%%; "
+        "%.2f kernels and %.2f host launches a step %s; the launch "
+        "counters agree with the trace's port kernels %s (%s)"
+        % (label, r["wall_ms"], r["host_ms"], r["drain_ms"] / (
+            passes * per_pass), r["wall_ms_profiled"], r["device_busy_ms"],
+           100 * r["idle_share_profiled"], r["launches"],
+           r["host_launches"], r["host_launches_by_call"],
+           {k: n for k, n in seen.items() if n}, card))
+    return r
 
 
 def build_all():
@@ -609,20 +721,13 @@ def att_knn_kernel_rows(dev, gen, randn):
 
 
 def counters():
-    from vqa_counterexamples_tpu_torch.ops.cuda import (
-        attmutan_kernel, gru_kernel, knn_kernel, mixture_kernel,
-        mutan_kernel, vfeat_kernel)
+    from vqa_counterexamples_tpu_torch.ops.cuda import launch_counters
 
-    return {"gru": gru_kernel.gru_recurrence,
-            "gru_pg": gru_kernel.gru_recurrence_pg,
-            "gru_bwd": gru_kernel.gru_recurrence_bwd,
-            "vfeat": vfeat_kernel.vfeat_scores,
-            "vfeat_bwd": vfeat_kernel.vfeat_weight_grads,
-            "mixture": mixture_kernel.classify_softmax,
-            "mutan": mutan_kernel.tucker_fusion,
-            "attmutan": attmutan_kernel.folded_mutan,
-            "attmutan_bwd": attmutan_kernel.folded_mutan_bwd,
-            "knn": knn_kernel.knn_chunk}
+    wrappers = launch_counters()
+    if set(wrappers) != set(SOURCES):
+        raise AssertionError("kernel wrappers %s, expected %s"
+                             % (sorted(wrappers), sorted(SOURCES)))
+    return wrappers
 
 
 def reset_counters():
@@ -786,6 +891,7 @@ def phase_train(dev, card, ctx):
     from vqa_counterexamples_tpu_torch.engines import cx_engine
 
     log("== phase 3: training at the flagship width")
+    torch.cuda.reset_peak_memory_stats()
     arrays, model, features = ctx
     batch_size, epochs = 768, 2
     val = vqacx.CXArrays(*(a[:batch_size] for a in arrays))
@@ -869,41 +975,115 @@ def phase_train(dev, card, ctx):
     secs = time.perf_counter() - t0
     n_steps = reps * -(-arrays.size // batch_size)
     log("  train %.1f examples/s, %.3f ms per step (warm, %d epochs of %d "
-        "examples, B=%d, dropout %.2f; %s)"
+        "examples, B=%d, dropout %.2f, captured steps; %s)"
         % (reps * arrays.size / secs, secs / n_steps * 1e3, reps,
            arrays.size, batch_size, drop_p, card))
+    compare_cx(model, feats_bf, q, z, arrays, batch_size, card)
+    log("  phase 3: " + memory_line(card))
     return launches
 
 
-def phase_cli(dev):
+def compare_cx(model, feats, q, z, arrays, batch_size, card):
+    """The captured CX steps against the eager ones from one starting state
+    (copies of ``model``, fresh Adam), dropout on: an epoch of train steps
+    (the third batch padded: 512 valid of 768), the same epoch through
+    ``make_cx_train_scan`` with S 3, and an eval pass; then the warm ms a
+    step of both, unprofiled and profiled."""
+    import copy
+
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+    keys = ("loss", "correct")
+    tables = dict(q_table=q, z_table=z)
+    runs = {}
+    for name, capture, scan in (("captured", None, 0), ("eager", False, 0),
+                                ("scan", None, 3)):
+        m = copy.deepcopy(model)
+        m.zero_grad(set_to_none=True)
+        st = cx_engine.init_cx_state(m, lr=1e-4)
+        rows = []
+        step = cx_engine.make_cx_train_step(
+            m, st.optimizer, base_seed=SEED, use_z_cache=True,
+            capture=capture)
+        scan_step = (recorded(cx_engine.make_cx_train_scan(step), rows,
+                              keys) if scan else None)
+        st, _ = cx_engine.train_epoch(
+            recorded(step, rows, keys), st, feats, arrays, batch_size,
+            rng=np.random.default_rng(SEED + 1), scan_step=scan_step,
+            scan_len=scan, **tables)
+        runs[name] = (rows, m, st.optimizer, st, step)
+    hold_equal("CX train, captured vs eager", runs["captured"][:3],
+               runs["eager"][:3])
+    hold_equal("CX train, make_cx_train_scan S 3 vs single captured steps",
+               runs["scan"][:3], runs["captured"][:3])
+    evals = [cx_engine.eval_model(
+        cx_engine.make_cx_eval_step(model, use_z_cache=True,
+                                    capture=capture),
+        feats, arrays, batch_size, **tables) for capture in (None, False)]
+    log("  CX eval, captured vs eager: %s vs %s" % tuple(evals))
+    if evals[0] != evals[1]:
+        raise AssertionError("captured eval differs from eager")
+    per_pass = -(-arrays.size // batch_size)
+    for name in ("eager", "captured"):
+        _, _, _, st, step = runs[name]
+        rng = np.random.default_rng(SEED + 2)
+        step_profile("CX train step, %s" % name,
+                     lambda: cx_engine.train_epoch(
+                         step, st, feats, arrays, batch_size, rng=rng,
+                         **tables), 3, per_pass, card)
+        eval_step = cx_engine.make_cx_eval_step(
+            st.model, use_z_cache=True,
+            capture=None if name == "captured" else False)
+        step_profile("CX eval batch, %s" % name,
+                     lambda: cx_engine.eval_model(
+                         eval_step, feats, arrays, batch_size, **tables),
+                     3, per_pass, card)
+
+
+def phase_cli(dev, card):
     from vqa_counterexamples_tpu_torch.cli import counterexamples
 
     log("== phase 4: the CLI")
-    reset_counters()
-    with tempfile.TemporaryDirectory() as tmp:
-        counterexamples.main(["--cx_model", "NeuralModel", "--synthetic",
-                              "2048", "--z_cache", "--epochs", "1", "--test",
-                              "-b", "768", "--seed", str(SEED),
-                              "--device", str(dev), "--project_dir", tmp])
-        (run,) = os.listdir(os.path.join(tmp, "logs", "cx"))
-        run_dir = os.path.join(tmp, "logs", "cx", run)
-        files = sorted(os.path.join(sub, name) for sub in ("ckpt", "best")
-                       for name in os.listdir(os.path.join(run_dir, sub)))
-        with open(os.path.join(run_dir, "final_results.txt")) as f:
-            res = json.load(f)
-    launches = read_counters()
-    log("  checkpoint files %s; final_results.txt: %s; launches %s"
-        % (files, res, launches))
-    if files != ["best/info.ckpt", "best/model.ckpt", "ckpt/info.ckpt",
-                 "ckpt/model.ckpt"]:
-        raise AssertionError("checkpoint files %s" % files)
-    if min(launches[k] for k in ("gru", "vfeat", "vfeat_bwd", "mixture")) <= 0:
-        raise AssertionError("the CLI run missed a kernel: %s" % launches)
-    # one epoch: best_epoch is the epoch after the best checkpoint's, as
-    # the JAX CLI writes it
-    if not (np.isfinite(res["loss"]) and 0.0 <= res["recall"] <= 1.0
-            and res["best_epoch"] == 2):
-        raise AssertionError("bad CLI results %s" % res)
+    torch.cuda.reset_peak_memory_stats()
+    texts = []
+    for extra in ([], ["--scan_steps", "2"]):
+        reset_counters()
+        with tempfile.TemporaryDirectory() as tmp:
+            counterexamples.main(["--cx_model", "NeuralModel", "--synthetic",
+                                  "2048", "--z_cache", "--epochs", "1",
+                                  "--test", "-b", "768", "--seed", str(SEED),
+                                  "--device", str(dev), "--project_dir",
+                                  tmp, *extra])
+            (run,) = os.listdir(os.path.join(tmp, "logs", "cx"))
+            run_dir = os.path.join(tmp, "logs", "cx", run)
+            files = sorted(os.path.join(sub, name)
+                           for sub in ("ckpt", "best")
+                           for name in os.listdir(os.path.join(run_dir,
+                                                               sub)))
+            with open(os.path.join(run_dir, "final_results.txt")) as f:
+                texts.append(f.read())
+        res = json.loads(texts[-1])
+        launches = read_counters()
+        log("  %s: checkpoint files %s; final_results.txt: %s; launches %s"
+            % (" ".join(extra) or "one step a call", files, res, launches))
+        if files != ["best/info.ckpt", "best/model.ckpt", "ckpt/info.ckpt",
+                     "ckpt/model.ckpt"]:
+            raise AssertionError("checkpoint files %s" % files)
+        if min(launches[k] for k in ("gru", "vfeat", "vfeat_bwd",
+                                     "mixture")) <= 0:
+            raise AssertionError("the CLI run missed a kernel: %s"
+                                 % launches)
+        # one epoch: best_epoch is the epoch after the best checkpoint's,
+        # as the JAX CLI writes it
+        if not (np.isfinite(res["loss"]) and 0.0 <= res["recall"] <= 1.0
+                and res["best_epoch"] == 2):
+            raise AssertionError("bad CLI results %s" % res)
+    if texts[0] != texts[1]:
+        raise AssertionError("--scan_steps 2 changed final_results.txt: "
+                             "%s vs %s" % tuple(texts))
+    log("  --scan_steps 2 (a group of 2 and a single step): the same "
+        "final_results.txt, to the bit")
+    log("  phase 4: " + memory_line(card))
 
 
 def pretrain_grads(model, batch, dev, plain):
@@ -935,6 +1115,7 @@ def phase_pretrain(dev, card):
     from vqa_counterexamples_tpu_torch.engines import vqa_engine
 
     log("== phase 5: VQA pretraining at full width")
+    torch.cuda.reset_peak_memory_stats()
     batch_size, epochs = 512, 2
     model, examples, store, _ = flagship_vqa(seed=SEED)
     model.to(dev)
@@ -1044,7 +1225,80 @@ def phase_pretrain(dev, card):
         "examples; %s)" % (reps * arrays.size / secs,
                            secs / (reps * arrays.size // batch_size) * 1e3,
                            reps, arrays.size, card))
+    embedding_bwd_reruns(model, batch["question"])
+    compare_vqa("MutanNoAtt", model, lambda rng: arrays.batches(
+        batch_size, shuffle=True, rng=rng, drop_remainder=True,
+        device_features=feats), arrays.size // batch_size, exp, card,
+        batch["question"].shape[1])
+    log("  phase 5: " + memory_line(card))
     return launches
+
+
+def embedding_bwd_reruns(model, wids, calls=5):
+    """The word embedding's backward on ``wids`` with one cotangent,
+    ``calls`` times: PyTorch's default CUDA path (logged: it may differ
+    between calls) and the port's (``models/seq2vec.embedding``), which
+    must give the same bits every call."""
+    from vqa_counterexamples_tpu_torch.models import seq2vec
+
+    table = model.seq2vec.embedding.weight.detach()
+    ids = wids.long()
+    gen = torch.Generator(device=table.device).manual_seed(SEED)
+    cot = torch.randn(*ids.shape, table.shape[1], generator=gen,
+                      device=table.device)
+    worst, ms = {}, {}
+    for name, fn in (("default", torch.nn.functional.embedding),
+                     ("port", seq2vec.embedding)):
+        grads = []
+        for _ in range(calls):
+            t = table.clone().requires_grad_(True)
+            fn(ids, t).backward(cot)
+            grads.append(t.grad)
+        worst[name] = max((g - grads[0]).abs().max().item() for g in grads)
+        ms[name] = time_ms(lambda: torch.autograd.grad(fn(ids, t), t, cot),
+                           reps=20)
+    log("  embedding backward on %d word ids (%d distinct), %d calls: "
+        "largest difference between calls %.3e on PyTorch's default path, "
+        "%.3e on the port's; lookup and backward %.4f / %.4f ms a call"
+        % (ids.numel(), ids.unique().numel(), calls, worst["default"],
+           worst["port"], ms["default"], ms["port"]))
+    if worst["port"] != 0.0:
+        raise AssertionError("the port's embedding backward differs "
+                             "between calls")
+
+
+def compare_vqa(label, model, loader, per_pass, exp, card, seq_len):
+    """The captured pretraining step against the eager one from one
+    starting state (copies of ``model``, fresh Adam), dropout on: an epoch
+    of ``loader(rng)``'s batches each; then the warm ms a step of both,
+    unprofiled and profiled (``seq_len``: the questions' length)."""
+    import copy
+
+    from vqa_counterexamples_tpu_torch.engines import vqa_engine
+
+    keys = ("loss", "acc1", "acc5")
+    runs = {}
+    for name, capture in (("captured", None), ("eager", False)):
+        m = copy.deepcopy(model)
+        m.zero_grad(set_to_none=True)
+        st = vqa_engine.init_vqa_state(m, lr=1e-4)
+        step = vqa_engine.make_vqa_train_step(m, st.optimizer,
+                                              base_seed=SEED,
+                                              capture=capture)
+        rows = []
+        rstep = recorded(step, rows, keys)
+        for batch in loader(np.random.default_rng(SEED + 1)):
+            st, _ = rstep(st, batch)
+        runs[name] = (rows, m, st.optimizer, st, step)
+    hold_equal("%s train, captured vs eager" % label, runs["captured"][:3],
+               runs["eager"][:3])
+    for name in ("eager", "captured"):
+        _, _, _, st, step = runs[name]
+        rng = np.random.default_rng(SEED + 2)
+        step_profile("%s train step, %s" % (label, name),
+                     lambda: vqa_engine.train_epoch(
+                         step, st, loader(rng), exp, 0, print_freq=10 ** 9),
+                     2, per_pass, card, seq_len=seq_len)
 
 
 def phase_train_cli(dev):
@@ -1094,6 +1348,7 @@ def phase_att_pretrain(dev, card):
     from vqa_counterexamples_tpu_torch.engines import vqa_engine
 
     log("== phase 7: MutanAtt pretraining at full width")
+    torch.cuda.reset_peak_memory_stats()
     batch_size, epochs = 128, 2
     t0 = time.perf_counter()
     model, examples, store, _ = flagship_vqa(seed=SEED, path_opt=ATT_CONFIG,
@@ -1206,6 +1461,10 @@ def phase_att_pretrain(dev, card):
         "examples; %s)" % (reps * arrays.size / secs,
                            secs / (reps * arrays.size // batch_size) * 1e3,
                            reps, arrays.size, card))
+    compare_vqa("MutanAtt", model, lambda rng: arrays.batches(
+        batch_size, shuffle=True, rng=rng, drop_remainder=True, device=dev),
+        arrays.size // batch_size, exp, card, batch["question"].shape[1])
+    log("  phase 7: " + memory_line(card))
     return launches
 
 
@@ -1278,7 +1537,7 @@ def phase_knn(dev, card, n=82783):
         with open(os.path.join(tmp, "knn.json")) as f:
             table = json.load(f)
         saved = np.load(prefix + "_knn_results.npy", allow_pickle=True).item()
-    want = {name: 0 for name in KERNELS}
+    want = {name: 0 for name in SOURCES}
     want["knn"] = -(-n // 1024)
     log("  launches on the kNN path: %s" % launches)
     if launches != want:
@@ -1315,7 +1574,7 @@ def main():
     rows = phase_kernels(dev, card)
     _, ctx = phase_slice(dev, card)
     launches = phase_train(dev, card, ctx)
-    phase_cli(dev)
+    phase_cli(dev, card)
     del ctx
     launches_pre = phase_pretrain(dev, card)
     phase_train_cli(dev)
@@ -1330,7 +1589,7 @@ def main():
     path = dict(gru_pg=launches_pre, gru_bwd=launches_pre,
                 mutan=launches_pre, attmutan=launches_att,
                 attmutan_bwd=launches_att, knn=launches_knn)
-    on_path = {k: path.get(k, launches)[k] for k in KERNELS}
+    on_path = {k: path.get(k, launches)[k] for k in SOURCES}
     # library_ms: the one PyTorch call that computes the same function,
     # where there is one (mixture's linear + softmax), the vfeat rows'
     # cuBLAS products on pre-gathered operands (their yardstick), else null
@@ -1340,7 +1599,7 @@ def main():
                     launches=on_path[name],
                     library_ms=rows[name].pop("library_ms", None),
                     **rows[name])
-               for name in KERNELS]
+               for name in SOURCES]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

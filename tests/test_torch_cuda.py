@@ -3,7 +3,10 @@ at small ragged shapes (edges that the slice's shapes do not reach: batch
 and hidden sizes off the tile multiples, unaligned widths, dropout masks
 shared or per gate) and, for the vfeat forward and backward, the GRU
 backward and kNN, at their paths' full shapes too (vfeat also over
-COCO-train's 82,783-row table).
+COCO-train's 82,783-row table); and the captured CUDA graphs of the train
+and eval steps against the eager steps, bit for bit (CX, MutanNoAtt and
+MutanAtt at small sizes), the generators' reseeding under replay, and a
+resume after a captured epoch.
 
 Marked ``cuda``: they skip where no card is visible.  On a host with a card
 and no JAX (the tests' conftest imports jax), run them as
@@ -635,3 +638,310 @@ def test_pinned_att_batches_match_host_path(dev):
                                       h["visual"])
         for k in ("question", "answer", "question_id"):
             np.testing.assert_array_equal(c[k], h[k])
+
+
+# ------------------------------------------------- captured steps (graphs)
+#
+# The train and eval steps are captured CUDA graphs on a card by default
+# (``core/graphs``).  Each test runs the same steps from one starting state
+# through the captured step and the eager one (``capture=False``) under
+# the bf16 policy, dropout on, and holds them bit-equal: the same kernels
+# on the same buffers, the masks from generators reseeded from (seed, step,
+# name) before each call.
+
+CX_SPEC = dict(dim_h=24, n_layers=2, drop_p=0.25, dim_a=40, v_emb=True,
+               v_mult=True, v_dist=True, v_rank=True, q_emb=True,
+               a_emb=True, z_emb=True, pretrained_emb=False,
+               trainable_vqa=False)
+
+
+def _tiny_cx(dev, seed=5):
+    """A small NeuralCX on the card (dim_v 128, K 6, GRU 32), its caches
+    (bf16-resident, table form) and 40 examples: B 16 leaves a padded
+    third batch of 8."""
+    from vqa_counterexamples_tpu_torch.data import synthetic, vqacx
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+    from vqa_counterexamples_tpu_torch.models import factory
+
+    dataset, store = synthetic.make_synthetic_cx(
+        n_examples=40, n_images=24, dim_v=128, knn_size=6, n_words=20,
+        n_answers=20, seed=9)
+    opt = synthetic.tiny_vqa_options(dim_v=128, nans=20, dim_q=32)
+    opt["seq2vec"] = {"arch": "skipthoughts", "type": "BayesianUniSkip",
+                      "dropout": 0.25, "fixed_emb": False, "emb_size": 16,
+                      "hidden_size": 32}
+    model = factory.factory_cx(
+        "NeuralModel", factory.factory_vqa(opt, dataset["vocab_words"],
+                                           dataset["vocab_answers"]),
+        knn_size=6, model_spec=CX_SPEC)
+    model = cx_engine.init_cx_params(model, seed=seed).to(dev)
+    arrays = vqacx.CXArrays.from_examples(dataset["examples_list"],
+                                          dataset["name_to_index"])
+    features = store.to_device(dev)
+    q, _, z, _ = cx_engine.build_frozen_caches(model, features, arrays)
+    tables = cx_engine.make_tables_bf16_resident(features, q, None, z)
+    return model, arrays, tables
+
+
+def _adam_tensors(optimizer):
+    return [v for p in (p for g in optimizer.param_groups
+                        for p in g["params"])
+            for v in optimizer.state[p].values()]
+
+
+def _assert_same_training(model_a, opt_a, model_b, opt_b):
+    for (n, a), (_, b) in zip(model_a.named_parameters(),
+                              model_b.named_parameters()):
+        assert torch.equal(a, b), n
+    moments_a, moments_b = _adam_tensors(opt_a), _adam_tensors(opt_b)
+    assert len(moments_a) == len(moments_b) > 0
+    for a, b in zip(moments_a, moments_b):
+        assert torch.equal(a, b)
+
+
+def _cx_run(model, arrays, tables, capture, epochs=2, batch_size=16):
+    """``epochs`` epochs of ``train_epoch`` (3 steps each) -> (state,
+    per-step (loss, correct), the step, the launch counts)."""
+    from vqa_counterexamples_tpu_torch.core import graphs
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+    from vqa_counterexamples_tpu_torch.ops.cuda import launch_counters
+
+    feats, q, _, z = tables
+    state = cx_engine.init_cx_state(model, lr=1e-3)
+    step = cx_engine.make_cx_train_step(model, state.optimizer,
+                                        base_seed=3, use_z_cache=True,
+                                        capture=capture)
+    ledger = graphs.LaunchLedger(launch_counters().values())
+    before = ledger.read()
+    metrics = []
+    rng = np.random.default_rng(0)
+    for _ in range(epochs):
+        state, _ = cx_engine.train_epoch(
+            step, state, feats, arrays, batch_size, rng=rng, q_table=q,
+            z_table=z, print_freq=1,
+            log_fn=lambda b, m: metrics.append((m["loss"], m["recall"])))
+    torch.cuda.synchronize()
+    launches = [a - b for a, b in zip(ledger.read(), before)]
+    return state, metrics, step, launches
+
+
+def test_captured_cx_train_step_equals_eager(dev, monkeypatch):
+    import copy
+
+    monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
+    model, arrays, tables = _tiny_cx(dev)
+    assert model.wants_table_features()
+    eager_model = copy.deepcopy(model)
+    s_cap, m_cap, step_cap, n_cap = _cx_run(model, arrays, tables, None)
+    s_eag, m_eag, step_eag, n_eag = _cx_run(eager_model, arrays, tables,
+                                            False)
+    assert step_cap.graphed.capture and not step_eag.graphed.capture
+    assert step_cap.graphed.n_graphs == 1   # one layout: the last batch
+    assert s_cap.step == s_eag.step == 6    # is padded to B
+    assert m_cap == m_eag and all(np.isfinite(m[0]) for m in m_cap)
+    # the launch counters count the steps' kernels, replays included
+    assert n_cap == n_eag and max(n_cap) >= 6
+    _assert_same_training(model, s_cap.optimizer, eager_model,
+                          s_eag.optimizer)
+
+
+def test_captured_cx_eval_step_equals_eager(dev, monkeypatch):
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+    monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
+    lesioned = dict(CX_SPEC, v_rank=False)    # lesion placeholders drawn
+    model, arrays, (feats, q, _, z) = _tiny_cx(dev)
+    for spec in (CX_SPEC, lesioned):
+        model.model_spec = spec
+        results = [cx_engine.eval_model(
+            cx_engine.make_cx_eval_step(model, use_z_cache=True,
+                                        capture=capture),
+            feats, arrays, 16, q_table=q, z_table=z)
+            for capture in (None, False)]
+        assert results[0] == results[1]
+        assert 0.0 <= results[0]["recall_1"] <= results[0]["recall"] <= 1.0
+
+
+def _tiny_vqa(dev, arch):
+    """A small MutanNoAtt or MutanAtt on the card and 36 synthetic
+    examples (B 8: four full batches and a short one of 4)."""
+    import os
+
+    from vqa_counterexamples_tpu_torch.core import config as config_lib
+    from vqa_counterexamples_tpu_torch.data import synthetic
+    from vqa_counterexamples_tpu_torch.data.vqa_dataset import VQAArrays
+    from vqa_counterexamples_tpu_torch.engines import vqa_engine
+    from vqa_counterexamples_tpu_torch.models import factory
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    name = "mutan_att_train.yaml" if arch == "att" else \
+        "mutan_noatt_train.yaml"
+    opt = config_lib.load_options_file(
+        os.path.join(repo, "configs", "vqa2", name))["model"]
+    opt["seq2vec"].update(emb_size=16, hidden_size=48)
+    if arch == "att":
+        opt.update(dim_v=24, dim_q=48)
+        opt["attention"].update(dim_hv=20, dim_hq=20, dim_mm=18, R=3)
+        opt["fusion"].update(dim_hv=40, dim_hq=20, dim_mm=18, R=3)
+        dim_v = 24
+    else:
+        opt["fusion"].update(dim_v=24, dim_q=48, dim_hv=24, dim_hq=24,
+                             dim_mm=24, R=3)
+        dim_v = 24
+    examples, store, words, answers = synthetic.make_synthetic_vqa(
+        36, 30, 10, dim_v=dim_v, spatial=arch == "att", seed=2)
+    model = factory.factory_vqa(opt, words, answers)
+    vqa_engine.init_vqa_params(model, seed=4)
+    return model.to(dev), VQAArrays(examples, store, samplingans=True)
+
+
+@pytest.mark.parametrize("arch", ["noatt", "att"])
+def test_captured_vqa_train_step_equals_eager(dev, monkeypatch, arch):
+    import copy
+
+    from vqa_counterexamples_tpu_torch.engines import vqa_engine
+
+    monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
+    model, arrays = _tiny_vqa(dev, arch)
+    feats = arrays.store.to_device(dev) if arch == "noatt" else None
+    runs = []
+    for capture, m in ((None, model), (False, copy.deepcopy(model))):
+        state = vqa_engine.init_vqa_state(m, lr=1e-3)
+        step = vqa_engine.make_vqa_train_step(m, state.optimizer,
+                                              base_seed=7, capture=capture)
+        rng = np.random.default_rng(1)
+        metrics = []
+        for _ in range(2):
+            for batch in arrays.batches(8, rng=rng, device_features=feats,
+                                        device=dev):
+                state, out = step(state, batch)
+                metrics.append([float(out[k]) for k in
+                                ("loss", "acc1", "acc5")])
+        runs.append((m, state, step, metrics))
+    (m_cap, s_cap, step_cap, met_cap), (m_eag, s_eag, _, met_eag) = runs
+    assert step_cap.graphed.n_graphs == 2   # B 8 and the short B 4
+    assert s_cap.step == s_eag.step == 10
+    assert met_cap == met_eag and np.isfinite(met_cap).all()
+    _assert_same_training(m_cap, s_cap.optimizer, m_eag, s_eag.optimizer)
+
+
+def test_port_embedding_backward_reruns_bit_equal(dev):
+    """The word embedding's backward at a MutanNoAtt batch's 13,312 ids
+    over a small vocabulary (most of them padding): the port's lookup
+    (``models/seq2vec.embedding``) gives the same bits on every call, and
+    both paths equal the f64 sums to f32 rounding: the padding row sums
+    some 9,500 N(0, 1) rows (|sum| ~ 100), and two f32 summation orders
+    differ there by ~2e-4."""
+    from vqa_counterexamples_tpu_torch.models import seq2vec
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn(81, 620, generator=gen, device=dev)
+    ids = torch.randint(0, 81, (512, 26), generator=gen, device=dev)
+    ids[:, 8:] = 0
+    cot = torch.randn(512, 26, 620, generator=gen, device=dev)
+    grads = {}
+    for name, fn in (("port", seq2vec.embedding),
+                     ("default", torch.nn.functional.embedding)):
+        grads[name] = []
+        for _ in range(5):
+            t = table.clone().requires_grad_(True)
+            fn(ids, t).backward(cot)
+            grads[name].append(t.grad)
+    assert all(torch.equal(g, grads["port"][0]) for g in grads["port"])
+    exact = torch.zeros(81, 620, dtype=torch.float64, device=dev).index_add_(
+        0, ids.flatten(), cot.reshape(-1, 620).double())
+    for name in grads:
+        torch.testing.assert_close(grads[name][0].double(), exact, rtol=0,
+                                   atol=1e-3)
+
+
+def test_captured_masks_depend_on_seed_step_name_only(dev):
+    """Every mask consumer of a step (the GRU's variational masks, the
+    scorer's keep-masks, the lesion placeholders) drawn inside a graph from
+    registered generators reseeded before each replay: bit-equal to the
+    draws of freshly seeded eager generators at steps 0-3, again at step 2
+    after them (a restore), and whatever the replay count."""
+    from vqa_counterexamples_tpu_torch.core import graphs, rng
+    from vqa_counterexamples_tpu_torch.ops import rnn
+
+    gens = rng.StepGenerators(("dropout", "lesion"), dev)
+    out = {}
+
+    def draws(dropout, lesion):
+        mx, mh = rnn.variational_masks(dropout, 0.25, 5, 7, 9)
+        keep, _ = rng.keep_mask((5, 6, 11), 0.75, dropout)
+        place = torch.rand((5, 6), generator=lesion, device=dev)
+        return mx, mh, keep, place
+
+    def body(inputs):
+        got = draws(gens["dropout"], gens["lesion"])
+        if not out:
+            out.update(bufs=[torch.empty_like(t) for t in got])
+        for buf, t in zip(out["bufs"], got):
+            buf.copy_(t)
+        return {"x": inputs["x"].sum()}
+
+    run = graphs.GraphedStep(body, dev, generators=gens)
+    for step in (0, 1, 2, 3, 2, 0):
+        run({"x": np.ones(3, np.float32)}, seed=11, step=step)
+        fresh = rng.step_generators(11, step, ("dropout", "lesion"), dev)
+        want = draws(fresh["dropout"], fresh["lesion"])
+        torch.cuda.synchronize()
+        for buf, ref in zip(out["bufs"], want):
+            assert torch.equal(buf, ref), step
+    assert run.n_graphs == 1
+
+
+def test_resume_after_captured_epoch_continues_as_eager(dev, monkeypatch,
+                                                        tmp_path):
+    """An epoch of captured steps, a checkpoint, a fresh state resumed
+    from it (``load_cx_checkpoint``) and an epoch more, against the same
+    through eager steps; and the state the captured step trained, loaded
+    in place: the Adam tensors move, the step captures again and goes on
+    as the eager run does."""
+    import copy
+
+    from vqa_counterexamples_tpu_torch.core import checkpoint as ckpt_lib
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+    monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
+    model, arrays, (feats, q, _, z) = _tiny_cx(dev)
+    start = copy.deepcopy(model)
+    finals = []
+    for capture in (None, False):
+        save_dir = str(tmp_path / str(capture))
+        m = copy.deepcopy(start)
+        state = cx_engine.init_cx_state(m, lr=1e-3)
+        step = cx_engine.make_cx_train_step(m, state.optimizer,
+                                            use_z_cache=True,
+                                            capture=capture)
+        state, _ = cx_engine.train_epoch(step, state, feats, arrays, 16,
+                                         rng=np.random.default_rng(0),
+                                         q_table=q, z_table=z)
+        ckpt_lib.save_cx_checkpoint(state, [{"recall": 0.5}], save_dir)
+        resumed = cx_engine.init_cx_state(copy.deepcopy(start), lr=1e-3)
+        resumed, _, epoch, _ = ckpt_lib.load_cx_checkpoint(resumed,
+                                                           save_dir)
+        assert epoch == 2 and resumed.step == 3
+        step2 = cx_engine.make_cx_train_step(resumed.model,
+                                             resumed.optimizer,
+                                             use_z_cache=True,
+                                             capture=capture)
+        resumed, _ = cx_engine.train_epoch(step2, resumed, feats, arrays, 16,
+                                           rng=np.random.default_rng(1),
+                                           q_table=q, z_table=z)
+        # the first state, reloaded in place under its captured step
+        before = [t.data_ptr() for t in _adam_tensors(state.optimizer)]
+        ckpt_lib.load_cx_checkpoint(state, save_dir)
+        assert before != [t.data_ptr() for t in
+                          _adam_tensors(state.optimizer)]
+        state, _ = cx_engine.train_epoch(step, state, feats, arrays, 16,
+                                         rng=np.random.default_rng(1),
+                                         q_table=q, z_table=z)
+        torch.cuda.synchronize()
+        finals.append((resumed, state))
+    (res_cap, again_cap), (res_eag, again_eag) = finals
+    for a, b in ((res_cap, res_eag), (again_cap, again_eag),
+                 (res_cap, again_cap)):
+        assert a.step == b.step == 6
+        _assert_same_training(a.model, a.optimizer, b.model, b.optimizer)

@@ -152,10 +152,11 @@ def test_port_cli_scores_synthetic(tmp_path, monkeypatch, dtype):
 
 
 def test_port_cli_refuses_training(tmp_path):
-    """Training runs now (tests/test_torch_train.py); the scanned trainer
-    (``--scan_steps > 1``) is what the port still refuses."""
+    """Training runs now (tests/test_torch_train.py), the scanned trainer
+    too (``--scan_steps``, tests/test_torch_scan.py); pairwise training
+    is what the port still refuses, before it trains anything."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_cli.main(["--cx_model", "NeuralModel", "--synthetic", "64",
-                       "--epochs", "1", "--scan_steps", "4", "--device",
-                       "cpu", "--project_dir", str(tmp_path),
+                       "--epochs", "1", "--scan_steps", "4", "--pairwise",
+                       "--device", "cpu", "--project_dir", str(tmp_path),
                        "--path_opt", _tiny_cli_options(tmp_path)])

@@ -11,11 +11,14 @@ recall@5, recall@1 and ``best_epoch`` to ``final_results.txt``::
         --cx_model NeuralModel --synthetic 2048 --z_cache --epochs 2 --test
 
 ``--resume <run>`` continues a run from its ``ckpt/`` (``--best``: from
-``best/``).  ``--epochs 0 --test`` only scores.  ``--scan_steps > 1``,
-``--pairwise``, ``--mesh``, ``--distributed``, ``--init_params``,
-``--viz`` and non-synthetic data raise ``NotImplementedError`` (see
-ROADMAP.md for when they come).  The device is ``cuda``; with no card
-visible the CLI refuses to run unless ``--device cpu`` is given.
+``best/``).  ``--epochs 0 --test`` only scores.  On a card the train and
+eval steps are captured CUDA graphs; ``--scan_steps S`` (S > 1) runs S
+train steps a call, as S replays of the captured step (eager steps on the
+CPU), with the results of S single steps.  ``--pairwise``, ``--mesh``,
+``--distributed``, ``--init_params``, ``--viz`` and non-synthetic data
+raise ``NotImplementedError`` (see ROADMAP.md for when they come).  The
+device is ``cuda``; with no card visible the CLI refuses to run unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -77,7 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "(example, candidate); needs a frozen backbone "
                              "and the q and v caches")
     parser.add_argument("--scan_steps", type=int, default=0,
-                        help="train steps per dispatch (training only)")
+                        help="train steps a call: S replays of the captured "
+                             "step (identical numerics); 0 = one step a "
+                             "call")
     parser.add_argument("--no_v_cache", action="store_true",
                         help="disable the precomputed per-image fusion "
                              "v-projection cache")
@@ -136,8 +141,6 @@ def main(argv=None):
     options = config_lib.resolve_options({}, args.path_opt, cli_overrides)
     options["vgenome"] = None
 
-    if args.scan_steps > 1:
-        _not_ported("--scan_steps > 1", "Queue 1: --scan_steps")
     for flag, item in (("pairwise", "Queue 1 #8"), ("mesh", "Queue 1 #12"),
                        ("distributed", "Queue 1 #12"),
                        ("init_params", "Queue 1: the msgpack bridge"),
@@ -231,6 +234,12 @@ def main(argv=None):
     train_step = cx_engine.make_cx_train_step(
         cx_model, state.optimizer, recall_k=5, base_seed=args.seed,
         use_z_cache=use_z_cache)
+    scan_step = None
+    if args.scan_steps > 1:
+        scan_step = cx_engine.make_cx_train_scan(train_step)
+        print("=> Scanned trainer: %d steps a call (%d replays of the "
+              "captured step on a card, eager steps on the CPU)"
+              % (args.scan_steps, args.scan_steps))
     eval_step = cx_engine.make_cx_eval_step(cx_model, recall_k=5,
                                             use_z_cache=use_z_cache)
 
@@ -255,7 +264,8 @@ def main(argv=None):
             train_step, state, features_train, train_arrays, batch_size,
             rng=rng, log_fn=log_fn, print_freq=args.print_freq,
             eval_fn=run_eval, eval_freq=args.eval_freq, q_table=q_train,
-            v_table=v_train, z_table=z_train)
+            v_table=v_train, z_table=z_train, scan_step=scan_step,
+            scan_len=args.scan_steps)
         for k, v in eval_results.items():
             val_writer.add_scalar(k, v, epoch)
         print("Epoch {} val: {}".format(

@@ -9,7 +9,10 @@ synthetic examples over 1024 images, B 768, random weights from
 up.  Then it times ``--epochs`` passes of ``train_epoch`` (dropout 0.25,
 Adam at 1e-4) and of ``eval_model`` over the 2048 examples on the host
 clock (synchronised at both ends), runs them again under
-``torch.profiler``, and reports per batch (3 batches a pass):
+``torch.profiler``, and reports per batch (3 batches a pass), for the
+steps the CLI runs (captured CUDA graphs: ``train_step``, ``eval_batch``)
+and beside them for the same steps run eagerly (``train_step_eager``,
+``eval_batch_eager``, each from its own copy of the starting state):
 
 - wall ms (unprofiled); of it, the host's ms until the last call returns
   (per batch) and the ms the card then still needs to drain its queue
@@ -17,8 +20,12 @@ clock (synchronised at both ends), runs them again under
 - the profiled wall ms;
 - device-busy ms: the union of the kernels' intervals;
 - the device's idle share of the profiled wall time;
-- kernel launches, and device time by kernel group (the port's CUDA
-  kernels by name, GEMMs, Adam, the rest) and by the top kernels.
+- kernel launches on the device, and the host's launch calls (kernel
+  launches, graph launches and copies issued through the CUDA runtime),
+  by name;
+- device time by kernel group (the port's CUDA kernels by name, GEMMs,
+  Adam, the rest) and by the top kernels;
+- ``torch.cuda.max_memory_allocated`` over the run.
 
 Needs a card: it refuses to run without one.  The JSON report goes to
 ``--out``.
@@ -27,6 +34,7 @@ Needs a card: it refuses to run without one.  The JSON report goes to
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -64,6 +72,12 @@ def _busy_ms(intervals) -> float:
     return total / 1e3
 
 
+# the host's calls that put work on the card's queue
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+
+
 def profile_calls(fn, calls: int, per_call: int) -> dict:
     """Time ``calls`` calls of ``fn`` unprofiled, then profile as many;
     numbers per batch (``per_call`` batches a call)."""
@@ -95,16 +109,27 @@ def profile_calls(fn, calls: int, per_call: int) -> dict:
                and not getattr(e, "is_user_annotation", False)]
     busy = _busy_ms((e.time_range.start, e.time_range.end)
                     for e in kernels) / steps
-    by_group, by_name = {}, {}
+    by_group, by_name, launches = {}, {}, {}
     for e in kernels:
+        launches[e.name] = launches.get(e.name, 0) + 1
         ms = (e.time_range.end - e.time_range.start) / 1e3 / steps
         by_group[_group(e.name)] = by_group.get(_group(e.name), 0.0) + ms
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    host = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.split("_v")[0] in HOST_LAUNCHES):
+            name = e.name.split("_v")[0]
+            host[name] = host.get(name, 0) + 1
     return {**timing, "wall_ms_profiled": wall_prof,
             "device_busy_ms": busy,
             "idle_share_profiled": 1.0 - busy / wall_prof,
             "launches": len(kernels) / steps,
+            "kernel_launches": launches,
+            "host_launches": sum(host.values()) / steps,
+            "host_launches_by_call": {k: v / steps for k, v in
+                                      sorted(host.items())},
             "device_ms_by_group": dict(sorted(by_group.items(),
                                               key=lambda kv: -kv[1])),
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
@@ -143,28 +168,36 @@ def main(argv=None):
     q, _, z, _ = cx_engine.build_frozen_caches(model, features, arrays)
     feats, q, _, z = cx_engine.make_tables_bf16_resident(features, q, None,
                                                          z)
-    state = cx_engine.init_cx_state(model, lr=1e-4)
-    train_step = cx_engine.make_cx_train_step(model, state.optimizer,
-                                              base_seed=args.seed,
-                                              use_z_cache=True)
-    eval_step = cx_engine.make_cx_eval_step(model, use_z_cache=True)
-    rng = np.random.default_rng(args.seed)
-
-    def train_pass():
-        cx_engine.train_epoch(train_step, state, feats, arrays, batch_size,
-                              rng=rng, q_table=q, z_table=z)
-
-    def eval_pass():
-        cx_engine.eval_model(eval_step, feats, arrays, batch_size,
-                             q_table=q, z_table=z)
-
-    for fn in (train_pass, eval_pass):
-        fn()
     per_pass = -(-arrays.size // batch_size)
     report = {"card": card, "batch_size": batch_size,
-              "examples": arrays.size, "passes": args.epochs,
-              "train_step": profile_calls(train_pass, args.epochs, per_pass),
-              "eval_batch": profile_calls(eval_pass, args.epochs, per_pass)}
+              "examples": arrays.size, "passes": args.epochs}
+    torch.cuda.reset_peak_memory_stats()
+    for suffix, capture in (("", None), ("_eager", False)):
+        m = copy.deepcopy(model)
+        state = cx_engine.init_cx_state(m, lr=1e-4)
+        train_step = cx_engine.make_cx_train_step(
+            m, state.optimizer, base_seed=args.seed, use_z_cache=True,
+            capture=capture)
+        eval_step = cx_engine.make_cx_eval_step(m, use_z_cache=True,
+                                                capture=capture)
+        rng = np.random.default_rng(args.seed)
+
+        def train_pass():
+            cx_engine.train_epoch(train_step, state, feats, arrays,
+                                  batch_size, rng=rng, q_table=q, z_table=z)
+
+        def eval_pass():
+            cx_engine.eval_model(eval_step, feats, arrays, batch_size,
+                                 q_table=q, z_table=z)
+
+        for fn in (train_pass, eval_pass):
+            fn()
+        report["train_step" + suffix] = profile_calls(train_pass,
+                                                      args.epochs, per_pass)
+        report["eval_batch" + suffix] = profile_calls(eval_pass,
+                                                      args.epochs, per_pass)
+    report["max_memory_allocated_mib"] = (torch.cuda.max_memory_allocated()
+                                          / 2 ** 20)
     out = json.dumps(report, indent=1)
     print(out)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

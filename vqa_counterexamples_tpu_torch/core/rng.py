@@ -1,10 +1,15 @@
 """Random streams for training (port of ``core/rng.py``).
 
 Every random draw of a step comes from an explicit ``torch.Generator``,
-one per consumer ("dropout", "lesion") per step, seeded from (seed, step,
-name): no global RNG, so a step's masks depend only on those three, and a
-resumed run redraws the masks it would have drawn.  Generators live on the
-device of the tensors they fill, so masks are drawn there.
+one per consumer ("dropout", "lesion"), seeded from (seed, step, name)
+before the step: no global RNG, so a step's masks depend only on those
+three, and a resumed run redraws the masks it would have drawn.
+Generators live on the device of the tensors they fill, so masks are drawn
+there.  A step keeps its generators (:class:`StepGenerators`) and reseeds
+them on the host before each call: a captured CUDA graph holds fixed
+generator objects, and a replay copies a registered generator's seed and
+offset into the graph in its prologue, so a replay draws what a freshly
+seeded generator draws eagerly.
 
 The JAX package draws with threefry (or the TPU's generator), this port
 with PyTorch's (Philox on the card): the two never give the same bits from
@@ -56,3 +61,22 @@ def step_generators(seed: int, step: int, names, device
         gen.manual_seed(stream_seed(seed, step, name))
         out[name] = gen
     return out
+
+
+class StepGenerators:
+    """One persistent generator per name on ``device``, reseeded from
+    (seed, step, name) before every step (:meth:`reseed`): the masks of a
+    step are those of :func:`step_generators` for the same three."""
+
+    def __init__(self, names, device):
+        self.gens = {name: torch.Generator(device=device) for name in names}
+
+    def __getitem__(self, name: str) -> torch.Generator:
+        return self.gens[name]
+
+    def values(self):
+        return self.gens.values()
+
+    def reseed(self, seed: int, step: int) -> None:
+        for name, gen in self.gens.items():
+            gen.manual_seed(stream_seed(seed, step, name))

@@ -15,6 +15,13 @@ and lesion draws come from generators seeded from (seed, step, name)
 (``core/rng``), so a run is reproducible and a resumed run redraws the
 same masks.  A step returns its metrics as 0-d device tensors: nothing in
 it waits for the card.
+
+On a card the train and eval steps are captured CUDA graphs
+(``core/graphs.GraphedStep``), as the JAX package jits them: a batch's
+index arrays and ``n_valid`` are copied into the step's own buffers and
+the graph is replayed.  ``make_cx_train_scan`` runs S steps a call (S
+replays), as JAX's ``lax.scan`` trainer runs S steps a dispatch.  On the
+CPU, or with ``capture=False``, the same step bodies run eagerly.
 """
 
 from __future__ import annotations
@@ -25,8 +32,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core import graphs
 from ..core import rng as rng_lib
 from ..data import vqacx
+from ..ops.cuda import launch_counters
 from ..ops.metrics import nll, recall_at_k
 
 
@@ -63,10 +72,13 @@ class CXTrainState:
 
 def init_cx_state(model, lr: float = 1e-4) -> CXTrainState:
     """Adam at ``lr`` with optax's defaults (betas 0.9 / 0.999, eps 1e-8)
-    over the trainable parameters only."""
+    over the trainable parameters only; ``capturable`` on a card (its
+    step count lives on the device, so a graph can replay the update), on
+    the CPU as torch builds it by default."""
     params = [p for _, p in trainable_parameters(model)]
     optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
-                                 eps=1e-8)
+                                 eps=1e-8,
+                                 capturable=_device(model).type == "cuda")
     return CXTrainState(model, optimizer, 0)
 
 
@@ -196,6 +208,12 @@ def batch_to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
+def step_inputs(batch: dict, n_valid) -> dict:
+    """A step's inputs: the batch's arrays (host arrays, or tensors) and
+    ``n_valid`` as a 0-d int32, which the step reads on the device."""
+    return {**batch, "n_valid": np.int32(int(n_valid))}
+
+
 def _model_inputs(model, features, batch, pass_table, q_table, v_table,
                   z_table):
     """(image_features, kwargs) for the model: the table form or the
@@ -214,26 +232,30 @@ def _valid_mask(comp, n_valid):
 
 
 def make_cx_train_step(model, optimizer, *, recall_k: int = 5,
-                       base_seed: int = 42, use_z_cache: bool = False):
+                       base_seed: int = 42, use_z_cache: bool = False,
+                       capture: bool | None = None):
     """Returns ``train_step(state, features, batch, n_valid, q_table=None,
     v_table=None, z_table=None)`` -> ``(state, metrics)``.
 
     One step: the model in training mode over the batch, loss =
     ``sum(CE(scores, comp) * mask) / n_valid`` (the reference's
     ``counterexamples.py:333-334``; ``n_valid`` masks the padded tail of
-    the last batch), one backward, one Adam step, and the recall@k hit
-    count.  ``metrics`` holds ``loss`` and ``correct`` as 0-d device
-    tensors and ``n`` as a float.  The dropout and lesion generators are
-    seeded from (``base_seed``, ``state.step``).
+    the last batch and is read on the device), one backward, one Adam
+    step, and the recall@k hit count.  ``batch`` holds the index arrays of
+    ``vqacx.gather_batch`` (numpy, or tensors).  ``metrics`` holds
+    ``loss`` and ``correct`` as 0-d device tensors and ``n`` as a float.
+    The dropout and lesion generators are seeded from (``base_seed``,
+    ``state.step``); ``state.step`` stays a host int.
 
-    Whether the model takes the feature table + row indices (the vfeat
-    kernels, which need the z cache) is resolved here, at build time."""
+    ``capture``: None captures the step as a CUDA graph on a card and runs
+    it eagerly on the CPU (``core/graphs``); False runs it eagerly
+    anywhere.  Whether the model takes the feature table + row indices
+    (the vfeat kernels, which need the z cache) is resolved here, at build
+    time."""
     pass_table = bool(use_z_cache and model.wants_table_features())
+    gens = rng_lib.StepGenerators(("dropout", "lesion"), _device(model))
 
-    def train_step(state: CXTrainState, features, batch, n_valid,
-                   q_table=None, v_table=None, z_table=None):
-        gens = rng_lib.step_generators(base_seed, state.step,
-                                       ("dropout", "lesion"), features.device)
+    def body(batch, features, q_table, v_table, z_table):
         model.train()
         image_features, kw = _model_inputs(model, features, batch,
                                            pass_table, q_table, v_table,
@@ -242,22 +264,63 @@ def make_cx_train_step(model, optimizer, *, recall_k: int = 5,
                        batch["answer_aids"], dropout_gen=gens["dropout"],
                        lesion_gen=gens["lesion"], **kw)
         comp = batch["comp_idxs"]
-        mask = _valid_mask(comp, n_valid)
-        loss = torch.sum(nll(scores, comp) * mask) / n_valid
+        mask = _valid_mask(comp, batch["n_valid"])
+        loss = (torch.sum(nll(scores, comp) * mask)
+                / batch["n_valid"].float())
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()
-        state.step += 1
         k = min(recall_k, scores.shape[-1])
         hits = recall_at_k(scores.detach(), comp, k=k) * mask
-        return state, {"loss": loss.detach(), "correct": torch.sum(hits),
-                       "n": float(n_valid)}
+        return {"loss": loss.detach(), "correct": torch.sum(hits)}
 
+    run = graphs.GraphedStep(body, _device(model), generators=gens,
+                             optimizer=optimizer, capture=capture,
+                             counters=launch_counters().values())
+
+    def train_step(state: CXTrainState, features, batch, n_valid,
+                   q_table=None, v_table=None, z_table=None):
+        metrics = run(step_inputs(batch, n_valid),
+                      (features, q_table, v_table, z_table),
+                      seed=base_seed, step=state.step)
+        state.step += 1
+        metrics["n"] = float(n_valid)
+        return state, metrics
+
+    train_step.graphed = run
     return train_step
 
 
+def make_cx_train_scan(train_step):
+    """Multi-step trainer (JAX's ``make_cx_train_scan``):
+    ``train_scan(state, features, batches, n_valids, q_table=None,
+    v_table=None, z_table=None)`` runs S train steps in one call.
+
+    ``batches`` holds the S host batches, ``n_valids`` their S valid
+    counts.  The steps are S calls of ``train_step`` (a
+    :func:`make_cx_train_step`): S replays of its captured graph on a card,
+    the generators reseeded from (``base_seed``, ``state.step``) before
+    each, so the result is that of S single steps.  Metrics come back
+    stacked, one row per step."""
+
+    def train_scan(state: CXTrainState, features, batches, n_valids,
+                   q_table=None, v_table=None, z_table=None):
+        rows = []
+        for batch, n_valid in zip(batches, n_valids):
+            state, m = train_step(state, features, batch, n_valid,
+                                  q_table=q_table, v_table=v_table,
+                                  z_table=z_table)
+            rows.append(m)
+        return state, {"loss": torch.stack([m["loss"] for m in rows]),
+                       "correct": torch.stack([m["correct"] for m in rows]),
+                       "n": np.asarray([m["n"] for m in rows], np.float32)}
+
+    return train_scan
+
+
 def make_cx_eval_step(model, *, recall_k: int = 5, base_seed: int = 123,
-                      use_z_cache: bool = False):
+                      use_z_cache: bool = False,
+                      capture: bool | None = None):
     """Returns ``eval_step(features, batch, n_valid, step, q_table=None,
     v_table=None, z_table=None)`` -> summed CE loss and recall@K / @1 hit
     counts over the first ``n_valid`` rows, as 0-d device tensors.  The
@@ -265,16 +328,15 @@ def make_cx_eval_step(model, *, recall_k: int = 5, base_seed: int = 123,
     lesion generator (the reference draws its placeholders in eval too) is
     seeded from (``base_seed``, ``step``), the batch's index in the pass.
 
-    Whether the model takes the feature table + row indices (the
-    candidate image-feature kernel, which needs the z cache) is resolved
-    here, at build time."""
+    ``capture`` as in :func:`make_cx_train_step`: a graph per batch
+    layout and table set.  Whether the model takes the feature table + row
+    indices (the candidate image-feature kernel, which needs the z cache)
+    is resolved here, at build time."""
     pass_table = bool(use_z_cache and model.wants_table_features())
+    gens = rng_lib.StepGenerators(("lesion",), _device(model))
 
     @torch.no_grad()
-    def eval_step(features, batch, n_valid, step, q_table=None,
-                  v_table=None, z_table=None):
-        gens = rng_lib.step_generators(base_seed, step, ("lesion",),
-                                       features.device)
+    def body(batch, features, q_table, v_table, z_table):
         model.eval()
         image_features, kw = _model_inputs(model, features, batch,
                                            pass_table, q_table, v_table,
@@ -282,12 +344,23 @@ def make_cx_eval_step(model, *, recall_k: int = 5, base_seed: int = 123,
         scores = model(image_features, batch["question_wids"],
                        batch["answer_aids"], lesion_gen=gens["lesion"], **kw)
         comp = batch["comp_idxs"]
-        mask = _valid_mask(comp, n_valid)
+        mask = _valid_mask(comp, batch["n_valid"])
         k = min(recall_k, scores.shape[-1])
         return {"loss_sum": torch.sum(nll(scores, comp) * mask),
                 "correct": torch.sum(recall_at_k(scores, comp, k=k) * mask),
                 "correct1": torch.sum(recall_at_k(scores, comp, k=1) * mask)}
 
+    run = graphs.GraphedStep(body, _device(model), generators=gens,
+                             capture=capture,
+                             counters=launch_counters().values())
+
+    def eval_step(features, batch, n_valid, step, q_table=None,
+                  v_table=None, z_table=None):
+        return run(step_inputs(batch, n_valid),
+                   (features, q_table, v_table, z_table), seed=base_seed,
+                   step=step)
+
+    eval_step.graphed = run
     return eval_step
 
 
@@ -296,18 +369,20 @@ def eval_model(eval_step, features, arrays: vqacx.CXArrays,
                z_table=None) -> dict:
     """Full-dataset eval -> {'loss', 'recall', 'recall_1'}.  The per-batch
     sums stay on the device; one synchronisation at the end."""
+    keys = ("loss_sum", "correct", "correct1")
     sums = []
     n_total = 0
     for step, (idx, n_valid) in enumerate(vqacx.batch_indices(
             arrays.size, batch_size, shuffle=False)):
-        batch = batch_to_device(vqacx.gather_batch(arrays, idx),
-                                features.device)
-        sums.append(eval_step(features, batch, n_valid, step,
-                              q_table=q_table, v_table=v_table,
-                              z_table=z_table))
+        out = eval_step(features, vqacx.gather_batch(arrays, idx), n_valid,
+                        step, q_table=q_table, v_table=v_table,
+                        z_table=z_table)
+        sums.append(torch.stack([out[k] for k in keys]))
         n_total += n_valid
-    totals = {key: float(sum(s[key] for s in sums).item())
-              for key in ("loss_sum", "correct", "correct1")}
+    # f32 sums in batch order, as the JAX engine adds its batches' sums
+    rows = torch.stack(sums).cpu().numpy()
+    totals = {k: float(sum(rows[:, i], np.float32(0)))
+              for i, k in enumerate(keys)}
     return {"loss": totals["loss_sum"] / n_total,
             "recall": totals["correct"] / n_total,
             "recall_1": totals["correct1"] / n_total}
@@ -317,28 +392,30 @@ def train_epoch(train_step, state: CXTrainState, features,
                 arrays: vqacx.CXArrays, batch_size: int, *, rng=None,
                 log_fn=None, print_freq: int = 100, eval_fn=None,
                 eval_freq: int = -1, q_table=None, v_table=None,
-                z_table=None):
+                z_table=None, scan_step=None, scan_len: int = 0):
     """One epoch over shuffled batches (reference counterexamples.py:
     312-361) -> ``(state, eval_results)``.
 
     ``log_fn(step_in_epoch, metrics)`` fires every ``print_freq`` batches
     (and synchronises, to read the loss); ``eval_fn(state)`` fires every
     ``eval_freq`` batches and at the end of the epoch, and its last result
-    is returned.  The batch order comes from the numpy ``rng``."""
+    is returned.  The batch order comes from the numpy ``rng``.
+
+    ``scan_step`` / ``scan_len``: a :func:`make_cx_train_scan` trainer
+    over ``train_step``; full groups of ``scan_len`` batches go to it in
+    one call, a short final group runs as single steps, as the JAX engine
+    groups them.  The hooks then fire once per group, at the group's last
+    batch, with its last step's metrics."""
     rng = rng or np.random.default_rng()
     n_batches = (arrays.size + batch_size - 1) // batch_size
     eval_results = None
     t0 = time.time()
     n_seen = 0
-    for b, (idx, n_valid) in enumerate(
-            vqacx.batch_indices(arrays.size, batch_size, shuffle=True,
-                                rng=rng), start=1):
-        batch = batch_to_device(vqacx.gather_batch(arrays, idx),
-                                features.device)
-        state, metrics = train_step(state, features, batch, n_valid,
-                                    q_table=q_table, v_table=v_table,
-                                    z_table=z_table)
-        n_seen += n_valid
+    use_scan = scan_step is not None and scan_len > 1
+    pending = []   # (batch, n_valid) held for the next scan call
+
+    def fire_hooks(b, metrics, n_valid):
+        nonlocal eval_results
         if log_fn is not None and b % print_freq == 0:
             log_fn(b, {"loss": float(metrics["loss"]),
                        "recall": float(metrics["correct"]) / n_valid,
@@ -346,4 +423,29 @@ def train_epoch(train_step, state: CXTrainState, features,
         if eval_fn is not None and ((eval_freq > 0 and b % eval_freq == 0)
                                     or b == n_batches):
             eval_results = eval_fn(state)
+
+    tables = dict(q_table=q_table, v_table=v_table, z_table=z_table)
+    for b, (idx, n_valid) in enumerate(
+            vqacx.batch_indices(arrays.size, batch_size, shuffle=True,
+                                rng=rng), start=1):
+        batch = vqacx.gather_batch(arrays, idx)
+        n_seen += n_valid
+        if not use_scan:
+            state, metrics = train_step(state, features, batch, n_valid,
+                                        **tables)
+            fire_hooks(b, metrics, n_valid)
+            continue
+        pending.append((batch, n_valid))
+        if len(pending) < scan_len and b < n_batches:
+            continue
+        if len(pending) == scan_len:
+            state, ms = scan_step(state, features, [p[0] for p in pending],
+                                  [p[1] for p in pending], **tables)
+            metrics = {k: v[-1] for k, v in ms.items()}
+        else:   # the final short group: single steps
+            for pbatch, pnv in pending:
+                state, metrics = train_step(state, features, pbatch, pnv,
+                                            **tables)
+        pending = []
+        fire_hooks(b, metrics, n_valid)
     return state, eval_results

@@ -9,7 +9,10 @@ device tensors: nothing in a step waits for the card.  ``train_epoch``
 reads them in bulk at print time and at the end of the epoch, in step
 order, so the meters hold what the JAX engine's per-step reads would.
 Each step's dropout masks come from a generator seeded from (seed, step,
-"dropout") (``core/rng``).
+"dropout") (``core/rng``).  On a card the train step is a captured CUDA
+graph (``core/graphs.GraphedStep``), as the JAX package jits it: the
+batch is copied into the step's own buffers and the graph replayed, one
+graph per batch shape.  The eval and predict steps run eagerly.
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core import graphs
 from ..core import rng as rng_lib
+from ..ops.cuda import launch_counters
 from ..ops.metrics import accuracy_topk, cross_entropy_mean
 
 
@@ -43,9 +48,11 @@ def init_vqa_params(model: torch.nn.Module, seed: int = 42
 
 def init_vqa_state(model, lr: float = 1e-4) -> VQATrainState:
     """Adam at ``lr`` with optax's defaults (betas 0.9 / 0.999, eps 1e-8)
-    over all parameters."""
+    over all parameters; ``capturable`` on a card, as in
+    ``cx_engine.init_cx_state``."""
     optimizer = torch.optim.Adam(model.parameters(), lr=lr,
-                                 betas=(0.9, 0.999), eps=1e-8)
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 capturable=_device(model).type == "cuda")
     return VQATrainState(model, optimizer, 0)
 
 
@@ -69,16 +76,22 @@ def _device(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def make_vqa_train_step(model, optimizer, base_seed: int = 42):
+def make_vqa_train_step(model, optimizer, base_seed: int = 42, *,
+                        capture: bool | None = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``: the model in
     training mode over the batch, the mean CE, one backward, one Adam
     step; ``metrics`` holds ``loss``, ``acc1``, ``acc5`` as 0-d device
-    tensors."""
-    def train_step(state: VQATrainState, batch: dict):
-        device = _device(model)
-        b = batch_to_device(batch, device)
-        gens = rng_lib.step_generators(base_seed, state.step, ("dropout",),
-                                       device)
+    tensors.  ``batch``'s ``visual`` may be a host array or a tensor
+    already on the card (it is copied into the step's buffer either way),
+    ``question`` and ``answer`` host arrays.  The dropout generator is
+    seeded from (``base_seed``, ``state.step``).
+
+    ``capture``: None captures the step as a CUDA graph on a card (one
+    per batch shape) and runs it eagerly on the CPU; False runs it
+    eagerly anywhere."""
+    gens = rng_lib.StepGenerators(("dropout",), _device(model))
+
+    def body(b):
         model.train()
         output = model(b["visual"], b["question"], training=True,
                        generator=gens["dropout"])
@@ -86,10 +99,20 @@ def make_vqa_train_step(model, optimizer, base_seed: int = 42):
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()
-        state.step += 1
         acc1, acc5 = accuracy_topk(output.detach(), b["answer"], (1, 5))
-        return state, {"loss": loss.detach(), "acc1": acc1, "acc5": acc5}
+        return {"loss": loss.detach(), "acc1": acc1, "acc5": acc5}
 
+    run = graphs.GraphedStep(body, _device(model), generators=gens,
+                             optimizer=optimizer, capture=capture,
+                             counters=launch_counters().values())
+
+    def train_step(state: VQATrainState, batch: dict):
+        metrics = run({k: batch[k] for k in ("visual", "question", "answer")},
+                      seed=base_seed, step=state.step)
+        state.step += 1
+        return state, metrics
+
+    train_step.graphed = run
     return train_step
 
 

@@ -121,11 +121,15 @@ def _carry_adam(opt_state, model, optimizer, to_state_dict) -> None:
     mu = to_state_dict(adam.mu)
     nu = to_state_dict(adam.nu)
     step = float(np.asarray(adam.count))
+    # a capturable Adam keeps its step count beside the parameter
+    capturable = optimizer.defaults.get("capturable", False)
     for name, param in model.named_parameters():
         if name not in mu:
             continue
         optimizer.state[param] = {
-            "step": torch.tensor(step, dtype=torch.float32),
+            "step": torch.tensor(step, dtype=torch.float32,
+                                 device=param.device if capturable
+                                 else None),
             "exp_avg": mu[name].to(param.device, param.dtype),
             "exp_avg_sq": nu[name].to(param.device, param.dtype)}
 
