@@ -82,18 +82,49 @@ ends the run with a nonzero exit and no result line.
    --json-out ...])`` through the kernel, counted; a 1024-query sample of
    its output held against ``knn_chunk_plain``; the build's seconds.
 
+10. The trainable backbone at ``configs/cx/neuralcx_trainable_vqa.yaml``'s
+   width, built through ``core/config.resolve_options`` and the factory
+   (NeuralCX 1024 x 3, drop_p 0.25, over MutanNoAtt: dim_v 2048,
+   BayesianUniSkip 620 -> 2400 with per-gate masks at 0.25, MUTAN R 10 at
+   360 with dropout_v / dropout_q 0.5, classifier dropout 0.5, 2000
+   answers; the phase-2 data, B 768, Adam at 1e-4 over every parameter,
+   no cache): 1 epoch with an eval, counted (per train step the per-gate
+   GRU forward, its backward and MUTAN once each, per eval batch the GRU
+   forward once); every loss finite; one step's gradients of every
+   parameter, the backbone's included, through the kernels against the
+   plain versions with dropout on and the same masks (within the larger
+   of 5e-2 and twice the plain bf16 path's own distance from the f32
+   policy's gradients, logged); an epoch of captured steps against eager
+   ones from one starting state and the eval pass both ways (bit-equal);
+   the ms a step and an eval batch of each, as in phase 3.
+11. The CX zoo: one LinearContext, one PairwiseModel (on a pairwise view,
+   K 2) and one contrastive train step at the flagship backbone's width
+   over the phase-2 data, B 768, the q / v caches on, two captured steps
+   against two eager ones each (bit-equal); then
+   ``cli.counterexamples.main([... --synthetic 2048 --epochs 1 --test -b
+   768])`` for every other model of ``cx_model_names`` (SemanticBaseline
+   with ``--sb_lambda 0.5``, PairwiseModel with ``--pairwise``;
+   ContrastiveModel must raise ``ValueError`` there, as in JAX's CLI): the
+   files, finite results, ``acc_pairwise`` where pairwise, ``best_epoch``,
+   and the GRU forward's counter moving in every q-cache build; then
+   ``cli.contrastive.main([... --synthetic 2048 --epochs 1 -b 768])``.
+
 Phase 1 also holds the folded MUTAN kernels (forward and backward, each
 with a bit-equal rerun) at MutanAtt's attention shape, the kNN kernel at
 the builder's, the GRU forward at the val batches' shapes (B 512 and B
 128, no mask) and the per-gate forward and the backward at MutanAtt's
-batch (B 128), and MUTAN at MutanAtt's classifier shape (with a bit-equal
-rerun, as at B 512); every GRU forward row
-logs the tile it launches with.  Phases 3-5 and 7 log the peak of
-allocated device memory.  It prints the card's
+batch (B 128), the per-gate forward, the no-mask forward and the
+backward at the trainable CX step's B 768 and B 64, and MUTAN at
+MutanAtt's classifier shape and over the trainable step's 19,200
+duplicated rows (each with a bit-equal rerun, as at B 512); every GRU
+forward row
+logs the tile it launches with.  Phases 3-5, 7, 10 and 11 log the peak
+of allocated device memory.  It prints the card's
 name and power limit, a ``{"kernels": [...]}`` line and, last, ``{"ok":
 true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -137,6 +168,12 @@ TOL = {
     # 26 bf16 GRU steps each way, where one rounding flip of a state
     # propagates; the repo's bf16 bound (tests/test_pallas_gru.py)
     "pretrain_grads_rel": 5e-2,
+    # the trainable CX step's grads, kernel path vs plain path: where the
+    # plain bf16 path is itself far from the f32 policy's grads (a sum of
+    # many bf16 softmax-Jacobian terms that cancel, as in the answer
+    # head's weight), the two bf16 paths may differ by up to twice that
+    # distance; a kernel fault shows beyond it
+    "own_bf16": 2.0,
     # folded MUTAN forward: bf16 outputs of f32 sums of the same exact
     # products in another order (|out| ~ 3: one bf16 step either way)
     "attmutan": dict(atol=1e-2, rtol=8e-3),
@@ -172,6 +209,8 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 ATT_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "configs", "vqa2", "mutan_att_train.yaml")
+TRAINABLE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "configs", "cx", "neuralcx_trainable_vqa.yaml")
 
 
 def log(*args):
@@ -572,24 +611,43 @@ def pretrain_kernel_rows(dev, gen, randn):
     rows["gru_bwd_att"] = gru_bwd_row("gru_bwd B128", randn, xp, w_hh, mask,
                                       s1, h1)
     del xp, s1, h1, mask
-    B, DH, R, DMM = 512, 360, 10, 360
-    xv, xq = randn(B, DH), randn(B, DH)
+    # the trainable CX step's batches (B 768 here, the CLI's default B 64):
+    # its per-gate forward and backward, its eval batch's forward
+    for B in (768, 64):
+        xp = randn(T, B, 3 * H)
+        keep = torch.rand(3, B, H, generator=gen, device=dev) < 0.75
+        mask = (keep * (256.0 / 192)).to(torch.bfloat16)
+        rows["gru_pg_b%d" % B] = gru_fwd_row("gru_pg B%d" % B, xp, w_hh,
+                                             b_hh, mask, True)
+        rows["gru_b%d" % B] = gru_fwd_row("gru B%d" % B, xp, w_hh, b_hh,
+                                          None, False)
+        s1, h1 = gru_kernel.gru_recurrence(xp, w_hh, b_hh, mask,
+                                           want_hproj=True)
+        rows["gru_bwd_b%d" % B] = gru_bwd_row("gru_bwd B%d" % B, randn, xp,
+                                              w_hh, mask, s1, h1)
+        del xp, s1, h1, mask
+    DH, R, DMM = 360, 10, 360
     wv, wq = (randn(R * DMM, DH, scale=DH ** -0.5) for _ in range(2))
     bv, bq = (randn(R * DMM, scale=0.1, dtype=torch.float32)
               for _ in range(2))
-    args = (xv, xq, wv, bv, wq, bq, R)
-    first = mutan_kernel.tucker_fusion(*args)
-    err = check_close("mutan", first,
-                      mutan_kernel.tucker_fusion_plain(*args), TOL["mutan"])
-    check_rerun("mutan", first, mutan_kernel.tucker_fusion(*args))
-    rows["mutan"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: mutan_kernel.tucker_fusion(*args), reps=20),
-        plain_ms=time_ms(lambda: mutan_kernel.tucker_fusion_plain(*args),
-                         reps=20),
-        work=(2 * B * R * DMM * 2 * DH,
-              2 * B * DH * 2 + 2 * R * DMM * DH * 2 + 2 * R * DMM * 4
-              + B * DMM * 4))
+    # MutanNoAtt's batch, and the trainable CX step's duplicated fusion
+    # over B 768 x 25 candidates (logged outside the kernels line)
+    for name, B in (("mutan", 512), ("mutan_b19200", 768 * 25)):
+        xv, xq = randn(B, DH), randn(B, DH)
+        args = (xv, xq, wv, bv, wq, bq, R)
+        first = mutan_kernel.tucker_fusion(*args)
+        err = check_close(name, first,
+                          mutan_kernel.tucker_fusion_plain(*args),
+                          TOL["mutan"])
+        check_rerun(name, first, mutan_kernel.tucker_fusion(*args))
+        rows[name] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: mutan_kernel.tucker_fusion(*args), reps=20),
+            plain_ms=time_ms(lambda: mutan_kernel.tucker_fusion_plain(
+                *args), reps=20),
+            work=(2 * B * R * DMM * 2 * DH,
+                  2 * B * DH * 2 + 2 * R * DMM * DH * 2 + 2 * R * DMM * 4
+                  + B * DMM * 4))
     return rows
 
 
@@ -1561,6 +1619,393 @@ def phase_knn(dev, card, n=82783):
     return launches
 
 
+def trainable_model(dataset, dev):
+    """NeuralCX over a trainable MutanNoAtt at
+    ``configs/cx/neuralcx_trainable_vqa.yaml``'s widths, built through
+    ``core/config.resolve_options`` and the factory, random weights from
+    the seed."""
+    from vqa_counterexamples_tpu_torch.core import config
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+    from vqa_counterexamples_tpu_torch.models import factory
+
+    options = config.resolve_options({}, TRAINABLE_CONFIG)
+    model = factory.cx_from_options("NeuralModel", options,
+                                    dataset["vocab_words"],
+                                    dataset["vocab_answers"])
+    if not model.trainable_vqa:
+        raise AssertionError("%s: trainable_vqa is off" % TRAINABLE_CONFIG)
+    return cx_engine.init_cx_params(model, seed=SEED).to(dev), options
+
+
+def trainable_grads(model, feats, batch, n_valid, plain, dtype="bfloat16"):
+    """One trainable step's loss and the gradients of every parameter, the
+    backbone's included (no update), dropout on, the masks from the step-0
+    generators: through the kernels, or with ``plain`` through their
+    plain versions; under the ``dtype`` policy (float32: no kernel, the
+    reference the two bf16 paths are measured from)."""
+    from vqa_counterexamples_tpu_torch.core import rng
+    from vqa_counterexamples_tpu_torch.ops.metrics import nll
+
+    gens = rng.step_generators(SEED, 0, ("dropout", "lesion"), feats.device)
+    model.zero_grad(set_to_none=True)
+    model.train()
+    os.environ["VQACX_COMPUTE_DTYPE"] = dtype
+    with plain_kernels() if plain else contextlib.nullcontext():
+        scores = model(feats[batch["image_idxs"].long()],
+                       batch["question_wids"], batch["answer_aids"],
+                       dropout_gen=gens["dropout"], lesion_gen=gens["lesion"])
+        mask = (torch.arange(scores.shape[0], device=scores.device)
+                < n_valid).float()
+        loss = torch.sum(nll(scores, batch["comp_idxs"]) * mask) / n_valid
+        loss.backward()
+    os.environ["VQACX_COMPUTE_DTYPE"] = "bfloat16"
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def phase_trainable(dev, card):
+    import copy
+
+    from vqa_counterexamples_tpu_torch.data import synthetic, vqacx
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+    log("== phase 10: the trainable backbone at neuralcx_trainable_vqa.yaml's "
+        "width")
+    torch.cuda.reset_peak_memory_stats()
+    batch_size = 768
+    dataset, store = synthetic.make_synthetic_cx(
+        n_examples=2048, n_images=1024, dim_v=2048, knn_size=24,
+        n_answers=2000, seed=SEED)
+    arrays = vqacx.CXArrays.from_examples(dataset["examples_list"],
+                                          dataset["name_to_index"])
+    val = vqacx.CXArrays(*(a[:batch_size] for a in arrays))
+    model, options = trainable_model(dataset, dev)
+    fus = options["model"]["fusion"]
+    log("  NeuralCX %d x %d (drop_p %.2f) over MutanNoAtt: dim_v %d, %s "
+        "%d -> %d (dropout %.2f), MUTAN R %d at %d (dropout_v %.1f, "
+        "dropout_q %.1f), classifier dropout %.1f, %d answers; %d "
+        "parameters, all trained"
+        % (model.dim_h, model.n_layers, model.drop_p, fus["dim_v"],
+           options["model"]["seq2vec"]["type"],
+           model.vqa_model.seq2vec.embedding.weight.shape[1],
+           model.vqa_model.seq2vec.gru_cell.hidden_size,
+           options["model"]["seq2vec"]["dropout"], fus["R"], fus["dim_mm"],
+           fus["dropout_v"], fus["dropout_q"],
+           options["model"]["classif"]["dropout"],
+           len(dataset["vocab_answers"]),
+           sum(p.numel() for p in model.parameters())))
+    features = store.to_device(dev)
+    start = copy.deepcopy(model)
+    state = cx_engine.init_cx_state(model, lr=options["optim"]["lr"])
+    if len(state.optimizer.param_groups[0]["params"]) != len(
+            list(model.parameters())):
+        raise AssertionError("Adam does not cover the backbone")
+    train_step = cx_engine.make_cx_train_step(model, state.optimizer,
+                                              base_seed=SEED)
+    eval_step = cx_engine.make_cx_eval_step(model)
+    losses, evals = [], []
+    torch.cuda.synchronize()
+
+    # --- the main path, counted ---
+    reset_counters()
+
+    def run_eval(_state):
+        evals.append(cx_engine.eval_model(eval_step, features, val,
+                                          batch_size))
+        return evals[-1]
+
+    state, res = cx_engine.train_epoch(
+        train_step, state, features, arrays, batch_size,
+        rng=np.random.default_rng(SEED),
+        log_fn=lambda b, m: losses.append(m["loss"]), print_freq=1,
+        eval_fn=run_eval)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    steps = state.step
+    eval_batches = len(evals) * -(-val.size // batch_size)
+    log("  1 epoch: val %s; %d steps, %d eval batches; launches: %s"
+        % (res, steps, eval_batches, launches))
+    want = {"gru": eval_batches, "gru_pg": steps, "gru_bwd": steps,
+            "vfeat": 0, "vfeat_bwd": 0, "mixture": 0, "mutan": steps,
+            "attmutan": 0, "attmutan_bwd": 0, "knn": 0}
+    if launches != want:
+        raise AssertionError("launch counts %s, expected %s"
+                             % (launches, want))
+    log("  losses: %s" % ["%.4f" % x for x in losses])
+    if (len(losses) != steps or not np.isfinite(losses).all()
+            or not np.isfinite(res["loss"])):
+        raise AssertionError("non-finite or missing losses %s, %s"
+                             % (losses, res))
+
+    # --- one step's grads: kernel path vs the plain versions, dropout on ---
+    idx, n_valid = next(vqacx.batch_indices(arrays.size, batch_size,
+                                            shuffle=False))
+    batch = cx_engine.batch_to_device(vqacx.gather_batch(arrays, idx), dev)
+    got = trainable_grads(model, features, batch, n_valid, plain=False)
+    ref = trainable_grads(model, features, batch, n_valid, plain=True)
+    f32 = trainable_grads(model, features, batch, n_valid, plain=True,
+                          dtype="float32")
+    model.zero_grad(set_to_none=True)
+
+    def rel(a, b):
+        return ((a - b).abs().max().item()
+                / max(b.abs().max().item(), 1e-30))
+
+    worst = (0.0, "", 0.0, 0.0)
+    # out.bias shifts all K scores alike, which the K-way CE cannot see:
+    # its gradient is 0 up to rounding on both paths
+    for name in (n for n in got if n != "out.bias"):
+        err, own = rel(got[name], ref[name]), rel(ref[name], f32[name])
+        bound_rel = max(TOL["pretrain_grads_rel"], TOL["own_bf16"] * own)
+        if err > worst[0]:
+            worst = (err, name, own, rel(got[name], f32[name]))
+        if not (torch.isfinite(got[name]).all() and err <= bound_rel):
+            raise AssertionError(
+                "grad %s: kernel path vs plain path, max error %.3e of the "
+                "largest entry (bound %.3e; the plain bf16 path vs f32: "
+                "%.3e)" % (name, err, bound_rel, own))
+    def cos(a, b):
+        return torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0).item()
+
+    cosines = [(cos(got[n], f32[n]), cos(ref[n], f32[n]), n) for n in got
+               if n != "out.bias"]
+    log("  gradient direction against the f32 policy's: the lowest cosine "
+        "similarity of a tensor's gradient, kernel path %.5f (%s), plain "
+        "path %.5f (%s)" % (min(cosines)[0], min(cosines)[2],
+                            min(cosines, key=lambda c: c[1])[1],
+                            min(cosines, key=lambda c: c[1])[2]))
+    n_backbone = sum(n.startswith("vqa_model.") for n in got)
+    noisy = {n: round(rel(ref[n], f32[n]), 4) for n in got
+             if n != "out.bias" and rel(ref[n], f32[n])
+             > TOL["pretrain_grads_rel"] / TOL["own_bf16"]}
+    log("  grads of %d tensors (%d of the backbone; dropout on): kernel "
+        "path vs plain path, worst max error %.3e of the largest entry (%s;"
+        " there the plain bf16 path is %.3e from the f32 policy's grads and "
+        "the kernel path %.3e); bound max(%g, %g x the plain path's own "
+        "distance from f32); tensors whose plain bf16 grads are more than "
+        "%g from f32: %s: ok"
+        % (len(got) - 1, n_backbone, worst[0], worst[1], worst[2], worst[3],
+           TOL["pretrain_grads_rel"], TOL["own_bf16"],
+           TOL["pretrain_grads_rel"] / TOL["own_bf16"], noisy))
+    del got, ref, f32
+
+    # --- captured vs eager from one starting state, and their ms ---
+    keys = ("loss", "correct")
+    runs = {}
+    for name, capture in (("captured", None), ("eager", False)):
+        m = copy.deepcopy(start)
+        st = cx_engine.init_cx_state(m, lr=options["optim"]["lr"])
+        step = cx_engine.make_cx_train_step(m, st.optimizer, base_seed=SEED,
+                                            capture=capture)
+        rows = []
+        st, _ = cx_engine.train_epoch(recorded(step, rows, keys), st,
+                                      features, arrays, batch_size,
+                                      rng=np.random.default_rng(SEED + 1))
+        runs[name] = (rows, m, st.optimizer, st, step)
+    hold_equal("trainable NeuralCX train, captured vs eager",
+               runs["captured"][:3], runs["eager"][:3])
+    evals = [cx_engine.eval_model(cx_engine.make_cx_eval_step(
+        runs["captured"][1], capture=capture), features, val, batch_size)
+        for capture in (None, False)]
+    log("  trainable NeuralCX eval, captured vs eager: %s vs %s"
+        % tuple(evals))
+    if evals[0] != evals[1]:
+        raise AssertionError("captured eval differs from eager")
+    per_pass = -(-arrays.size // batch_size)
+    seq_len = arrays.question_wids.shape[1]
+    for name in ("eager", "captured"):
+        _, m, _, st, step = runs[name]
+        rng = np.random.default_rng(SEED + 2)
+        step_profile("trainable NeuralCX train step, %s" % name,
+                     lambda: cx_engine.train_epoch(
+                         step, st, features, arrays, batch_size, rng=rng),
+                     2, per_pass, card, seq_len=seq_len)
+        eval_step = cx_engine.make_cx_eval_step(
+            m, capture=None if name == "captured" else False)
+        step_profile("trainable NeuralCX eval batch, %s" % name,
+                     lambda: cx_engine.eval_model(eval_step, features,
+                                                  arrays, batch_size),
+                     2, per_pass, card, seq_len=seq_len)
+    log("  phase 10: " + memory_line(card))
+    return launches
+
+
+class counted_cache_builds:
+    """Wrap ``cx_engine.build_frozen_caches``: every build that encodes
+    questions must move the GRU forward's launch counter."""
+
+    def __enter__(self):
+        from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+        self.builds = 0
+        self.saved = build = cx_engine.build_frozen_caches
+
+        def counted(model, features, arrays, *, use_q=True, **kw):
+            before = read_counters()["gru"]
+            out = build(model, features, arrays, use_q=use_q, **kw)
+            if use_q:
+                self.builds += 1
+                if read_counters()["gru"] <= before:
+                    raise AssertionError("a q-cache build launched no GRU "
+                                         "forward")
+            return out
+
+        cx_engine.build_frozen_caches = counted
+        return self
+
+    def __exit__(self, *exc):
+        from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+        cx_engine.build_frozen_caches = self.saved
+
+
+def cli_run(main, argv):
+    """``main(argv)`` in a temporary project dir -> (info, the run dir's
+    files, final_results.txt's dict or None)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        info = main(argv + ["--project_dir", tmp])
+        (run,) = os.listdir(os.path.join(tmp, "logs", "cx"))
+        run_dir = os.path.join(tmp, "logs", "cx", run)
+        files = sorted(os.path.join(sub, name) for sub in ("ckpt", "best")
+                       for name in os.listdir(os.path.join(run_dir, sub)))
+        final = os.path.join(run_dir, "final_results.txt")
+        res = None
+        if os.path.exists(final):
+            with open(final) as f:
+                res = json.load(f)
+    return info, files, res
+
+
+def zoo_step_pairs(dev, card):
+    """One model each of LinearContext, PairwiseModel (on a pairwise view,
+    K 2) and the contrastive step at the flagship backbone's width over
+    the phase-2 dataset, B 768, the q/v caches on: two captured train
+    steps against two eager ones from one starting state, bit-equal."""
+    import copy
+
+    from vqa_counterexamples_tpu_torch.data import synthetic, vqacx
+    from vqa_counterexamples_tpu_torch.engines import contrastive_engine as ce
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+    from vqa_counterexamples_tpu_torch.models import factory
+
+    batch_size = 768
+    dataset, store = synthetic.make_synthetic_cx(
+        n_examples=2048, n_images=1024, dim_v=2048, knn_size=24,
+        n_answers=2000, seed=SEED)
+    arrays = vqacx.CXArrays.from_examples(dataset["examples_list"],
+                                          dataset["name_to_index"])
+    features = store.to_device(dev)
+    pw = arrays.pairwise_view(np.random.default_rng(SEED))
+    batches = [vqacx.gather_batch(view, np.arange(i * batch_size,
+                                                  (i + 1) * batch_size))
+               for view in (arrays, pw) for i in range(2)]
+    for name, view_batches, make in (
+            ("LinearContext", batches[:2], None),
+            ("PairwiseModel", batches[2:], None),
+            ("ContrastiveModel", batches[2:], ce.make_contrastive_train_step)):
+        # the flagship's backbone, built anew for each model (its init
+        # draws from a CPU generator)
+        vqa = factory.flagship_cx(dataset["vocab_words"],
+                                  dataset["vocab_answers"]).vqa_model
+        model = cx_engine.init_cx_params(factory.factory_cx(
+            name, vqa, knn_size=24), seed=SEED).to(dev)
+        q, v, _, _ = cx_engine.build_frozen_caches(
+            model, features, arrays, use_q=True, use_v=True, use_z=False)
+        keys = (("loss", "loss_comp", "loss_other", "dist_comp",
+                 "dist_other") if make else ("loss", "correct"))
+        runs = {}
+        for how, capture in (("captured", None), ("eager", False)):
+            m = copy.deepcopy(model)
+            st = cx_engine.init_cx_state(m, lr=1e-4)
+            if make:
+                step = make(m, st.optimizer, base_seed=SEED, capture=capture)
+            else:
+                step = cx_engine.make_cx_train_step(
+                    m, st.optimizer, base_seed=SEED, capture=capture,
+                    recall_k=1 if name == "PairwiseModel" else 5)
+            rows = []
+            rstep = recorded(step, rows, keys)
+            for batch in view_batches:
+                st, _ = rstep(st, features, batch, batch_size, q_table=q,
+                              v_table=v)
+            runs[how] = (rows, m, st.optimizer)
+        hold_equal("%s train (B %d, K %d), captured vs eager"
+                   % (name, batch_size, view_batches[0]["image_idxs"].shape[1]
+                      - 1), runs["captured"], runs["eager"])
+        del runs, model, q, v
+
+
+def phase_zoo(dev, card):
+    from vqa_counterexamples_tpu_torch.cli import contrastive, counterexamples
+    from vqa_counterexamples_tpu_torch.models.factory import cx_model_names
+
+    log("== phase 11: the CX zoo and the contrastive trainer")
+    torch.cuda.reset_peak_memory_stats()
+    zoo_step_pairs(dev, card)
+    base = ["--synthetic", "2048", "--epochs", "1", "--test", "-b", "768",
+            "--seed", str(SEED), "--device", str(dev)]
+    trained = ("LinearContext", "PairwiseModel", "PairwiseLinearModel")
+    for name in (n for n in cx_model_names if n != "NeuralModel"):
+        argv = ["--cx_model", name] + base
+        if name == "ContrastiveModel":
+            # as JAX's CLI: its embeddings are no K-way scores
+            try:
+                counterexamples.main(argv + ["--project_dir", "unused"])
+            except ValueError as exc:
+                log("  ContrastiveModel through the CX CLI: ValueError "
+                    "(%s), as in JAX's CLI" % exc)
+                continue
+            raise AssertionError("the CX CLI ran ContrastiveModel")
+        if name == "SemanticBaseline":
+            argv += ["--sb_lambda", "0.5"]
+        if name == "PairwiseModel":
+            argv += ["--pairwise"]
+        reset_counters()
+        t0 = time.perf_counter()
+        with counted_cache_builds() as cb:
+            info, files, res = cli_run(counterexamples.main, argv)
+        launches = read_counters()
+        log("  %s: %.1f s; val %s; final_results.txt %s; files %s; %d "
+            "cache builds; launches %s"
+            % (" ".join(argv[:2] + argv[len(base) + 2:]),
+               time.perf_counter() - t0, info[-1], res, files, cb.builds,
+               launches))
+        backbone = name not in ("RandomBaseline", "DistanceBaseline")
+        if cb.builds != (3 if name in trained else 2 if backbone else 0):
+            raise AssertionError("%s: %d cache builds" % (name, cb.builds))
+        if not backbone and any(launches.values()):
+            raise AssertionError("%s launched kernels: %s"
+                                 % (name, launches))
+        want = {"loss", "recall", "recall_1", "best_epoch"}
+        if name == "PairwiseModel":
+            want |= {"loss_pairwise", "acc_pairwise"}
+        if (files != ["best/info.ckpt", "best/model.ckpt",
+                      "ckpt/info.ckpt", "ckpt/model.ckpt"]
+                or set(res) != want
+                or not all(np.isfinite(v) for v in res.values())
+                or not 0.0 <= res["recall_1"] <= res["recall"] <= 1.0
+                or res["best_epoch"] != (2 if name in trained else 0)):
+            raise AssertionError("%s: files %s, results %s"
+                                 % (name, files, res))
+    reset_counters()
+    t0 = time.perf_counter()
+    with counted_cache_builds() as cb:
+        info, files, _ = cli_run(contrastive.main, [
+            "--synthetic", "2048", "--epochs", "1", "-b", "768", "--seed",
+            str(SEED), "--device", str(dev)])
+    log("  cli.contrastive --synthetic 2048 --epochs 1 -b 768: %.1f s; %s; "
+        "files %s; %d cache builds; launches %s"
+        % (time.perf_counter() - t0, info, files, cb.builds,
+           read_counters()))
+    if (len(info) != 1 or cb.builds != 2
+            or set(info[0]) != {"contrastive/recall", "recall"}
+            or not 0.0 <= info[0]["recall"] <= 1.0
+            or files != ["best/info.ckpt", "best/model.ckpt",
+                         "ckpt/info.ckpt", "ckpt/model.ckpt"]):
+        raise AssertionError("contrastive CLI: %s, files %s" % (info, files))
+    log("  phase 11: " + memory_line(card))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -1581,6 +2026,8 @@ def main():
     launches_att = phase_att_pretrain(dev, card)
     phase_att_cli(dev)
     launches_knn = phase_knn(dev, card)
+    phase_trainable(dev, card)
+    phase_zoo(dev, card)
     log("total %.1f s" % (time.perf_counter() - t0))
     # launches: each kernel's path; the CX training path (phase 3) runs
     # gru, vfeat, vfeat_bwd and mixture, MutanNoAtt pretraining (phase 5)

@@ -945,3 +945,155 @@ def test_resume_after_captured_epoch_continues_as_eager(dev, monkeypatch,
                  (res_cap, again_cap)):
         assert a.step == b.step == 6
         _assert_same_training(a.model, a.optimizer, b.model, b.optimizer)
+
+
+@pytest.mark.parametrize("batch", [768, 64])
+def test_gru_pg_and_bwd_at_the_trainable_cx_batches(dev, batch):
+    """The per-gate forward and the backward at the trainable CX step's
+    shapes (T 26, H 2400; B 768 as chip_smoke trains it, B 64 the CLI's
+    default) against their plain versions: states and h_proj within 5e-2,
+    dxp, dW, db within 2e-2 of each tensor's largest entry, both
+    bit-equal on a rerun."""
+    xp, w, b, mask = _gru_inputs(dev, 26, batch, 2400, "per_gate", seed=7)
+    got = gru_kernel.gru_recurrence(xp, w, b, mask, want_hproj=True)
+    ref = gru_kernel.gru_recurrence_plain(xp, w, b, mask, want_hproj=True)
+    again = gru_kernel.gru_recurrence(xp, w, b, mask, want_hproj=True)
+    for g, r, a in zip(got, ref, again):
+        torch.testing.assert_close(g.float(), r.float(), atol=5e-2,
+                                   rtol=5e-2)
+        assert torch.equal(g, a)
+    states, hproj = ref
+    ds = _randn(torch.Generator().manual_seed(4), dev, *states.shape)
+    bwd = gru_kernel.gru_recurrence_bwd(xp, w, mask, states, hproj, ds)
+    bwd_ref = gru_kernel.gru_recurrence_bwd_plain(xp, w, mask, states,
+                                                  hproj, ds)
+    bwd_again = gru_kernel.gru_recurrence_bwd(xp, w, mask, states, hproj, ds)
+    torch.cuda.synchronize()
+    for name, a, r, c in zip(("dxp", "dW", "db"), bwd, bwd_ref, bwd_again):
+        _assert_rel(a, r, 2e-2, name)
+        assert torch.equal(a, c), name
+
+
+def _tiny_backbone(n_answers=20):
+    """A small MutanNoAtt option tree: dim_v 128, GRU 16 -> 32 with
+    per-gate masks at 0.25, MUTAN R 3 at 24 with dropout_v / dropout_q 0.5
+    and a classifier dropout of 0.5 (the trainable config's rates)."""
+    from vqa_counterexamples_tpu_torch.data import synthetic
+
+    opt = synthetic.tiny_vqa_options(dim_v=128, nans=n_answers, dim_q=32)
+    opt["seq2vec"] = {"arch": "skipthoughts", "type": "BayesianUniSkip",
+                      "dropout": 0.25, "fixed_emb": False, "emb_size": 16,
+                      "hidden_size": 32}
+    opt["fusion"].update(dropout_v=0.5, dropout_q=0.5)
+    opt["classif"] = {"dropout": 0.5}
+    return opt
+
+
+def _tiny_zoo(dev, name, trainable=False, seed=5):
+    """A small CX model of ``name`` on the card over 40 synthetic examples
+    (K 6)."""
+    from vqa_counterexamples_tpu_torch.data import synthetic, vqacx
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+    from vqa_counterexamples_tpu_torch.models import factory
+
+    dataset, store = synthetic.make_synthetic_cx(
+        n_examples=40, n_images=24, dim_v=128, knn_size=6, n_words=20,
+        n_answers=20, seed=9)
+    vqa = factory.factory_vqa(_tiny_backbone(), dataset["vocab_words"],
+                              dataset["vocab_answers"])
+    model = factory.factory_cx(name, vqa, knn_size=6, trainable_vqa=trainable,
+                               model_spec=CX_SPEC)
+    model = cx_engine.init_cx_params(model, seed=seed).to(dev)
+    arrays = vqacx.CXArrays.from_examples(dataset["examples_list"],
+                                          dataset["name_to_index"])
+    return model, arrays, store.to_device(dev)
+
+
+def test_captured_trainable_cx_step_equals_eager(dev, monkeypatch):
+    """NeuralCX over a trainable backbone, every dropout live (the GRU's
+    per-gate masks, the fusion's input dropouts, the classifier's, the
+    head's): two epochs of captured steps against eager ones from one
+    starting state, bit-equal in the losses and in every parameter and
+    Adam moment, the backbone's included; the per-gate GRU forward, its
+    backward and MUTAN launched once a step."""
+    import copy
+
+    from vqa_counterexamples_tpu_torch.core import graphs
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+    from vqa_counterexamples_tpu_torch.ops.cuda import launch_counters
+
+    monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
+    model, arrays, feats = _tiny_zoo(dev, "NeuralModel", trainable=True)
+    assert not model.wants_table_features() and not model._fused_head_ok()
+    start = copy.deepcopy(model)
+    runs = []
+    for capture in (None, False):
+        m = copy.deepcopy(start)
+        state = cx_engine.init_cx_state(m, lr=1e-3)
+        step = cx_engine.make_cx_train_step(m, state.optimizer, base_seed=3,
+                                            capture=capture)
+        ledger = graphs.LaunchLedger(launch_counters().values())
+        before = dict(zip(launch_counters(), ledger.read()))
+        losses = []
+        rng = np.random.default_rng(0)
+        for _ in range(2):
+            state, _ = cx_engine.train_epoch(
+                step, state, feats, arrays, 16, rng=rng, print_freq=1,
+                log_fn=lambda b, mt: losses.append(mt["loss"]))
+        torch.cuda.synchronize()
+        moved = {k: n - before[k] for k, n in
+                 zip(launch_counters(), ledger.read())}
+        runs.append((m, state, losses, moved))
+    (m_cap, s_cap, l_cap, n_cap), (m_eag, s_eag, l_eag, n_eag) = runs
+    assert l_cap == l_eag and all(np.isfinite(l_cap))
+    assert n_cap == n_eag
+    assert n_cap["gru_pg"] == n_cap["gru_bwd"] == n_cap["mutan"] == 6
+    _assert_same_training(m_cap, s_cap.optimizer, m_eag, s_eag.optimizer)
+    assert not torch.equal(m_cap.vqa_model.seq2vec.gru_cell.weight_hh,
+                           start.vqa_model.seq2vec.gru_cell.weight_hh.to(dev))
+
+
+def test_captured_contrastive_step_equals_eager(dev, monkeypatch):
+    """The contrastive train step (q/v caches on) and its eval step,
+    captured against eager from one starting state: bit-equal."""
+    import copy
+
+    from vqa_counterexamples_tpu_torch.data import vqacx
+    from vqa_counterexamples_tpu_torch.engines import contrastive_engine
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+    monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
+    model, arrays, feats = _tiny_zoo(dev, "ContrastiveModel")
+    q, v, _, _ = cx_engine.build_frozen_caches(model, feats, arrays,
+                                               use_q=True, use_v=True,
+                                               use_z=False)
+    start = copy.deepcopy(model)
+    runs = []
+    for capture in (None, False):
+        m = copy.deepcopy(start)
+        state = cx_engine.init_cx_state(m, lr=1e-3)
+        step = contrastive_engine.make_contrastive_train_step(
+            m, state.optimizer, base_seed=3, capture=capture)
+        rng = np.random.default_rng(0)
+        metrics = []
+        for _ in range(2):
+            pw = arrays.pairwise_view(rng)
+            for idx, n_valid in vqacx.batch_indices(pw.size, 16,
+                                                    shuffle=True, rng=rng):
+                state, mt = step(state, feats, vqacx.gather_batch(pw, idx),
+                                 n_valid, q_table=q, v_table=v)
+                metrics.append(torch.stack(list(mt.values())))
+        eval_step = contrastive_engine.make_contrastive_eval_step(
+            m, capture=capture)
+        evals = [eval_step(feats, vqacx.gather_batch(arrays, idx), n_valid,
+                           i, q_table=q, v_table=v)
+                 for i, (idx, n_valid) in enumerate(vqacx.batch_indices(
+                     arrays.size, 16, shuffle=False))]
+        torch.cuda.synchronize()
+        runs.append((m, state, torch.stack(metrics),
+                     [torch.stack(list(e.values())) for e in evals]))
+    (m_cap, s_cap, met_cap, ev_cap), (m_eag, s_eag, met_eag, ev_eag) = runs
+    assert torch.equal(met_cap, met_eag)
+    assert torch.isfinite(met_cap).all() and s_cap.step == 6
+    assert all(torch.equal(a, b) for a, b in zip(ev_cap, ev_eag))
+    _assert_same_training(m_cap, s_cap.optimizer, m_eag, s_eag.optimizer)

@@ -309,19 +309,23 @@ def test_neural_model_v_feature_lesion_matches_jax(monkeypatch):
 
 
 def test_unported_options_raise():
-    """A trainable backbone (its backward is not wired into the CX step
-    yet) and the other CX models still raise.  The lesions and the training mode are ported:
-    what stays to refuse is training or lesioning without a generator."""
+    """Every CX model and the trainable backbone are ported; the factory
+    refuses what JAX's refuses: an unknown ``cx_model`` (``ValueError``)
+    and a backbone model built without a backbone.  The lesions and the
+    training mode are ported too: what stays to refuse is training or
+    lesioning without a generator."""
     dataset, _ = jax_synthetic.make_synthetic_cx(
         n_examples=4, n_images=10, dim_v=8, knn_size=3, n_answers=5)
     opt = tiny_options(dim_v=8, n_answers=5)
     vqa = port_factory.factory_vqa(opt, dataset["vocab_words"],
                                    dataset["vocab_answers"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_factory.factory_cx("NeuralModel", vqa, knn_size=3,
-                                trainable_vqa=True, model_spec=SPEC)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_factory.factory_cx("PairwiseModel", vqa)
+    with pytest.raises(ValueError, match="Unrecognized cx_model"):
+        port_factory.factory_cx("NoSuchModel", vqa)
+    with pytest.raises(ValueError, match="backbone"):
+        port_factory.factory_cx("PairwiseModel", None)
+    assert port_factory.factory_cx("NeuralModel", vqa, knn_size=3,
+                                   trainable_vqa=True,
+                                   model_spec=SPEC).trainable_vqa
     args = (torch.zeros(1, 4, 8), torch.ones(1, 26, dtype=torch.int64),
             torch.zeros(1, dtype=torch.int64))
     model = port_factory.factory_cx("NeuralModel", vqa, knn_size=3,

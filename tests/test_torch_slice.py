@@ -11,6 +11,7 @@ unfused bf16 paths).
 
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -151,12 +152,19 @@ def test_port_cli_scores_synthetic(tmp_path, monkeypatch, dtype):
     assert 0.0 <= res["recall_1"] <= res["recall"] <= 1.0
 
 
-def test_port_cli_refuses_training(tmp_path):
+@pytest.mark.parametrize("flag,tag", [
+    (["--mesh", "data=2"], "Queue 1 #12"), (["--viz"], "Queue 1 #13"),
+    (["--init_params", "p.msgpack"], "Queue 1: the msgpack bridge")])
+def test_port_cli_refuses_training(tmp_path, flag, tag):
     """Training runs now (tests/test_torch_train.py), the scanned trainer
-    too (``--scan_steps``, tests/test_torch_scan.py); pairwise training
-    is what the port still refuses, before it trains anything."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    too (``--scan_steps``, tests/test_torch_scan.py), pairwise training and
+    the zoo as well (tests/test_torch_zoo.py); ``--mesh``, ``--viz`` and
+    ``--init_params`` are what the port still refuses, citing their
+    ROADMAP tags, before it trains anything or makes a run dir."""
+    with pytest.raises(NotImplementedError,
+                       match=re.escape("(ROADMAP.md, %s)" % tag)):
         port_cli.main(["--cx_model", "NeuralModel", "--synthetic", "64",
                        "--epochs", "1", "--scan_steps", "4", "--pairwise",
                        "--device", "cpu", "--project_dir", str(tmp_path),
-                       "--path_opt", _tiny_cli_options(tmp_path)])
+                       "--path_opt", _tiny_cli_options(tmp_path)] + flag)
+    assert not (tmp_path / "logs").exists()

@@ -1,20 +1,32 @@
 """CX CLI (port of ``cli/counterexamples.py``): same flags, same run-dir
 layout (``logs/cx/<run>/{ckpt,best}``, ``runs/<run>/{train,val}``).
 
-Trains NeuralCX over the frozen backbone: build the frozen-backbone q/v/z
-caches, run ``--epochs`` epochs (per-epoch val, the best epoch by recall
-kept in ``best/``, the last in ``ckpt/``), then with ``--test`` load the
-best checkpoint and score every test example's candidates, writing loss,
-recall@5, recall@1 and ``best_epoch`` to ``final_results.txt``::
+``--cx_model`` names any model of ``models/factory.cx_model_names``.
+NeuralModel, LinearContext, PairwiseModel and PairwiseLinearModel train
+with Adam; the others (RandomBaseline and DistanceBaseline, built with no
+backbone, BlackBox, SemanticBaseline, which needs ``--sb_lambda``,
+and SimilarityModel) are evaluated once an epoch, as JAX's CLI runs them.
+ContrastiveModel raises ``ValueError`` here, as it does in JAX's CLI: it
+trains with ``cli/contrastive.py``.  The run builds the frozen-backbone
+q/v/z caches, runs ``--epochs`` epochs (per-epoch val, the best epoch by
+recall kept in ``best/``, the last in ``ckpt/``), then with ``--test``
+loads the best checkpoint and scores every test example's candidates,
+writing loss, recall@5, recall@1 and ``best_epoch`` to
+``final_results.txt``::
 
     python -m vqa_counterexamples_tpu_torch.cli.counterexamples \\
         --cx_model NeuralModel --synthetic 2048 --z_cache --epochs 2 --test
 
-``--resume <run>`` continues a run from its ``ckpt/`` (``--best``: from
-``best/``).  ``--epochs 0 --test`` only scores.  On a card the train and
-eval steps are captured CUDA graphs; ``--scan_steps S`` (S > 1) runs S
-train steps a call, as S replays of the captured step (eager steps on the
-CPU), with the results of S single steps.  ``--pairwise``, ``--mesh``,
+``--pairwise`` trains on the (orig, comp, other) triples of each epoch's
+``CXArrays.pairwise_view`` (recall@1, no z cache) and adds
+``loss_pairwise`` / ``acc_pairwise`` to every eval.  ``--trainable_vqa``
+trains the backbone with the CX model (no caches); the YAML's
+``cx_model.trainable_vqa`` is overridden by the flag's value, as in JAX's
+CLI.  ``--resume <run>`` continues a run from its ``ckpt/`` (``--best``:
+from ``best/``).  ``--epochs 0 --test`` only scores.  On a card the train
+and eval steps are captured CUDA graphs; ``--scan_steps S`` (S > 1) runs
+S train steps a call, as S replays of the captured step (eager steps on
+the CPU), with the results of S single steps.  ``--mesh``,
 ``--distributed``, ``--init_params``, ``--viz`` and non-synthetic data
 raise ``NotImplementedError`` (see ROADMAP.md for when they come).  The
 device is ``cuda``; with no card visible the CLI refuses to run unless
@@ -122,6 +134,33 @@ def load_synthetic_data(args, n_examples):
     return trainset, valset, valset, store, val_store
 
 
+def check_unported(args) -> None:
+    """Raise for the flags and data the port does not cover yet, each with
+    its ROADMAP tag, before anything is built."""
+    for flag, item in (("mesh", "Queue 1 #12"), ("distributed", "Queue 1 #12"),
+                       ("init_params", "Queue 1: the msgpack bridge"),
+                       ("viz", "Queue 1 #13")):
+        if getattr(args, flag, None):
+            _not_ported("--" + flag, item)
+    if not args.synthetic:
+        _not_ported("loading the real VQA-CX data", "Queue 1 #7")
+
+
+def resolve_device(name: str) -> torch.device:
+    """The run's device: ``cuda`` must be visible, ``cpu`` asked for."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible: the port runs on the "
+                           "card; pass --device cpu to run on the CPU")
+    return device
+
+
+# the models JAX's CLI trains with Adam (its counterexamples.py:255-257);
+# the others are only evaluated
+TRAINED = ("NeuralModel", "LinearContext", "PairwiseModel",
+           "PairwiseLinearModel")
+
+
 def main(argv=None):
     from ..core import checkpoint as ckpt_lib
     from ..core import config as config_lib
@@ -140,20 +179,14 @@ def main(argv=None):
     }
     options = config_lib.resolve_options({}, args.path_opt, cli_overrides)
     options["vgenome"] = None
-
-    for flag, item in (("pairwise", "Queue 1 #8"), ("mesh", "Queue 1 #12"),
-                       ("distributed", "Queue 1 #12"),
-                       ("init_params", "Queue 1: the msgpack bridge"),
-                       ("viz", "Queue 1 #13")):
-        if getattr(args, flag):
-            _not_ported("--" + flag, item)
-    if not args.synthetic:
-        _not_ported("loading the real VQA-CX data", "Queue 1 #7")
-
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is visible: the port runs on the "
-                           "card; pass --device cpu to run on the CPU")
+    check_unported(args)
+    if args.cx_model == "ContrastiveModel":
+        # its forward returns (B, K+1, H) embeddings, which the K-way CE of
+        # the CX steps cannot score: JAX's CLI fails on it with a
+        # ValueError in its first eval; the model trains in cli/contrastive
+        raise ValueError("ContrastiveModel returns embeddings, not scores: "
+                         "train it with cli/contrastive.py")
+    device = resolve_device(args.device)
 
     # ---- run-dir bookkeeping ----
     if args.cx_model == "NeuralModel" and not args.comment:
@@ -187,20 +220,24 @@ def main(argv=None):
     features_train = f_train.to_device(device)
     features_val = f_val.to_device(device)
 
-    # ---- model ----
+    # ---- model (JAX counterexamples.py:224-258) ----
     print("=> Building model...")
-    knn_size = train_arrays.knn_size
     trainable_vqa = options["cx_model"]["trainable_vqa"]
-    vqa_model = factory.factory_vqa(options["model"],
-                                    trainset["vocab_words"],
-                                    trainset["vocab_answers"])
-    cx_model = factory.factory_cx(args.cx_model, vqa_model,
-                                  knn_size=knn_size,
-                                  trainable_vqa=trainable_vqa,
-                                  model_spec=dict(options["cx_model"]))
+    extra_args = ()
+    if args.cx_model == "SemanticBaseline":
+        if args.sb_lambda is None:
+            raise ValueError("SemanticBaseline requires --sb_lambda")
+        extra_args = (torch.from_numpy(answer_cosines(_load_answer_embedding(
+            args, len(trainset["vocab_answers"])))).to(device),)
+    cx_model = factory.cx_from_options(
+        args.cx_model, options, trainset["vocab_words"],
+        trainset["vocab_answers"], knn_size=train_arrays.knn_size,
+        sb_lambda=args.sb_lambda)
     cx_engine.init_cx_params(cx_model, seed=args.seed)
     cx_model.to(device)
-    state = cx_engine.init_cx_state(cx_model, lr=options["optim"]["lr"])
+    state = cx_engine.init_cx_state(
+        cx_model, lr=options["optim"]["lr"],
+        optimizer="adam" if args.cx_model in TRAINED else None)
     print("Built {} on {}".format(args.cx_model, device))
 
     info = []
@@ -210,16 +247,18 @@ def main(argv=None):
         state, info, start_epoch, best_recall = ckpt_lib.load_cx_checkpoint(
             state, save_dir, resume_best=args.best)
 
-    # ---- frozen-backbone caches ----
-    use_q_cache = not trainable_vqa and not args.no_q_cache
-    use_v_cache = not trainable_vqa and not args.no_v_cache
-    use_z_cache = args.z_cache and use_q_cache and use_v_cache
+    # ---- frozen-backbone caches (JAX :300-345; none for a trainable one) --
+    frozen = hasattr(cx_model, "vqa_model") and not trainable_vqa
+    use_q_cache = frozen and not args.no_q_cache
+    use_v_cache = frozen and not args.no_v_cache
+    use_z_cache = (args.z_cache and use_q_cache and use_v_cache
+                   and not args.pairwise)
     if args.z_cache and not use_z_cache:
-        print("=> z-emb cache needs a frozen backbone with q+v caches; "
-              "disabled")
+        print("=> z-emb cache needs a frozen backbone with q+v caches and "
+              "a non-pairwise run; disabled")
     n_epochs = options["optim"]["epochs"]
     q_train = v_train = z_train = None
-    if start_epoch <= n_epochs:
+    if start_epoch <= n_epochs and state.optimizer is not None:
         q_train, v_train, z_train, stage_s = cx_engine.build_frozen_caches(
             cx_model, features_train, train_arrays, use_q=use_q_cache,
             use_v=use_v_cache, use_z=use_z_cache)
@@ -231,41 +270,52 @@ def main(argv=None):
 
     # ---- engines ----
     batch_size = options["optim"]["batch_size"]
-    train_step = cx_engine.make_cx_train_step(
-        cx_model, state.optimizer, recall_k=5, base_seed=args.seed,
-        use_z_cache=use_z_cache)
-    scan_step = None
-    if args.scan_steps > 1:
-        scan_step = cx_engine.make_cx_train_scan(train_step)
-        print("=> Scanned trainer: %d steps a call (%d replays of the "
-              "captured step on a card, eager steps on the CPU)"
-              % (args.scan_steps, args.scan_steps))
+    train_step = scan_step = None
+    if state.optimizer is not None:
+        train_step = cx_engine.make_cx_train_step(
+            cx_model, state.optimizer, recall_k=1 if args.pairwise else 5,
+            base_seed=args.seed, extra_apply_args=extra_args,
+            use_z_cache=use_z_cache)
+        if args.scan_steps > 1:
+            scan_step = cx_engine.make_cx_train_scan(train_step)
+            print("=> Scanned trainer: %d steps a call (%d replays of the "
+                  "captured step on a card, eager steps on the CPU)"
+                  % (args.scan_steps, args.scan_steps))
     eval_step = cx_engine.make_cx_eval_step(cx_model, recall_k=5,
+                                            extra_apply_args=extra_args,
                                             use_z_cache=use_z_cache)
 
     def run_eval(st):
-        return cx_engine.eval_model(eval_step, features_val, val_arrays,
-                                    batch_size, q_table=q_val, v_table=v_val,
-                                    z_table=z_val)
+        return cx_engine.eval_model(
+            eval_step, features_val, val_arrays, batch_size,
+            pairwise=args.pairwise, pairwise_eval_step=eval_step,
+            rng=np.random.default_rng(123), q_table=q_val, v_table=v_val,
+            z_table=z_val)
 
     # ---- train loop ----
     print("=> Starting training...")
+    if args.pairwise:
+        print("==> Pairwise training")
     rng = np.random.default_rng(args.seed)
     epoch = None
     for epoch in range(start_epoch, n_epochs + 1):
-        def log_fn(b, metrics, _epoch=epoch):
-            step = (_epoch - 1) * 10000 + b
-            for k, v in metrics.items():
-                train_writer.add_scalar(k, v, step)
-            print("Epoch {} train: {}".format(
-                _epoch, {k: round(v, 4) for k, v in metrics.items()}))
+        if train_step is not None:
+            def log_fn(b, metrics, _epoch=epoch):
+                step = (_epoch - 1) * 10000 + b
+                for k, v in metrics.items():
+                    train_writer.add_scalar(k, v, step)
+                print("Epoch {} train: {}".format(
+                    _epoch, {k: round(v, 4) for k, v in metrics.items()}))
 
-        state, eval_results = cx_engine.train_epoch(
-            train_step, state, features_train, train_arrays, batch_size,
-            rng=rng, log_fn=log_fn, print_freq=args.print_freq,
-            eval_fn=run_eval, eval_freq=args.eval_freq, q_table=q_train,
-            v_table=v_train, z_table=z_train, scan_step=scan_step,
-            scan_len=args.scan_steps)
+            state, eval_results = cx_engine.train_epoch(
+                train_step, state, features_train, train_arrays, batch_size,
+                pairwise=args.pairwise, rng=rng, log_fn=log_fn,
+                print_freq=args.print_freq, eval_fn=run_eval,
+                eval_freq=args.eval_freq, q_table=q_train, v_table=v_train,
+                z_table=z_train, scan_step=scan_step,
+                scan_len=args.scan_steps)
+        else:
+            eval_results = run_eval(state)
         for k, v in eval_results.items():
             val_writer.add_scalar(k, v, epoch)
         print("Epoch {} val: {}".format(
@@ -281,7 +331,7 @@ def main(argv=None):
     # ---- final test on the best checkpoint (reference :373-386) ----
     if args.test:
         best_epoch = 0
-        if epoch is not None:
+        if epoch is not None and state.optimizer is not None:
             # the reference's value: load_cx_checkpoint's next epoch
             state, _, best_epoch, _ = ckpt_lib.load_cx_checkpoint(
                 state, save_dir, resume_best=True)
@@ -292,7 +342,9 @@ def main(argv=None):
             use_v=False, use_z=use_z_cache)
         test_results = cx_engine.eval_model(
             eval_step, features_val, test_arrays, batch_size,
-            q_table=q_test, v_table=v_val, z_table=z_test)
+            pairwise=args.pairwise, pairwise_eval_step=eval_step,
+            rng=np.random.default_rng(123), q_table=q_test, v_table=v_val,
+            z_table=z_test)
         test_results["best_epoch"] = best_epoch
         with open(os.path.join(save_dir, "final_results.txt"), "w") as f:
             f.write(json.dumps(test_results))
@@ -301,6 +353,24 @@ def main(argv=None):
     train_writer.close()
     val_writer.close()
     return info
+
+
+def _load_answer_embedding(args, n_answers: int) -> np.ndarray:
+    """The answer embedding table (A, 2400) SemanticBaseline compares
+    answers with: under ``--synthetic`` N(0, 1) from ``default_rng(0)`` in
+    f32, as JAX's CLI draws it."""
+    if not args.synthetic:
+        _not_ported("loading answer_embedding.pickle", "Queue 1 #7")
+    return np.random.default_rng(0).normal(
+        size=(n_answers, 2400)).astype(np.float32)
+
+
+def answer_cosines(emb: np.ndarray) -> np.ndarray:
+    """(A, A) cosine similarities of the rows of ``emb`` in f32, the norms
+    clamped below at 1e-8 (JAX ``cli/counterexamples.py:245-248``)."""
+    emb = np.asarray(emb, np.float32)
+    norm = np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-8)
+    return (emb / norm) @ (emb / norm).T
 
 
 if __name__ == "__main__":

@@ -1,18 +1,22 @@
 """Where the time of the NeuralCX train step and eval goes, on one card.
 
     python -m vqa_counterexamples_tpu_torch.cli.profile_cx \\
-        [--epochs 3] [--out logs/profile_cx.json]
+        [--epochs 3] [--path_opt configs/cx/neuralcx_trainable_vqa.yaml] \\
+        [--out logs/profile_cx.json]
 
 Builds the flagship configuration (``models.factory.flagship_cx``; 2048
-synthetic examples over 1024 images, B 768, random weights from
-``--seed``) under the bf16 policy, the q/z caches bf16-resident, and warms
-up.  Then it times ``--epochs`` passes of ``train_epoch`` (dropout 0.25,
-Adam at 1e-4) and of ``eval_model`` over the 2048 examples on the host
-clock (synchronised at both ends), runs them again under
-``torch.profiler``, and reports per batch (3 batches a pass), for the
-steps the CLI runs (captured CUDA graphs: ``train_step``, ``eval_batch``)
-and beside them for the same steps run eagerly (``train_step_eager``,
-``eval_batch_eager``, each from its own copy of the starting state):
+synthetic examples over 1024 images, 2000 answers, B 768, random weights
+from ``--seed``) under the bf16 policy, the q/z caches bf16-resident, and
+warms up.  With ``--path_opt`` the NeuralCX model is the YAML's, built
+through ``core/config`` and the factory as the CX CLI builds it (with
+``cx_model.trainable_vqa`` no cache: the backbone trains in the step).
+Then it times ``--epochs`` passes of ``train_epoch`` (dropout 0.25, Adam
+at 1e-4) and of ``eval_model`` over the 2048 examples on the host clock
+(synchronised at both ends), runs them again under ``torch.profiler``, and
+reports per batch (3 batches a pass), for the steps the CLI runs (captured
+CUDA graphs: ``train_step``, ``eval_batch``) and beside them for the same
+steps run eagerly (``train_step_eager``, ``eval_batch_eager``, each from
+its own copy of the starting state):
 
 - wall ms (unprofiled); of it, the host's ms until the last call returns
   (per batch) and the ms the card then still needs to drain its queue
@@ -139,6 +143,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--epochs", type=int, default=3)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--path_opt", default=None,
+                        help="a CX options YAML whose NeuralCX to profile "
+                             "(default: the flagship configuration)")
     parser.add_argument("--out", default="logs/profile_cx.json")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -147,6 +154,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from ..core import config
     from ..data import synthetic, vqacx
     from ..engines import cx_engine
     from ..models import factory
@@ -161,24 +169,34 @@ def main(argv=None):
         n_answers=2000, seed=args.seed)
     arrays = vqacx.CXArrays.from_examples(dataset["examples_list"],
                                           dataset["name_to_index"])
-    model = cx_engine.init_cx_params(
-        factory.flagship_cx(dataset["vocab_words"],
-                            dataset["vocab_answers"]), seed=args.seed).to(dev)
+    words, answers = dataset["vocab_words"], dataset["vocab_answers"]
+    if args.path_opt:
+        model = factory.cx_from_options(
+            "NeuralModel", config.resolve_options({}, args.path_opt), words,
+            answers)
+    else:
+        model = factory.flagship_cx(words, answers)
+    model = cx_engine.init_cx_params(model, seed=args.seed).to(dev)
     features = store.to_device(dev)
-    q, _, z, _ = cx_engine.build_frozen_caches(model, features, arrays)
-    feats, q, _, z = cx_engine.make_tables_bf16_resident(features, q, None,
-                                                         z)
+    use_z = not model.trainable_vqa
+    feats, q, z = features, None, None
+    if use_z:
+        q, _, z, _ = cx_engine.build_frozen_caches(model, features, arrays)
+        feats, q, _, z = cx_engine.make_tables_bf16_resident(features, q,
+                                                             None, z)
     per_pass = -(-arrays.size // batch_size)
     report = {"card": card, "batch_size": batch_size,
-              "examples": arrays.size, "passes": args.epochs}
+              "examples": arrays.size, "passes": args.epochs,
+              "path_opt": args.path_opt,
+              "trainable_vqa": model.trainable_vqa}
     torch.cuda.reset_peak_memory_stats()
     for suffix, capture in (("", None), ("_eager", False)):
         m = copy.deepcopy(model)
         state = cx_engine.init_cx_state(m, lr=1e-4)
         train_step = cx_engine.make_cx_train_step(
-            m, state.optimizer, base_seed=args.seed, use_z_cache=True,
+            m, state.optimizer, base_seed=args.seed, use_z_cache=use_z,
             capture=capture)
-        eval_step = cx_engine.make_cx_eval_step(m, use_z_cache=True,
+        eval_step = cx_engine.make_cx_eval_step(m, use_z_cache=use_z,
                                                 capture=capture)
         rng = np.random.default_rng(args.seed)
 

@@ -6,8 +6,10 @@ Layout as in the JAX package (reference ``counterexamples.py:550-580``):
 val recall improves; ``info.ckpt`` is the JSON list of per-epoch eval dicts
 and resume infers the epoch from its length.  ``model.ckpt`` is a
 ``torch.save`` of the parameters the optimizer trains (the frozen backbone
-is rebuilt, not saved), the Adam ``state_dict`` and the step.  It
-is not the JAX package's msgpack format.
+is rebuilt, not saved; a trainable backbone is saved, since the optimizer
+trains it), the Adam ``state_dict`` (None for a model trained with no
+optimizer) and the step.  The contrastive trainer's state is a CX state
+too.  It is not the JAX package's msgpack format.
 
 The VQA scheme (reference ``train.py:290-367``) keeps the JAX layout: a
 ``ckpt_info.json`` (the same JSON as the JAX package's) with
@@ -19,6 +21,7 @@ so no reader takes them for the JAX package's ``*.msgpack``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -27,7 +30,10 @@ import torch
 
 
 def _trainable_state_dict(state) -> dict:
-    """The parameters the optimizer updates, by name."""
+    """The parameters the optimizer updates, by name (none without an
+    optimizer)."""
+    if state.optimizer is None:
+        return {}
     ids = {id(p) for group in state.optimizer.param_groups
            for p in group["params"]}
     return {n: p.detach() for n, p in state.model.named_parameters()
@@ -36,13 +42,16 @@ def _trainable_state_dict(state) -> dict:
 
 def save_cx_checkpoint(state, info: list, save_dir: str,
                        is_best: bool = True) -> None:
-    """``state``: an ``engines.cx_engine.CXTrainState``."""
+    """``state``: an ``engines.cx_engine.CXTrainState`` (a model trained
+    with no optimizer saves no parameters and ``optimizer`` None, as JAX's
+    saves ``opt_state`` None)."""
     ckpt_dir = os.path.join(save_dir, "ckpt")
     os.makedirs(ckpt_dir, exist_ok=True)
     path_model = os.path.join(ckpt_dir, "model.ckpt")
     path_info = os.path.join(ckpt_dir, "info.ckpt")
     torch.save({"model": _trainable_state_dict(state),
-                "optimizer": state.optimizer.state_dict(),
+                "optimizer": (None if state.optimizer is None
+                              else state.optimizer.state_dict()),
                 "step": state.step}, path_model)
     with open(path_info, "w") as f:
         json.dump(info, f)
@@ -57,15 +66,21 @@ def load_cx_checkpoint(state, save_dir: str, resume_best: bool = True):
     """Load ``best/`` (or ``ckpt/``) into ``state`` in place -> ``(state,
     info, next_epoch, best_recall)``."""
     sub = os.path.join(save_dir, "best" if resume_best else "ckpt")
-    device = next(state.model.parameters()).device
+    # the baselines hold no parameters: their buffer carries the device
+    device = next(itertools.chain(state.model.parameters(),
+                                  state.model.buffers())).device
     payload = torch.load(os.path.join(sub, "model.ckpt"),
                          map_location=device, weights_only=True)
     expected = set(_trainable_state_dict(state))
     if set(payload["model"]) != expected:
         raise ValueError("checkpoint %s holds %s, the model trains %s"
                          % (sub, sorted(payload["model"]), sorted(expected)))
+    if (payload["optimizer"] is None) != (state.optimizer is None):
+        raise ValueError("checkpoint %s and the state disagree on having an "
+                         "optimizer" % sub)
     state.model.load_state_dict(payload["model"], strict=False)
-    state.optimizer.load_state_dict(payload["optimizer"])
+    if state.optimizer is not None:
+        state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     with open(os.path.join(sub, "info.ckpt")) as f:
         info = json.load(f)

@@ -73,6 +73,24 @@ class CXArrays(NamedTuple):
             comp_idxs[i] = ex["comp"]["knn_index"]
         return cls(image_idxs, question_wids, answer_aids, comp_idxs)
 
+    def pairwise_view(self, rng: np.random.Generator) -> "CXArrays":
+        """(orig, comp, random-other) triples for hard-negative training
+        (reference counterexamples.py:526-533): the other candidate is
+        uniform over the K-1 that are not the comp, drawn from ``rng``; the
+        label is always candidate 0 (the comp).  Row i stays example i."""
+        n = self.size
+        k = self.knn_size
+        rows = np.arange(n)
+        comp_col = self.comp_idxs + 1  # column 0 is the original image
+        comp_feat = self.image_idxs[rows, comp_col]
+        draw = rng.integers(0, k - 1, size=n)
+        draw = draw + (draw >= self.comp_idxs)  # skip the comp slot
+        other_feat = self.image_idxs[rows, draw + 1]
+        image_idxs = np.stack(
+            [self.image_idxs[:, 0], comp_feat, other_feat], axis=1)
+        return CXArrays(image_idxs.astype(np.int32), self.question_wids,
+                        self.answer_aids, np.zeros(n, dtype=np.int32))
+
 
 def batch_indices(n: int, batch_size: int, shuffle: bool = True,
                   rng: np.random.Generator | None = None):

@@ -1,5 +1,4 @@
-"""CX training and scoring engine over the frozen-backbone caches (port of
-``engines/cx_engine.py``).
+"""CX training and scoring engine (port of ``engines/cx_engine.py``).
 
 With the VQA backbone frozen, its outputs are constants of the CX model:
 the question embedding per example (``precompute_q_emb``, the GRU kernel),
@@ -10,8 +9,12 @@ step.  The tables are written in place into preallocated tensors.
 
 Training (``make_cx_train_step``, ``train_epoch``) updates the model's
 trainable parameters in place with ``torch.optim.Adam`` (optax's defaults);
-the frozen backbone holds no grads and no Adam state.  Each step's dropout
-and lesion draws come from generators seeded from (seed, step, name)
+a frozen backbone holds no grads and no Adam state, a trainable one
+(``trainable_vqa``) trains with the rest and takes no cache.  The models
+the JAX CLI builds no optimizer for (the two baselines, BlackBox,
+SemanticBaseline, SimilarityModel) get a state without one (``init_cx_state(..., optimizer=None)``) and are only evaluated.
+``pairwise=True`` trains on and evaluates the (orig, comp, other) triples
+of ``CXArrays.pairwise_view``.  Each step's dropout and lesion draws come from generators seeded from (seed, step, name)
 (``core/rng``), so a run is reproducible and a resumed run redraws the
 same masks.  A step returns its metrics as 0-d device tensors: nothing in
 it waits for the card.
@@ -26,6 +29,7 @@ CPU, or with ``capture=False``, the same step bodies run eagerly.
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass
 
@@ -64,26 +68,47 @@ def trainable_parameters(model) -> list:
 @dataclass
 class CXTrainState:
     """The model (its parameters updated in place), the Adam over its
-    trainable parameters, and the number of steps taken."""
+    trainable parameters (None for a model trained with no optimizer), and
+    the number of steps taken."""
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: torch.optim.Optimizer | None
     step: int = 0
 
 
-def init_cx_state(model, lr: float = 1e-4) -> CXTrainState:
-    """Adam at ``lr`` with optax's defaults (betas 0.9 / 0.999, eps 1e-8)
-    over the trainable parameters only; ``capturable`` on a card (its
-    step count lives on the device, so a graph can replay the update), on
-    the CPU as torch builds it by default."""
+def init_cx_state(model, lr: float = 1e-4, *,
+                  optimizer: str | None = "adam") -> CXTrainState:
+    """``optimizer="adam"``: Adam at ``lr`` with optax's defaults (betas
+    0.9 / 0.999, eps 1e-8) over the trainable parameters only (the
+    backbone's too when it trains); ``capturable`` on a card (its step
+    count lives on the device, so a graph can replay the update), on the
+    CPU as torch builds it by default.  ``optimizer=None``: no optimizer,
+    as JAX's CLI builds none for the models it only evaluates."""
+    if optimizer is None:
+        return CXTrainState(model, None, 0)
+    if optimizer != "adam":
+        raise ValueError("optimizer must be 'adam' or None, got %r"
+                         % optimizer)
     params = [p for _, p in trainable_parameters(model)]
-    optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
-                                 eps=1e-8,
-                                 capturable=_device(model).type == "cuda")
-    return CXTrainState(model, optimizer, 0)
+    adam = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=_device(model).type == "cuda")
+    return CXTrainState(model, adam, 0)
 
 
 def _device(model) -> torch.device:
-    return next(model.parameters()).device
+    """The device of the model's parameters, or of its buffers for the
+    baselines, which have none."""
+    for t in itertools.chain(model.parameters(), model.buffers()):
+        return t.device
+    raise ValueError("%s holds no tensor to take a device from"
+                     % type(model).__name__)
+
+
+def refuse_caches(model, cached: bool) -> None:
+    """The caches hold a frozen backbone's outputs: ``cached`` is refused
+    for a trainable one (JAX ``cx_engine.py:565-569``)."""
+    if cached and getattr(model, "trainable_vqa", False):
+        raise ValueError(
+            "q_emb/v_proj/z_emb caches require a frozen VQA backbone")
 
 
 def _sync(device) -> None:
@@ -155,6 +180,7 @@ def build_frozen_caches(model, features: torch.Tensor,
     """
     if use_z and not use_q:
         raise ValueError("the z cache is built from the q cache")
+    refuse_caches(model, use_q or use_v or use_z)
     device = features.device
     stage_s = {}
     q_table = v_table = z_table = None
@@ -214,6 +240,13 @@ def step_inputs(batch: dict, n_valid) -> dict:
     return {**batch, "n_valid": np.int32(int(n_valid))}
 
 
+def _pass_table(model, use_z_cache: bool) -> bool:
+    """Whether the model takes the feature table + row indices (NeuralCX's
+    vfeat kernels, which need the z cache)."""
+    wants = getattr(model, "wants_table_features", None)
+    return bool(use_z_cache and wants is not None and wants())
+
+
 def _model_inputs(model, features, batch, pass_table, q_table, v_table,
                   z_table):
     """(image_features, kwargs) for the model: the table form or the
@@ -232,7 +265,8 @@ def _valid_mask(comp, n_valid):
 
 
 def make_cx_train_step(model, optimizer, *, recall_k: int = 5,
-                       base_seed: int = 42, use_z_cache: bool = False,
+                       base_seed: int = 42, extra_apply_args: tuple = (),
+                       use_z_cache: bool = False,
                        capture: bool | None = None):
     """Returns ``train_step(state, features, batch, n_valid, q_table=None,
     v_table=None, z_table=None)`` -> ``(state, metrics)``.
@@ -247,21 +281,29 @@ def make_cx_train_step(model, optimizer, *, recall_k: int = 5,
     The dropout and lesion generators are seeded from (``base_seed``,
     ``state.step``); ``state.step`` stays a host int.
 
+    ``extra_apply_args``: tensors passed to the model after the answer ids
+    (SemanticBaseline's ``emb_pairs``), read by the graph by address as
+    the tables are.  A trainable backbone takes no cache table
+    (``ValueError``); its dropouts draw from the step's dropout generator.
+
     ``capture``: None captures the step as a CUDA graph on a card and runs
     it eagerly on the CPU (``core/graphs``); False runs it eagerly
     anywhere.  Whether the model takes the feature table + row indices
     (the vfeat kernels, which need the z cache) is resolved here, at build
     time."""
-    pass_table = bool(use_z_cache and model.wants_table_features())
+    refuse_caches(model, use_z_cache)
+    pass_table = _pass_table(model, use_z_cache)
     gens = rng_lib.StepGenerators(("dropout", "lesion"), _device(model))
+    extra = tuple(extra_apply_args)
 
-    def body(batch, features, q_table, v_table, z_table):
+    def body(batch, features, q_table, v_table, z_table, *extra_args):
         model.train()
         image_features, kw = _model_inputs(model, features, batch,
                                            pass_table, q_table, v_table,
                                            z_table)
         scores = model(image_features, batch["question_wids"],
-                       batch["answer_aids"], dropout_gen=gens["dropout"],
+                       batch["answer_aids"], *extra_args,
+                       dropout_gen=gens["dropout"],
                        lesion_gen=gens["lesion"], **kw)
         comp = batch["comp_idxs"]
         mask = _valid_mask(comp, batch["n_valid"])
@@ -280,8 +322,10 @@ def make_cx_train_step(model, optimizer, *, recall_k: int = 5,
 
     def train_step(state: CXTrainState, features, batch, n_valid,
                    q_table=None, v_table=None, z_table=None):
+        refuse_caches(model, any(t is not None
+                                 for t in (q_table, v_table, z_table)))
         metrics = run(step_inputs(batch, n_valid),
-                      (features, q_table, v_table, z_table),
+                      (features, q_table, v_table, z_table) + extra,
                       seed=base_seed, step=state.step)
         state.step += 1
         metrics["n"] = float(n_valid)
@@ -319,6 +363,7 @@ def make_cx_train_scan(train_step):
 
 
 def make_cx_eval_step(model, *, recall_k: int = 5, base_seed: int = 123,
+                      extra_apply_args: tuple = (),
                       use_z_cache: bool = False,
                       capture: bool | None = None):
     """Returns ``eval_step(features, batch, n_valid, step, q_table=None,
@@ -328,21 +373,24 @@ def make_cx_eval_step(model, *, recall_k: int = 5, base_seed: int = 123,
     lesion generator (the reference draws its placeholders in eval too) is
     seeded from (``base_seed``, ``step``), the batch's index in the pass.
 
-    ``capture`` as in :func:`make_cx_train_step`: a graph per batch
-    layout and table set.  Whether the model takes the feature table + row
-    indices (the candidate image-feature kernel, which needs the z cache)
-    is resolved here, at build time."""
-    pass_table = bool(use_z_cache and model.wants_table_features())
+    ``extra_apply_args`` and ``capture`` as in :func:`make_cx_train_step`:
+    a graph per batch layout and table set.  Whether the model takes the
+    feature table + row indices (the candidate image-feature kernel, which
+    needs the z cache) is resolved here, at build time."""
+    refuse_caches(model, use_z_cache)
+    pass_table = _pass_table(model, use_z_cache)
     gens = rng_lib.StepGenerators(("lesion",), _device(model))
+    extra = tuple(extra_apply_args)
 
     @torch.no_grad()
-    def body(batch, features, q_table, v_table, z_table):
+    def body(batch, features, q_table, v_table, z_table, *extra_args):
         model.eval()
         image_features, kw = _model_inputs(model, features, batch,
                                            pass_table, q_table, v_table,
                                            z_table)
         scores = model(image_features, batch["question_wids"],
-                       batch["answer_aids"], lesion_gen=gens["lesion"], **kw)
+                       batch["answer_aids"], *extra_args,
+                       lesion_gen=gens["lesion"], **kw)
         comp = batch["comp_idxs"]
         mask = _valid_mask(comp, batch["n_valid"])
         k = min(recall_k, scores.shape[-1])
@@ -356,50 +404,79 @@ def make_cx_eval_step(model, *, recall_k: int = 5, base_seed: int = 123,
 
     def eval_step(features, batch, n_valid, step, q_table=None,
                   v_table=None, z_table=None):
+        refuse_caches(model, any(t is not None
+                                 for t in (q_table, v_table, z_table)))
         return run(step_inputs(batch, n_valid),
-                   (features, q_table, v_table, z_table), seed=base_seed,
-                   step=step)
+                   (features, q_table, v_table, z_table) + extra,
+                   seed=base_seed, step=step)
 
     eval_step.graphed = run
     return eval_step
 
 
-def eval_model(eval_step, features, arrays: vqacx.CXArrays,
-               batch_size: int, *, q_table=None, v_table=None,
-               z_table=None) -> dict:
-    """Full-dataset eval -> {'loss', 'recall', 'recall_1'}.  The per-batch
-    sums stay on the device; one synchronisation at the end."""
+def _eval_sums(eval_step, features, arrays, batch_size, tables) -> tuple:
+    """Every batch through ``eval_step`` -> (f32 per-batch sums of
+    loss_sum / correct / correct1 (n_batches, 3) on the host, n_total).
+    The sums stay on the device until one synchronisation at the end."""
     keys = ("loss_sum", "correct", "correct1")
     sums = []
     n_total = 0
     for step, (idx, n_valid) in enumerate(vqacx.batch_indices(
             arrays.size, batch_size, shuffle=False)):
         out = eval_step(features, vqacx.gather_batch(arrays, idx), n_valid,
-                        step, q_table=q_table, v_table=v_table,
-                        z_table=z_table)
-        sums.append(torch.stack([out[k] for k in keys]))
+                        step, **tables)
+        sums.append(torch.stack([out[k].float() for k in keys]))
         n_total += n_valid
+    return torch.stack(sums).cpu().numpy(), n_total
+
+
+def eval_model(eval_step, features, arrays: vqacx.CXArrays,
+               batch_size: int, *, pairwise: bool = False,
+               pairwise_eval_step=None, rng=None, q_table=None,
+               v_table=None, z_table=None) -> dict:
+    """Full-dataset eval -> {'loss', 'recall', 'recall_1'}.  With
+    ``pairwise``, also ``loss_pairwise`` and ``acc_pairwise`` from a pass
+    of ``pairwise_eval_step`` (no cache tables) over
+    ``arrays.pairwise_view(rng)`` (``rng`` defaults to
+    ``default_rng(123)``), both divided by the main pass's example count
+    (JAX ``cx_engine.py:792-807``)."""
+    rows, n_total = _eval_sums(eval_step, features, arrays, batch_size,
+                               dict(q_table=q_table, v_table=v_table,
+                                    z_table=z_table))
     # f32 sums in batch order, as the JAX engine adds its batches' sums
-    rows = torch.stack(sums).cpu().numpy()
-    totals = {k: float(sum(rows[:, i], np.float32(0)))
-              for i, k in enumerate(keys)}
-    return {"loss": totals["loss_sum"] / n_total,
-            "recall": totals["correct"] / n_total,
-            "recall_1": totals["correct1"] / n_total}
+    totals = [float(sum(rows[:, i], np.float32(0))) for i in range(3)]
+    results = {"loss": totals[0] / n_total, "recall": totals[1] / n_total,
+               "recall_1": totals[2] / n_total}
+    if pairwise:
+        if pairwise_eval_step is None:
+            raise ValueError("pairwise eval needs pairwise_eval_step")
+        view = arrays.pairwise_view(rng or np.random.default_rng(123))
+        prows, _ = _eval_sums(pairwise_eval_step, features, view,
+                              batch_size, {})
+        # float64 sums of the per-batch values, as JAX's ``float(...) +=``
+        results["loss_pairwise"] = (sum(float(x) for x in prows[:, 0])
+                                    / n_total)
+        results["acc_pairwise"] = (sum(float(x) for x in prows[:, 2])
+                                   / n_total)
+    return results
 
 
 def train_epoch(train_step, state: CXTrainState, features,
-                arrays: vqacx.CXArrays, batch_size: int, *, rng=None,
-                log_fn=None, print_freq: int = 100, eval_fn=None,
-                eval_freq: int = -1, q_table=None, v_table=None,
-                z_table=None, scan_step=None, scan_len: int = 0):
+                arrays: vqacx.CXArrays, batch_size: int, *,
+                pairwise: bool = False, rng=None, log_fn=None,
+                print_freq: int = 100, eval_fn=None, eval_freq: int = -1,
+                q_table=None, v_table=None, z_table=None, scan_step=None,
+                scan_len: int = 0):
     """One epoch over shuffled batches (reference counterexamples.py:
     312-361) -> ``(state, eval_results)``.
 
     ``log_fn(step_in_epoch, metrics)`` fires every ``print_freq`` batches
     (and synchronises, to read the loss); ``eval_fn(state)`` fires every
     ``eval_freq`` batches and at the end of the epoch, and its last result
-    is returned.  The batch order comes from the numpy ``rng``.
+    is returned.  The batch order comes from the numpy ``rng``.  With
+    ``pairwise`` the epoch trains on ``arrays.pairwise_view(rng)`` (drawn
+    before the shuffle), where the z cache, whose rows hold the fixed
+    candidate lists, is refused.
 
     ``scan_step`` / ``scan_len``: a :func:`make_cx_train_scan` trainer
     over ``train_step``; full groups of ``scan_len`` batches go to it in
@@ -407,6 +484,11 @@ def train_epoch(train_step, state: CXTrainState, features,
     groups them.  The hooks then fire once per group, at the group's last
     batch, with its last step's metrics."""
     rng = rng or np.random.default_rng()
+    if pairwise and z_table is not None:
+        raise ValueError("z_table rows are per fixed candidate list; "
+                         "pairwise views resample candidates per epoch")
+    if pairwise:
+        arrays = arrays.pairwise_view(rng)
     n_batches = (arrays.size + batch_size - 1) // batch_size
     eval_results = None
     t0 = time.time()

@@ -1,7 +1,7 @@
 """Model factories (port of ``models/factory.py``): ``factory_vqa`` for
 MutanNoAtt and MutanAtt (with the reference constructors' dim tying),
-``factory_cx`` for NeuralModel, and ``flagship_cx``, the flagship
-configuration at full width."""
+``factory_cx`` for the ten CX models of ``cx_model_names``, and
+``flagship_cx``, the flagship configuration at full width."""
 
 from __future__ import annotations
 
@@ -30,19 +30,55 @@ def factory_vqa(opt: dict, vocab_words: Sequence[str],
         "VQA arch %r is not ported yet (ROADMAP.md, Queue 1)" % arch)
 
 
-def factory_cx(cx_name: str, vqa_model: nn.Module, *, knn_size: int = 24,
-               trainable_vqa: bool = False, model_spec: dict | None = None
+cx_model_names = ["RandomBaseline", "DistanceBaseline", "BlackBox",
+                  "LinearContext", "SemanticBaseline", "NeuralModel",
+                  "PairwiseModel", "PairwiseLinearModel", "ContrastiveModel",
+                  "SimilarityModel"]
+
+
+def factory_cx(cx_name: str, vqa_model: nn.Module | None, *,
+               knn_size: int = 24, trainable_vqa: bool = False,
+               model_spec: dict | None = None, sb_lambda: float = 0.5
                ) -> nn.Module:
-    if cx_name != "NeuralModel":
-        raise NotImplementedError(
-            "cx_model %r is not ported yet (ROADMAP.md, Queue 1 #8)"
-            % cx_name)
-    spec = dict(model_spec or {})
-    return cx_mod.NeuralModel(
-        vqa_model, knn_size=knn_size, trainable_vqa=trainable_vqa,
-        model_spec=spec, dim_h=spec.get("dim_h", 300),
-        n_layers=spec.get("n_layers", 2), drop_p=spec.get("drop_p", 0.25),
-        dim_a=spec.get("dim_a", 2400))
+    """The dispatch of JAX ``factory.py:63-101`` (reference
+    ``counterexamples.py:216-273``).  The two baselines take no backbone
+    (``vqa_model`` may be None); every other name needs one."""
+    if cx_name == "RandomBaseline":
+        return cx_mod.RandomBaseline(knn_size=knn_size)
+    if cx_name == "DistanceBaseline":
+        return cx_mod.DistanceBaseline(knn_size=knn_size)
+    if cx_name not in cx_model_names:
+        raise ValueError("Unrecognized cx_model %s" % cx_name)
+    if vqa_model is None:
+        raise ValueError("%s needs a VQA backbone" % cx_name)
+    common = dict(vqa_model=vqa_model, knn_size=knn_size,
+                  trainable_vqa=trainable_vqa)
+    if cx_name == "SemanticBaseline":
+        return cx_mod.SemanticBaseline(lam=sb_lambda, **common)
+    if cx_name == "NeuralModel":
+        spec = dict(model_spec or {})
+        return cx_mod.NeuralModel(
+            model_spec=spec, dim_h=spec.get("dim_h", 300),
+            n_layers=spec.get("n_layers", 2),
+            drop_p=spec.get("drop_p", 0.25), dim_a=spec.get("dim_a", 2400),
+            **common)
+    return getattr(cx_mod, cx_name)(**common)
+
+
+def cx_from_options(cx_name: str, options: dict,
+                    vocab_words: Sequence[str], vocab_answers: Sequence[str],
+                    *, knn_size: int = 24, sb_lambda: float = 0.5
+                    ) -> nn.Module:
+    """A CX model from a resolved option tree (``core/config``), as the CX
+    CLI builds it: the ``model`` backbone (none for the two baselines),
+    ``cx_model`` as the model spec and its ``trainable_vqa``.  Weights are
+    left at torch's defaults: call ``engines.cx_engine.init_cx_params``."""
+    vqa = (None if cx_name in ("RandomBaseline", "DistanceBaseline")
+           else factory_vqa(options["model"], vocab_words, vocab_answers))
+    spec = dict(options["cx_model"])
+    return factory_cx(cx_name, vqa, knn_size=knn_size,
+                      trainable_vqa=spec["trainable_vqa"], model_spec=spec,
+                      sb_lambda=sb_lambda)
 
 
 def flagship_cx(vocab_words: Sequence[str], vocab_answers: Sequence[str],

@@ -94,23 +94,38 @@ def vqa_state_dict_from_jax(params: dict, prefix: str = "") -> dict:
 
 
 def cx_trainable_state_dict_from_jax(tree: dict) -> dict:
-    """The trainable (non-backbone) part of a NeuralModel tree ->
-    state_dict.  Serves the params and any tree shaped like them (grads,
-    Adam moments)."""
-    sd = {"answer_embedding.weight": _t(tree["answer_embedding"])}
+    """The CX model's own (non-backbone) part of its tree -> state_dict:
+    NeuralModel's ``answer_embedding`` / ``linear_{i}_{w,b}`` / ``out_*``,
+    or the zoo's ``linear`` / ``out`` Dense and PairwiseLinearModel's
+    ``answer_embedding`` Embed.  Serves the params and any tree shaped like
+    them (grads, Adam moments)."""
+    sd = {}
+    emb = tree.get("answer_embedding")
+    if emb is not None:
+        if isinstance(emb, dict):
+            emb = emb["embedding"]
+        sd["answer_embedding.weight"] = _t(emb)
     layer = 1
     while "linear_%d_w" % layer in tree:
         _linear(sd, "linear_%d" % layer, tree["linear_%d_w" % layer],
                 tree["linear_%d_b" % layer])
         layer += 1
-    _linear(sd, "out", tree["out_w"], tree["out_b"])
+    if "out_w" in tree:
+        _linear(sd, "out", tree["out_w"], tree["out_b"])
+    for name in ("linear", "out"):
+        if isinstance(tree.get(name), dict):
+            _linear(sd, name, tree[name]["kernel"], tree[name]["bias"])
     return sd
 
 
 def cx_state_dict_from_jax(params: dict) -> dict:
-    """NeuralModel param tree (with the nested ``vqa_model``) ->
-    state_dict."""
-    sd = vqa_state_dict_from_jax(params["vqa_model"], prefix="vqa_model.")
+    """A CX model's param tree (with the nested ``vqa_model`` where the
+    model has a backbone) -> state_dict.  Serves any tree shaped like the
+    params, e.g. the Adam moments of a trainable backbone."""
+    sd = {}
+    if "vqa_model" in params:
+        sd.update(vqa_state_dict_from_jax(params["vqa_model"],
+                                          prefix="vqa_model."))
     sd.update(cx_trainable_state_dict_from_jax(params))
     return sd
 
@@ -137,11 +152,11 @@ def _carry_adam(opt_state, model, optimizer, to_state_dict) -> None:
 def adam_state_from_jax(opt_state, model: torch.nn.Module,
                         optimizer: torch.optim.Optimizer) -> None:
     """Carry optax's Adam state (``ScaleByAdamState``: ``count``, ``mu``,
-    ``nu`` over the trainable subtree) into ``optimizer``'s state for
-    ``model``'s trainable parameters (``step``, ``exp_avg``,
-    ``exp_avg_sq``), in place.  Leaves are numpy (or array-like)."""
-    _carry_adam(opt_state, model, optimizer,
-                cx_trainable_state_dict_from_jax)
+    ``nu`` over the trainable subtree, the backbone's ``vqa_model`` too
+    when it trains) into ``optimizer``'s state for ``model``'s trainable
+    parameters (``step``, ``exp_avg``, ``exp_avg_sq``), in place.  Leaves
+    are numpy (or array-like)."""
+    _carry_adam(opt_state, model, optimizer, cx_state_dict_from_jax)
 
 
 def vqa_adam_state_from_jax(opt_state, model: torch.nn.Module,

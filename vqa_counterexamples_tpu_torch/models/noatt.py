@@ -50,8 +50,13 @@ class MutanNoAtt(nn.Module):
         return self.fusion.v_project(input_v)
 
     def fuse_candidates(self, input_v, x_q: torch.Tensor,
-                        v_proj: torch.Tensor | None = None) -> torch.Tensor:
-        return self.fusion.fuse_candidates(input_v, x_q, hv=v_proj)
+                        v_proj: torch.Tensor | None = None,
+                        training: bool = False,
+                        generator: torch.Generator | None = None
+                        ) -> torch.Tensor:
+        return self.fusion.fuse_candidates(input_v, x_q, hv=v_proj,
+                                           training=training,
+                                           generator=generator)
 
     def classify(self, z: torch.Tensor, training: bool = False,
                  generator: torch.Generator | None = None) -> torch.Tensor:

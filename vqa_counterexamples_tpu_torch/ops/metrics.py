@@ -1,5 +1,5 @@
 """Metrics: recall@K over candidate rankings, top-k accuracy, CE losses,
-distances (port of ``ops/metrics.py``).  All return tensors on the input's
+distances and cosine similarity (port of ``ops/metrics.py``).  All return tensors on the input's
 device: nothing here waits for the card."""
 
 from __future__ import annotations
@@ -10,10 +10,16 @@ import torch
 def recall_at_k(scores: torch.Tensor, ground_truth: torch.Tensor,
                 k: int = 5) -> torch.Tensor:
     """Per-example 0/1 (f32): is the ground-truth index within the top-k
-    scores?  scores (B, C); ground_truth (B,) int."""
-    top_idx = torch.topk(scores, k, dim=1).indices
-    hit = (top_idx == ground_truth[:, None].long()).any(dim=1)
-    return hit.to(torch.float32)
+    scores?  scores (B, C); ground_truth (B,) int.  Ties rank the lower
+    index first, as ``jax.lax.top_k`` does (``torch.topk`` leaves their
+    order open): the ground truth is in the top k when fewer than k
+    candidates score above it or tie with it at a lower index.  The
+    pairwise models' ReLU scores tie at 0 often."""
+    gt = ground_truth[:, None].long()
+    s_gt = torch.gather(scores, 1, gt)
+    idx = torch.arange(scores.shape[1], device=scores.device)[None, :]
+    ahead = (scores > s_gt) | ((scores == s_gt) & (idx < gt))
+    return (ahead.sum(dim=1) < k).to(torch.float32)
 
 
 def accuracy_topk(output: torch.Tensor, target: torch.Tensor,
@@ -56,3 +62,12 @@ def pairwise_distance(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-6,
     semantics: eps inside the norm)."""
     d = torch.sqrt(torch.sum((a - b + eps) ** 2, dim=-1))
     return d[..., None] if keepdims else d
+
+
+def cosine_similarity(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8,
+                      dim: int = -1) -> torch.Tensor:
+    """Cosine similarity along ``dim``, the norms' product clamped below at
+    ``eps`` (JAX ``ops/metrics.py:67``)."""
+    na = torch.sqrt(torch.sum(a * a, dim=dim))
+    nb = torch.sqrt(torch.sum(b * b, dim=dim))
+    return torch.sum(a * b, dim=dim) / torch.clamp(na * nb, min=eps)
