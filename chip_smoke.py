@@ -108,6 +108,28 @@ ends the run with a nonzero exit and no result line.
    files, finite results, ``acc_pairwise`` where pairwise, ``best_epoch``,
    and the GRU forward's counter moving in every q-cache build; then
    ``cli.contrastive.main([... --synthetic 2048 --epochs 1 -b 768])``.
+12. The real-data pipeline at full width: a fixture in the real file
+   names and layouts, made with numpy from the seed (512 train / 128 val
+   COCO-named images with 8 questions each, ten human answers a question,
+   more than 2,000 distinct train answers, complementary pairs inside
+   feature clusters of 32 images, noatt features and 14 x 14 x 2048 att
+   maps, a skip-thoughts set at 620 / 2400), then the port's CLIs in the
+   runbook's order (``scripts/replicate_reference.py``), their YAMLs'
+   paths rewritten and their widths as published: ``preprocess interim``
+   and ``processed`` (nans 2000), ``port_skipthoughts``, ``knn -k 25``
+   for train and val, ``train`` with ``mutan_noatt_train.yaml`` (1 epoch,
+   B 512; ``eval_res`` scores the val rows), ``build_answer_embedding``
+   (held against the same encoder through the plain GRU),
+   ``build_vqacx`` for both splits, ``counterexamples --cx_model
+   NeuralModel --epochs 1 --test --z_cache`` with
+   ``counterexamples_default.yaml`` (the backbone grafted from the
+   ``best`` checkpoint and the answer embedding from its pickle, both
+   checked bit for bit), ``train`` with ``mutan_att_train.yaml`` (1
+   epoch, B 128).  Every stage's launch counts must be exactly its
+   steps', batches', chunks' or 128-answer batches'; each stage's seconds
+   and the phase's peak allocated memory are logged.  An epoch whose val
+   acc@1 stays 0 writes no ``best_*`` (the reference's rule); the phase
+   then takes its ``ckpt_*`` as the best, and says so.
 
 Phase 1 also holds the folded MUTAN kernels (forward and backward, each
 with a bit-equal rerun) at MutanAtt's attention shape, the kNN kernel at
@@ -118,7 +140,7 @@ backward at the trainable CX step's B 768 and B 64, and MUTAN at
 MutanAtt's classifier shape and over the trainable step's 19,200
 duplicated rows (each with a bit-equal rerun, as at B 512); every GRU
 forward row
-logs the tile it launches with.  Phases 3-5, 7, 10 and 11 log the peak
+logs the tile it launches with.  Phases 3-5, 7 and 10-12 log the peak
 of allocated device memory.  It prints the card's
 name and power limit, a ``{"kernels": [...]}`` line and, last, ``{"ok":
 true, "device": {...}}``.
@@ -2006,6 +2028,430 @@ def phase_zoo(dev, card):
     log("  phase 11: " + memory_line(card))
 
 
+# phase 12's fixture: the real file layouts at full width, from the seed
+RD_IMAGES = {"train": 512, "val": 128}
+RD_QUESTIONS = 8           # questions an image
+RD_COMP = 4                # of them shared with the image's pair mate
+RD_CLUSTER = 32            # images around one feature centre
+RD_WORDS = 1200            # question words
+NOATT_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs", "vqa2", "mutan_noatt_train.yaml")
+CX_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "configs", "cx", "counterexamples_default.yaml")
+
+
+def write_realdata(root, seed=SEED):
+    """The raw files of a miniature COCO / VQA2 / skip-thoughts set under
+    ``root`` in the real names and layouts, made with numpy: 512 train and
+    128 val images with 8 questions each, ten human answers a question and
+    ``multiple_choice_answer``; more than 2,000 distinct train answers
+    (1,500 seen twice, the rest once), so ``nans`` 2000 cuts the tail;
+    complementary pairs between images 2i-1 and 2i on 4 shared questions;
+    features in clusters of 32 images (``trainset.npy`` (N, 2048) f32 and
+    ``trainset.att.npy`` (N, 14, 14, 2048) f32, COCO-named rows in
+    ``trainset.txt``), each pair inside one cluster; a skip-thoughts set
+    at the published widths (``dictionary.txt`` without one question word,
+    ``utable.npy`` (V, 620), a theano-layout ``uni_skip.npz`` at hidden
+    2400).  Returns the paths by name."""
+    rng = np.random.default_rng(seed)
+    paths = {"vqa": os.path.join(root, "data", "vqa2"),
+             "coco": os.path.join(root, "data", "coco"),
+             "st": os.path.join(root, "data", "skip-thoughts"),
+             "cx": os.path.join(root, "data", "cx"),
+             "logs": os.path.join(root, "logs")}
+    paths["ann"] = os.path.join(paths["vqa"], "raw", "annotations")
+    paths["knn"] = os.path.join(paths["coco"], "knn")
+    paths["features"] = os.path.join(paths["coco"], "extract",
+                                     "arch,fbresnet152_size,448")
+    for key in ("ann", "knn", "features", "st", "cx"):
+        os.makedirs(paths[key], exist_ok=True)
+    words = ["w%04d" % i for i in range(RD_WORDS)]
+    common = (words[:1000]
+              + ["%s %s" % (words[a], words[b]) for a, b in
+                 rng.integers(0, RD_WORDS, (300, 2))]
+              + ["x%03d" % i for i in range(200)])   # not question words
+    n_train_q = RD_IMAGES["train"] * RD_QUESTIONS
+    train_answers = common * 2 + ["t%04d" % i
+                                  for i in range(n_train_q - 2 * 1500)]
+    train_answers = [train_answers[i] for i in rng.permutation(n_train_q)]
+
+    def question():
+        n = int(rng.integers(4, 15))
+        return " ".join(words[i] for i in rng.integers(0, RD_WORDS, n)) \
+            + " ?"
+
+    for split, n in RD_IMAGES.items():
+        questions, annotations, pairs = [], [], []
+        for image in range(1, n + 1):
+            mate = image - 1 if image % 2 == 0 else None
+            for q in range(RD_QUESTIONS):
+                qid = image * 10 + q
+                text = (questions[-RD_QUESTIONS]["question"]
+                        if mate and q < RD_COMP else question())
+                if mate and q < RD_COMP:
+                    pairs.append([mate * 10 + q, qid])
+                k = len(questions)
+                answer = (train_answers[k] if split == "train"
+                          else common[int(rng.integers(0, 1500))])
+                other = common[int(rng.integers(0, 1500))]
+                humans = [answer] * int(rng.integers(6, 11))
+                humans += [other] * (10 - len(humans))
+                questions.append({"question_id": qid, "image_id": image,
+                                  "question": text})
+                annotations.append({
+                    "question_id": qid, "image_id": image,
+                    "multiple_choice_answer": answer,
+                    "answers": [{"answer": a, "answer_id": j + 1}
+                                for j, a in enumerate(humans)]})
+        for name, obj in (
+                ("v2_OpenEnded_mscoco_%s2014_questions.json",
+                 {"questions": questions}),
+                ("v2_mscoco_%s2014_annotations.json",
+                 {"annotations": annotations}),
+                ("v2_mscoco_%s2014_complementary_pairs.json", pairs)):
+            with open(os.path.join(paths["ann"], name % split), "w") as f:
+                json.dump(obj, f)
+        names = ["COCO_%s2014_%012d.jpg" % (split, i)
+                 for i in range(1, n + 1)]
+        centres = rng.standard_normal((n // RD_CLUSTER, 2048),
+                                      dtype=np.float32)
+        feats = (np.repeat(centres, RD_CLUSTER, axis=0) + 0.1
+                 * rng.standard_normal((n, 2048), dtype=np.float32))
+        prefix = os.path.join(paths["features"], "%sset" % split)
+        np.save(prefix + ".npy", feats)
+        maps = np.lib.format.open_memmap(prefix + ".att.npy", mode="w+",
+                                         dtype=np.float32,
+                                         shape=(n, 14, 14, 2048))
+        for i in range(0, n, 64):
+            maps[i:i + 64] = rng.standard_normal(
+                (min(64, n - i), 14, 14, 2048), dtype=np.float32)
+        maps.flush()
+        del maps
+        with open(prefix + ".txt", "w") as f:
+            f.write("\n".join(names) + "\n")
+    dictionary = ["UNK"] + words[:-1] + ["extra%d" % i for i in range(50)]
+    with open(os.path.join(paths["st"], "dictionary.txt"), "w") as f:
+        f.write("\n".join(dictionary) + "\n")
+    np.save(os.path.join(paths["st"], "utable.npy"),
+            0.3 * rng.standard_normal((len(dictionary), 620),
+                                      dtype=np.float32))
+    h, s = 2400, 2400 ** -0.5
+    np.savez(os.path.join(paths["st"], "uni_skip.npz"),
+             encoder_W=0.04 * rng.standard_normal((620, 2 * h),
+                                                  dtype=np.float32),
+             encoder_U=s * rng.standard_normal((h, 2 * h), dtype=np.float32),
+             encoder_b=np.zeros(2 * h, np.float32),
+             encoder_Wx=0.04 * rng.standard_normal((620, h),
+                                                   dtype=np.float32),
+             encoder_Ux=s * rng.standard_normal((h, h), dtype=np.float32),
+             encoder_bx=np.zeros(h, np.float32))
+    return paths
+
+
+def realdata_yaml(paths, config, name, **sections):
+    """``config`` with its data paths rewritten to the fixture's, as
+    ``scripts/replicate_reference.write_vqa_train_yaml`` and
+    ``stage_counterexamples`` rewrite them, at the published widths."""
+    import yaml
+
+    with open(config) as f:
+        opt = yaml.safe_load(f)
+    opt["vqa"]["dir"] = paths["vqa"]
+    opt["coco"]["dir"] = paths["coco"]
+    opt["coco"]["path_features"] = paths["features"]
+    opt["model"]["seq2vec"]["dir_st"] = paths["st"]
+    for section, values in sections.items():
+        opt[section].update(values)
+    path = os.path.join(os.path.dirname(paths["vqa"]), name)
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return path
+
+
+class stage_clock:
+    """Logs a stage's seconds and its launches; ``want`` (name -> count,
+    the others 0) must equal the counters read at its end."""
+
+    def __init__(self, name, seconds):
+        self.name, self.seconds = name, seconds
+
+    def __enter__(self):
+        reset_counters()
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+        return self
+
+    def check(self, want, note=""):
+        torch.cuda.synchronize()
+        self.seconds[self.name] = time.perf_counter() - self.t0
+        launches = read_counters()
+        want = {k: want.get(k, 0) for k in SOURCES}
+        log("  %s: %.2f s; launches %s%s" % (self.name,
+                                             self.seconds[self.name],
+                                             launches, note))
+        if launches != want:
+            raise AssertionError("%s: launch counts %s, expected %s"
+                                 % (self.name, launches, want))
+        return launches
+
+    def __exit__(self, *exc):
+        return False
+
+
+def join_threads():
+    """Wait for the train CLI's scoring threads (``eval_res``)."""
+    import threading
+
+    for thread in threading.enumerate():
+        if thread is not threading.current_thread():
+            thread.join(timeout=300)
+
+
+def phase_realdata(dev, card):
+    """Phase 12: the real-data pipeline through the port's CLIs."""
+    import pickle
+
+    from vqa_counterexamples_tpu_torch.cli import (
+        build_answer_embedding, build_vqacx, counterexamples, knn,
+        port_skipthoughts, preprocess, train)
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+    log("== phase 12: the real-data pipeline at full width")
+    torch.cuda.reset_peak_memory_stats()
+    seconds = {}
+    d = ["--device", str(dev)]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        paths = write_realdata(root)
+        seconds["fixture"] = time.perf_counter() - t0
+        log("  fixture (512 train / 128 val images, 8 questions each, "
+            "att maps included): %.2f s" % seconds["fixture"])
+        processed = os.path.join(
+            paths["vqa"], "processed", "nans,2000_maxlength,26_minwcount,0_"
+            "nlp,mcb_pad,right_trainsplit,train")
+
+        # 1. preprocess
+        with stage_clock("preprocess", seconds) as st:
+            preprocess.main(["interim", "--dir_vqa", paths["vqa"]])
+            preprocess.main(["processed", "--dirname", paths["vqa"],
+                             "--nans", "2000", "--maxlength", "26",
+                             "--minwcount", "0", "--nlp", "mcb", "--pad",
+                             "right"])
+            st.check({})
+        with open(os.path.join(processed, "aid_to_ans.pickle"), "rb") as f:
+            vocab_answers = pickle.load(f)
+        with open(os.path.join(processed, "trainset.pickle"), "rb") as f:
+            n_train = len(pickle.load(f))
+        with open(os.path.join(processed, "valset.pickle"), "rb") as f:
+            n_val = len(pickle.load(f))
+        log("  %d answers; %d of %d train questions kept (OOV answers "
+            "dropped); %d val questions"
+            % (len(vocab_answers), n_train,
+               RD_IMAGES["train"] * RD_QUESTIONS, n_val))
+        if len(vocab_answers) != 2000 or not (
+                3000 <= n_train < RD_IMAGES["train"] * RD_QUESTIONS):
+            raise AssertionError("preprocess: %d answers, %d train "
+                                 "questions" % (len(vocab_answers), n_train))
+
+        # 2. the skip-thoughts porter
+        with stage_clock("port_skipthoughts", seconds) as st:
+            port_skipthoughts.main([
+                "--dir_st", paths["st"], "--vocab",
+                os.path.join(processed, "wid_to_word.pickle"), "--table",
+                "utable", "--out",
+                os.path.join(paths["st"], "adapted_uniskip.npz")])
+            st.check({})
+        z = np.load(os.path.join(paths["st"], "adapted_uniskip.npz"))
+        if (z["embedding"].shape[1] != 620
+                or z["w_hh"].shape != (2400, 7200)):
+            raise AssertionError("adapted npz %s"
+                                 % {k: z[k].shape for k in z.files})
+
+        # 3. kNN, -k 25, train and val
+        for split in ("train", "val"):
+            with stage_clock("knn " + split, seconds) as st:
+                out = os.path.join(paths["knn"],
+                                   "computed_%s2014_nn_images.json" % split)
+                knn.main(["--path_features", os.path.join(
+                    paths["features"], "%sset" % split), "-k", "25",
+                    "--split", split, "--json-out", out] + d)
+                st.check({"knn": -(-RD_IMAGES[split] // 1024)})
+            with open(out) as f:
+                lists = json.load(f)
+            cluster = {int(k): {(int(k) - 1) // RD_CLUSTER} for k in lists}
+            strays = sum((j - 1) // RD_CLUSTER not in cluster[int(k)]
+                         for k, v in lists.items() for j in v)
+            if (len(lists) != RD_IMAGES[split] or strays
+                    or {len(v) for v in lists.values()} != {24}):
+                raise AssertionError("knn %s: %d lists, %d neighbours "
+                                     "outside the cluster"
+                                     % (split, len(lists), strays))
+
+        # 4. MutanNoAtt pretraining, 1 epoch, B 512, eval_res on the rows
+        vqa_logs = os.path.join(paths["logs"], "vqa2", "mutan_noatt_train")
+        noatt_yaml = realdata_yaml(paths, NOATT_CONFIG, "noatt.yaml")
+        steps, val_batches = n_train // 512, n_val // 512
+        with stage_clock("train MutanNoAtt", seconds) as st:
+            state = train.main(["--path_opt", noatt_yaml, "--dir_logs",
+                                vqa_logs, "--epochs", "1", "-b", "512",
+                                "--seed", str(SEED)] + d)
+            st.check({"gru_pg": steps, "gru_bwd": steps,
+                      "mutan": steps + val_batches, "gru": val_batches},
+                     "; %d steps, %d val batches" % (state.step,
+                                                     val_batches))
+        join_threads()
+        with open(os.path.join(vqa_logs, "results", "val",
+                               "vqa_OpenEnded_mscoco_epoch_1_accuracy.json"
+                               )) as f:
+            scores = json.load(f)
+        with open(os.path.join(vqa_logs, "ckpt_info.json")) as f:
+            info = json.load(f)
+        log("  val %s; eval_res OpenEnded %.2f over %d rows"
+            % (info, scores["overall"], scores["n"]))
+        if (state.step != steps or scores["n"] != val_batches * 512
+                or not 0.0 <= scores["overall"] <= 100.0
+                or not np.isfinite(info["acc1"])):
+            raise AssertionError("pretraining: %d steps, %s, %s"
+                                 % (state.step, info, scores))
+        if not os.path.isfile(os.path.join(vqa_logs, "best_model.pt")):
+            # a best checkpoint needs a val acc@1 above 0: save the last
+            import shutil
+
+            for name in ("info.json", "model.pt", "optim.pt"):
+                shutil.copyfile(os.path.join(vqa_logs, "ckpt_" + name),
+                                os.path.join(vqa_logs, "best_" + name))
+            log("  (val acc@1 0: ckpt_* copied to best_*)")
+
+        # 5. the answer embedding, kernel path vs the plain GRU
+        emb_path = os.path.join(paths["cx"], "answer_embedding.pickle")
+        argv = ["--path_opt", noatt_yaml, "--path_processed", processed,
+                "--dir_logs", vqa_logs] + d
+        with open(os.path.join(processed, "wid_to_word.pickle"), "rb") as f:
+            vocab_words = set(pickle.load(f).values())
+        covered = sum(all(w in vocab_words for w in a.split())
+                      for a in vocab_answers)
+        with stage_clock("build_answer_embedding", seconds) as st:
+            table = build_answer_embedding.main(argv + ["--out", emb_path])
+            st.check({"gru": -(-covered // 128)},
+                     "; %d covered answers" % covered)
+        with plain_kernels():
+            plain = build_answer_embedding.main(argv + [
+                "--out", os.path.join(root, "plain.pickle")])
+        rows = np.abs(table).sum(1) > 0
+        log("  table %s, %d rows covered" % (table.shape, rows.sum()))
+        if table.shape != (2000, 2400) or rows.sum() != covered \
+                or not covered:
+            raise AssertionError("answer embedding %s, %d covered"
+                                 % (table.shape, rows.sum()))
+        check_close("answer_emb", torch.from_numpy(table),
+                    torch.from_numpy(plain), TOL["gru"])
+
+        # 6. the augmented VQA-CX sets
+        with stage_clock("build_vqacx", seconds) as st:
+            for split in ("train", "val"):
+                build_vqacx.main([
+                    "--split", split, "--path_processed", processed,
+                    "--path_comp_pairs", os.path.join(
+                        paths["ann"],
+                        "v2_mscoco_%s2014_complementary_pairs.json" % split),
+                    "--path_knn_json", os.path.join(
+                        paths["knn"], "computed_%s2014_nn_images.json"
+                        % split),
+                    "--path_features_txt", os.path.join(
+                        paths["features"], "%sset.txt" % split),
+                    "--out_dir", paths["cx"]])
+            st.check({})
+        sizes = {}
+        for split in ("train", "val"):
+            with open(os.path.join(paths["cx"], "%sset_augmented.pickle"
+                                   % split), "rb") as f:
+                examples = pickle.load(f)["examples_list"]
+            sizes[split] = len(examples)
+            pairs = RD_IMAGES[split] // 2 * RD_COMP * 2
+            if not (pairs // 2 < sizes[split] <= pairs and all(
+                    len(ex["knns"]) == 24
+                    and 0 <= ex["comp"]["knn_index"] < 24
+                    for ex in examples)):
+                raise AssertionError("build_vqacx %s: %d of %d kept"
+                                     % (split, sizes[split], pairs))
+        log("  augmented: %d train, %d val examples" % (sizes["train"],
+                                                      sizes["val"]))
+
+        # 7. NeuralCX over the real sets, --test (the --z_cache step: the
+        # one that takes the vfeat kernels)
+        cx_yaml = realdata_yaml(
+            paths, CX_CONFIG, "cx.yaml", logs={"dir_logs": vqa_logs},
+            vqa={"path_trainset": paths["cx"]})
+        seen = {}
+        init_state = cx_engine.init_cx_state
+
+        def spy(model, *args, **kwargs):
+            seen["start"] = {k: v.detach().clone()
+                             for k, v in model.state_dict().items()}
+            return init_state(model, *args, **kwargs)
+
+        cx_steps = -(-sizes["train"] // 64)
+        eval_batches = 2 * -(-sizes["val"] // 64)   # the val pass, --test
+        cx_engine.init_cx_state = spy
+        try:
+            with stage_clock("counterexamples", seconds) as st, \
+                    counted_cache_builds() as cb:
+                info, files, res = cli_run(counterexamples.main, [
+                    "--cx_model", "NeuralModel", "--epochs", "1", "--test",
+                    "--z_cache", "--path_opt", cx_yaml, "--seed", str(SEED)]
+                    + d)
+                st.check({"gru": 3, "vfeat": cx_steps + eval_batches,
+                          "vfeat_bwd": cx_steps,
+                          "mixture": cx_steps + eval_batches},
+                         "; %d steps, %d eval batches, %d cache builds"
+                         % (cx_steps, eval_batches, cb.builds))
+        finally:
+            cx_engine.init_cx_state = init_state
+        log("  val %s; final_results.txt %s" % (info[-1], res))
+        if (cb.builds != 3 or set(res) != {"loss", "recall", "recall_1",
+                                             "best_epoch"}
+                or not np.isfinite(res["loss"])
+                or not 0.0 <= res["recall_1"] <= res["recall"] <= 1.0):
+            raise AssertionError("counterexamples: %s, %d cache builds"
+                                 % (res, cb.builds))
+        best = torch.load(os.path.join(vqa_logs, "best_model.pt"),
+                          map_location="cpu", weights_only=True)
+        start = seen["start"]
+        differ = [k for k, v in best.items()
+                  if not torch.equal(start["vqa_model." + k].cpu(), v)]
+        emb_equal = np.array_equal(
+            start["answer_embedding.weight"].cpu().numpy(), table)
+        log("  the CX model's backbone at its start: %d tensors, %s the "
+            "best VQA checkpoint's; its answer embedding %s the pickle's"
+            % (len(best), "bit-equal to" if not differ else
+               "DIFFERENT from (%s)" % differ,
+               "bit-equal to" if emb_equal else "DIFFERENT from"))
+        if differ or not emb_equal:
+            raise AssertionError("the grafted backbone or answer embedding "
+                                 "differs from its file")
+
+        # 8. MutanAtt pretraining, 1 epoch, B 128, over the att maps
+        att_yaml = realdata_yaml(paths, ATT_CONFIG, "att.yaml")
+        steps, val_batches = n_train // 128, n_val // 128
+        with stage_clock("train MutanAtt", seconds) as st:
+            state = train.main([
+                "--path_opt", att_yaml, "--dir_logs",
+                os.path.join(paths["logs"], "vqa2", "mutan_att_train"),
+                "--epochs", "1", "-b", "128", "--seed", str(SEED)] + d)
+            st.check({"gru_pg": steps, "gru_bwd": steps,
+                      "mutan": steps + val_batches,
+                      "attmutan": steps + val_batches,
+                      "attmutan_bwd": steps, "gru": val_batches},
+                     "; %d steps, %d val batches" % (state.step,
+                                                     val_batches))
+        join_threads()
+        if state.step != steps:
+            raise AssertionError("MutanAtt: %d steps" % state.step)
+    log("  stage seconds: %s (%s)" % ({k: round(v, 2) for k, v in
+                                        seconds.items()}, card))
+    log("  phase 12: " + memory_line(card))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -2028,6 +2474,7 @@ def main():
     launches_knn = phase_knn(dev, card)
     phase_trainable(dev, card)
     phase_zoo(dev, card)
+    phase_realdata(dev, card)
     log("total %.1f s" % (time.perf_counter() - t0))
     # launches: each kernel's path; the CX training path (phase 3) runs
     # gru, vfeat, vfeat_bwd and mixture, MutanNoAtt pretraining (phase 5)

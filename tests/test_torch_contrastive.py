@@ -15,6 +15,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import yaml
 
 from vqa_counterexamples_tpu.core import policy as jax_policy
 from vqa_counterexamples_tpu.data import synthetic as jax_synthetic
@@ -192,8 +193,13 @@ def test_contrastive_cli_refusals(tmp_path):
             _tiny_cli_options(tmp_path), "--project_dir", str(tmp_path)]
     with pytest.raises(NotImplementedError, match="Queue 1 #12"):
         port_cli.main(base + ["--mesh", "data=2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        port_cli.main(["--epochs", "1", "--device", "cpu",
+    # without --synthetic the CLI reads the real VQA-CX pickles, and raises
+    # as the JAX CLI does where they are missing
+    (tmp_path / "real.yaml").write_text(yaml.safe_dump(
+        {"base": base[5], "vqa": {"path_trainset": str(tmp_path / "no_cx")}}))
+    with pytest.raises(FileNotFoundError, match="no_cx"):
+        port_cli.main(["--epochs", "1", "--device", "cpu", "--path_opt",
+                       str(tmp_path / "real.yaml"),
                        "--project_dir", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):

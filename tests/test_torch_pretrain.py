@@ -1129,8 +1129,14 @@ def test_train_cli_device_rule_and_unported_flags(tmp_path, monkeypatch):
     for extra in (["--mesh", "data=4"], ["--distributed"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_cli.main(_cli(path, "--epochs", "1", *extra))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cli.main(["--path_opt", path, "--device", "cpu"])
+    # without --synthetic the CLI reads the real data, and raises as the
+    # JAX CLI does where it is missing
+    opt = yaml.safe_load(open(path))
+    opt["vqa"]["dir"] = str(tmp_path / "no_vqa")
+    (tmp_path / "real.yaml").write_text(yaml.safe_dump(opt))
+    with pytest.raises(FileNotFoundError, match="no_vqa"):
+        port_cli.main(["--path_opt", str(tmp_path / "real.yaml"),
+                       "--device", "cpu"])
 
 
 def test_vqa_checkpoint_save_all_from_and_prefix(tmp_path, world):

@@ -15,8 +15,11 @@ the best checkpoint is the one with the highest ``contrastive/recall``::
 The frozen backbone's q and v caches feed the steps (none with
 ``--trainable_vqa``).  On a card the train and eval steps are captured
 CUDA graphs.  The device is ``cuda``; with no card visible the CLI refuses
-to run unless ``--device cpu`` is given.  ``--mesh`` and non-synthetic
-data raise ``NotImplementedError`` (see ROADMAP.md).
+to run unless ``--device cpu`` is given.  Without ``--synthetic`` it reads
+the real VQA-CX data through the CX CLI's ``load_real_data`` (the
+augmented pickles of ``cli/build_vqacx``, the ``_small`` train pickle under
+``--dev_mode``); the backbone stays at its seeded init, as in the JAX CLI.
+``--mesh`` raises ``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -68,10 +71,11 @@ def main(argv=None):
     from ..engines import contrastive_engine as ce
     from ..engines import cx_engine
     from ..models import factory
-    from .counterexamples import (check_unported, load_synthetic_data,
-                                  resolve_device)
+    from .counterexamples import (check_unported, load_real_data,
+                                  load_synthetic_data, resolve_device)
 
     args = build_parser().parse_args(argv)
+    args.test = False
     options = config_lib.resolve_options({}, args.path_opt, {
         "optim": {"lr": args.learning_rate, "batch_size": args.batch_size,
                   "epochs": args.epochs}})
@@ -86,8 +90,11 @@ def main(argv=None):
     writer = ScalarWriter(os.path.join(args.project_dir, "runs", run_name))
 
     print("=> Loading data...")
-    trainset, valset, _, f_train, f_val = load_synthetic_data(
-        args, args.synthetic)
+    if args.synthetic:
+        trainset, valset, _, f_train, f_val = load_synthetic_data(
+            args, args.synthetic)
+    else:
+        trainset, valset, _, f_train, f_val = load_real_data(options, args)
     train_arrays = vqacx.CXArrays.from_examples(trainset["examples_list"],
                                                 f_train.name_to_index)
     val_arrays = vqacx.CXArrays.from_examples(valset["examples_list"],

@@ -26,11 +26,22 @@ CLI.  ``--resume <run>`` continues a run from its ``ckpt/`` (``--best``:
 from ``best/``).  ``--epochs 0 --test`` only scores.  On a card the train
 and eval steps are captured CUDA graphs; ``--scan_steps S`` (S > 1) runs
 S train steps a call, as S replays of the captured step (eager steps on
-the CPU), with the results of S single steps.  ``--mesh``,
-``--distributed``, ``--init_params``, ``--viz`` and non-synthetic data
-raise ``NotImplementedError`` (see ROADMAP.md for when they come).  The
-device is ``cuda``; with no card visible the CLI refuses to run unless
-``--device cpu`` is given.
+the CPU), with the results of S single steps.
+
+Without ``--synthetic`` it reads the real VQA-CX data as the JAX CLI does
+(``load_real_data``): the augmented pickles of ``cli/build_vqacx`` in
+``vqa.path_trainset`` (or its ``pickle/`` subdirectory), the train pickle's
+``_small`` subset under ``--dev_mode`` and ``valset_augmented.pickle`` for
+``--test``, and the feature stores ``trainset`` / ``valset`` in
+``coco.path_features``.  The backbone is then the VQA checkpoint
+``best_*`` under ``logs.dir_logs`` (unless ``--untrained_vqa``), and
+NeuralModel's answer embedding, with ``cx_model.pretrained_emb``, the
+table ``answer_embedding.pickle`` in ``vqa.path_trainset`` (written by
+``cli/build_answer_embedding``).  Missing files raise
+``FileNotFoundError``.  ``--mesh``, ``--distributed``, ``--init_params``
+and ``--viz`` raise ``NotImplementedError`` (see ROADMAP.md for when they
+come).  The device is ``cuda``; with no card visible the CLI refuses to
+run unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pickle
 from datetime import datetime
 
 import numpy as np
@@ -118,6 +130,37 @@ def _not_ported(what: str, item: str):
         % (what, item))
 
 
+def load_real_data(options, args):
+    """The augmented sets and the feature stores (JAX
+    ``cli/counterexamples.py:114-140``; reference
+    ``counterexamples.py:178-207``) -> (trainset, valset, testset or None,
+    train store, val store)."""
+    from ..data import vqacx
+    from ..data.features import FeatureStore
+
+    # the augmented pickles live in <path_trainset>/pickle/ (the reference
+    # uses a pickle_old/ subdir, counterexamples.py:185) or directly in
+    # path_trainset (cli/build_vqacx --out_dir)
+    root = options["vqa"]["path_trainset"]
+    base = os.path.join(root, "pickle")
+    if not os.path.isdir(base):
+        base = root
+    train_name = ("trainset_augmented_small.pickle" if args.dev_mode
+                  else "trainset_augmented.pickle")
+    trainset = vqacx.load_dataset(os.path.join(base, train_name))
+    valset = vqacx.load_dataset(
+        os.path.join(base, "valset_augmented_small.pickle"))
+    testset = None
+    if args.test:
+        testset = vqacx.load_dataset(
+            os.path.join(base, "valset_augmented.pickle"))
+
+    feats = options["coco"]["path_features"]
+    features_train = FeatureStore.load(os.path.join(feats, "trainset"))
+    features_val = FeatureStore.load(os.path.join(feats, "valset"))
+    return trainset, valset, testset, features_train, features_val
+
+
 def load_synthetic_data(args, n_examples):
     from ..data import synthetic
 
@@ -135,15 +178,13 @@ def load_synthetic_data(args, n_examples):
 
 
 def check_unported(args) -> None:
-    """Raise for the flags and data the port does not cover yet, each with
-    its ROADMAP tag, before anything is built."""
+    """Raise for the flags the port does not cover yet, each with its
+    ROADMAP tag, before anything is built."""
     for flag, item in (("mesh", "Queue 1 #12"), ("distributed", "Queue 1 #12"),
                        ("init_params", "Queue 1: the msgpack bridge"),
                        ("viz", "Queue 1 #13")):
         if getattr(args, flag, None):
             _not_ported("--" + flag, item)
-    if not args.synthetic:
-        _not_ported("loading the real VQA-CX data", "Queue 1 #7")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -168,6 +209,7 @@ def main(argv=None):
     from ..data import vqacx
     from ..engines import cx_engine
     from ..models import factory
+    from ..models.cx import init_answer_embedding
 
     args = build_parser().parse_args(argv)
     # ---- options (CLI non-None > YAML > defaults) ----
@@ -211,8 +253,12 @@ def main(argv=None):
 
     # ---- data ----
     print("=> Loading VQA-CX dataset...")
-    trainset, valset, testset, f_train, f_val = load_synthetic_data(
-        args, args.synthetic)
+    if args.synthetic:
+        trainset, valset, testset, f_train, f_val = load_synthetic_data(
+            args, args.synthetic)
+    else:
+        trainset, valset, testset, f_train, f_val = load_real_data(
+            options, args)
     train_arrays = vqacx.CXArrays.from_examples(trainset["examples_list"],
                                                 f_train.name_to_index)
     val_arrays = vqacx.CXArrays.from_examples(valset["examples_list"],
@@ -228,13 +274,22 @@ def main(argv=None):
         if args.sb_lambda is None:
             raise ValueError("SemanticBaseline requires --sb_lambda")
         extra_args = (torch.from_numpy(answer_cosines(_load_answer_embedding(
-            args, len(trainset["vocab_answers"])))).to(device),)
+            options, args, len(trainset["vocab_answers"])))).to(device),)
     cx_model = factory.cx_from_options(
         args.cx_model, options, trainset["vocab_words"],
         trainset["vocab_answers"], knn_size=train_arrays.knn_size,
         sb_lambda=args.sb_lambda)
     cx_engine.init_cx_params(cx_model, seed=args.seed)
     cx_model.to(device)
+    if not args.synthetic:
+        # pretrained pieces grafted over the init (JAX :267-280)
+        if (hasattr(cx_model, "vqa_model")
+                and options["cx_model"].get("pretrained_vqa")):
+            _load_pretrained_vqa(cx_model, options)
+        if (args.cx_model == "NeuralModel"
+                and options["cx_model"].get("pretrained_emb")):
+            init_answer_embedding(cx_model, _load_answer_embedding(
+                options, args, len(trainset["vocab_answers"])))
     state = cx_engine.init_cx_state(
         cx_model, lr=options["optim"]["lr"],
         optimizer="adam" if args.cx_model in TRAINED else None)
@@ -355,14 +410,28 @@ def main(argv=None):
     return info
 
 
-def _load_answer_embedding(args, n_answers: int) -> np.ndarray:
-    """The answer embedding table (A, 2400) SemanticBaseline compares
-    answers with: under ``--synthetic`` N(0, 1) from ``default_rng(0)`` in
-    f32, as JAX's CLI draws it."""
-    if not args.synthetic:
-        _not_ported("loading answer_embedding.pickle", "Queue 1 #7")
-    return np.random.default_rng(0).normal(
-        size=(n_answers, 2400)).astype(np.float32)
+def _load_pretrained_vqa(cx_model, options) -> None:
+    """Graft the VQA checkpoint ``best_*`` under ``logs.dir_logs`` into the
+    CX model's backbone in place (JAX ``:512-528``; reference
+    ``counterexamples.py:226-228`` -> ``train.py:332``)."""
+    from ..core import checkpoint as ckpt_lib
+
+    path = os.path.join(options["logs"]["dir_logs"], "best")
+    if ckpt_lib.load_vqa_model(cx_model.vqa_model, path):
+        print("Loaded pretrained VQA model from {}".format(path))
+
+
+def _load_answer_embedding(options, args, n_answers: int) -> np.ndarray:
+    """The answer embedding table (A, dim): ``answer_embedding.pickle`` in
+    ``vqa.path_trainset``; under ``--synthetic`` N(0, 1) of width 2400 from
+    ``default_rng(0)`` in f32, as JAX's CLI draws it."""
+    if args.synthetic:
+        return np.random.default_rng(0).normal(
+            size=(n_answers, 2400)).astype(np.float32)
+    path = os.path.join(options["vqa"]["path_trainset"],
+                        "answer_embedding.pickle")
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 def answer_cosines(emb: np.ndarray) -> np.ndarray:

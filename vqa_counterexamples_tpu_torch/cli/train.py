@@ -10,15 +10,24 @@ test2015 / test-dev2015 rows each epoch instead of validating::
         --path_opt configs/vqa2/mutan_noatt_train.yaml --synthetic 2048 \\
         --epochs 1
 
+Without ``--synthetic`` it reads the real data as the JAX CLI does: the
+processed pickles under ``vqa.dir``/processed/<options_subdir> (built from
+``vqa.dir``/raw on first use, as ``cli/preprocess`` builds them) and the
+feature stores ``trainset`` / ``valset`` of
+``coco.dir``/extract/arch,<arch>_size,<size> in ``coco.mode`` (``noatt``
+``.npy`` or ``att`` ``.att.npy``); a trainval run reads no val split and
+takes its test split through ``data/factory.factory_vqa_dataset("test")``.
+Missing files raise ``FileNotFoundError``.  When ``vqa.dir``/raw/annotations holds the val
+annotations, each epoch's val rows are scored on a thread by
+``cli/eval_res`` (``*_accuracy.json`` beside them).
+
 ``--resume best|ckpt`` continues from ``dir_logs``; ``-e`` only evaluates.
 The device is ``cuda``; with no card visible the CLI refuses to run unless
 ``--device cpu`` is given.  MutanAtt's att maps stay on the host and
 stream through ``VQAArrays.batches``' gather (the next batch prefetched, in
 pinned buffers for a card), as the JAX CLI's do.  ``--mesh``,
-``--distributed``, real data, an encoder other than skip-thoughts and the
-MLB archs raise ``NotImplementedError`` (see ROADMAP.md for when they
-come).  The OpenEnded scoring of val rows against real annotations (the
-JAX CLI's ``eval_res`` thread) is not ported: it only runs on real data.
+``--distributed``, an encoder other than skip-thoughts and the MLB archs
+raise ``NotImplementedError`` (see ROADMAP.md for when they come).
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pickle
 
 import numpy as np
 import torch
@@ -107,9 +117,6 @@ def main(argv=None):
     for flag in ("mesh", "distributed"):
         if getattr(args, flag):
             _not_ported("--" + flag, "Queue 1 #12")
-    if not args.synthetic:
-        _not_ported("loading the real VQA data (processed pickles and the "
-                    "feature store)", "Queue 1 #7")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible: the port runs on the "
@@ -123,31 +130,48 @@ def main(argv=None):
     os.makedirs(dir_logs, exist_ok=True)
     config_lib.save_options(options, dir_logs)
     batch_size = options["optim"]["batch_size"]
+    dir_vqa = options["vqa"].get("dir")
 
     # ---- data ----
     print("=> Loading dataset...")
-    train_ex, store, vocab_words, vocab_answers = _synthetic_vqa(
-        args.synthetic, options, args.seed)
-    val_ex, val_store = train_ex, store
+    if args.synthetic:
+        train_ex, store, vocab_words, vocab_answers = _synthetic_vqa(
+            args.synthetic, options, args.seed)
+        val_ex, val_store = train_ex, store
+    else:
+        train_ex, val_ex, store, val_store, vocab_words, vocab_answers = \
+            load_real_data(options)
     train_arrays = VQAArrays(train_ex, store,
                              samplingans=options["vqa"].get("samplingans",
                                                             False))
-    val_arrays = VQAArrays(val_ex, val_store, samplingans=False)
+    val_arrays = (None if val_ex is None
+                  else VQAArrays(val_ex, val_store, samplingans=False))
     noatt = options["coco"]["mode"] == "noatt"
     device_features = store.to_device(device) if noatt else None
-    val_device_features = device_features
+    val_device_features = (val_store.to_device(device)
+                           if noatt and val_store not in (None, store)
+                           else device_features)
 
     # trainval training has no held-out val: each epoch emits test2015 +
     # test-dev2015 submission rows instead (reference train.py:130-133,
     # 241-262, engine.py:117-153)
-    test_arrays = None
+    test_arrays = test_device_features = None
     if options["vqa"]["trainsplit"] == "trainval":
-        test_ex = [{k: v for k, v in ex.items()
-                    if k not in ("answer_aid", "answers_aid",
-                                 "answers_count")} for ex in train_ex]
-        test_arrays = VQAArrays(test_ex, store)
-        test_arrays.is_qid_testdev = {
-            ex["question_id"] for ex in test_ex[:len(test_ex) // 2]}
+        if args.synthetic:
+            test_ex = [{k: v for k, v in ex.items()
+                        if k not in ("answer_aid", "answers_aid",
+                                     "answers_count")} for ex in train_ex]
+            test_arrays = VQAArrays(test_ex, store)
+            test_arrays.is_qid_testdev = {
+                ex["question_id"] for ex in test_ex[:len(test_ex) // 2]}
+            test_device_features = device_features
+        else:
+            from ..data import factory as data_factory
+
+            test_arrays, _, _, test_store = data_factory.factory_vqa_dataset(
+                "test", options["vqa"], options["coco"])
+            test_device_features = (test_store.to_device(device) if noatt
+                                    else None)
 
     # ---- model/optim ----
     print("=> Building model...")
@@ -205,10 +229,10 @@ def main(argv=None):
         (no ground truth; reference engine.test)."""
         predict = vqa_engine.make_vqa_predict_step(model)
         loader = test_arrays.batches(batch_size, shuffle=False,
-                                     device_features=device_features,
+                                     device_features=test_device_features,
                                      device=device)
         rows = vqa_engine.test_pass(predict, loader, vocab_answers)
-        qids = test_arrays.is_qid_testdev
+        qids = test_arrays.is_qid_testdev or set()
         testdev_rows = [r for r in rows if r["question_id"] in qids]
         _save_results(rows, epoch, dir_logs, "test2015")
         _save_results(testdev_rows, epoch, dir_logs, "test-dev2015")
@@ -223,7 +247,7 @@ def main(argv=None):
                                         aid_to_ans=vocab_answers,
                                         collect_results=True)
         print("Evaluate:", res)
-        _save_results(rows, 0, dir_logs, "val")
+        _save_results(rows, 0, dir_logs, "val", dir_vqa=dir_vqa)
         return res
 
     # ---- epochs ----
@@ -260,19 +284,69 @@ def main(argv=None):
              "acc5": res["acc5"]}, state, dir_logs,
             save_model=args.save_model, save_all_from=args.save_all_from,
             is_best=is_best)
-        _save_results(rows, epoch, dir_logs, "val")
+        _save_results(rows, epoch, dir_logs, "val", dir_vqa=dir_vqa)
     return state
 
 
-def _save_results(rows, epoch, dir_logs, split):
-    """OpenEnded result rows (reference ``train.py:276-288``)."""
+def load_real_data(options):
+    """(train examples, val examples, train store, val store, vocab_words,
+    vocab_answers) from the processed pickles and the feature stores the
+    options name (JAX ``cli/train.py:116-141``).  The processed pickles
+    are built from the raw files on first use (``data/factory``); a
+    trainval run has no val split (None, None in its place), where the
+    JAX CLI asks for a ``valset.pickle`` that its trainval processing
+    never writes."""
+    from ..data.factory import ensure_processed, features_dir, load_vocabs
+    from ..data.features import FeatureStore
+
+    version = 2 if options["vqa"].get("dataset", "VQA2") == "VQA2" else 1
+    processed = ensure_processed(options["vqa"], version=version)
+    feats = features_dir(options["coco"])
+    mode = options["coco"]["mode"]
+
+    def load(name):
+        with open(os.path.join(processed, name + ".pickle"), "rb") as f:
+            return pickle.load(f)
+
+    trainval = options["vqa"]["trainsplit"] == "trainval"
+    train_ex = load("trainvalset" if trainval else "trainset")
+    store = FeatureStore.load(os.path.join(feats, "trainset"), dataset=mode)
+    val_ex = val_store = None
+    if not trainval:
+        val_ex = load("valset")
+        val_store = FeatureStore.load(os.path.join(feats, "valset"),
+                                      dataset=mode)
+    vocab_words, vocab_answers = load_vocabs(processed)
+    return train_ex, val_ex, store, val_store, vocab_words, vocab_answers
+
+
+def _save_results(rows, epoch, dir_logs, split, dir_vqa=None):
+    """OpenEnded result rows (reference ``train.py:276-288``) -> the
+    scoring thread or None.  When the official val annotations are
+    under ``dir_vqa``, ``cli/eval_res`` scores the val rows on a thread
+    (the reference spawns ``python2 eval_res.py ... &``,
+    ``train.py:287-288``)."""
     results_dir = os.path.join(dir_logs, "results", split)
     os.makedirs(results_dir, exist_ok=True)
     path = os.path.join(results_dir,
                         "vqa_OpenEnded_mscoco_epoch_%d.json" % epoch)
     with open(path, "w") as f:
         json.dump(rows, f)
-    return path
+    if dir_vqa and split == "val":
+        ann = os.path.join(dir_vqa, "raw", "annotations",
+                           "v2_mscoco_val2014_annotations.json")
+        if os.path.exists(ann):
+            import threading
+
+            from . import eval_res
+
+            thread = threading.Thread(
+                target=eval_res.main,
+                args=(["--path_results", path, "--path_annotations", ann],),
+                daemon=False)
+            thread.start()
+            return thread
+    return None
 
 
 if __name__ == "__main__":

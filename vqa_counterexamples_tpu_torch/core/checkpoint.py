@@ -150,12 +150,15 @@ def save_vqa_checkpoint(info: dict, state, dir_logs: str,
                     os.remove(p)
 
 
-def load_vqa_checkpoint(state, path_ckpt: str) -> dict:
-    """Load the triplet saved above into ``state`` in place -> the info
-    dict.  ``path_ckpt`` is a prefix, as in the reference: ``<dir>/best``
-    selects the ``best_*`` files inside ``<dir>``, ``<dir>`` the ``ckpt_*``
-    ones (or ``best_*`` when only those exist).  Missing pieces warn and
-    are skipped (reference ``train.py:344-364``)."""
+def _device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _vqa_paths(path_ckpt: str):
+    """(info, model, optim) paths of the triplet at the prefix
+    ``path_ckpt``: ``<dir>/best`` selects the ``best_*`` files inside
+    ``<dir>``, ``<dir>`` the ``ckpt_*`` ones (or ``best_*`` when only those
+    exist)."""
     if (os.path.basename(path_ckpt) == "best"
             and not os.path.isdir(path_ckpt)):
         base, prefix = os.path.dirname(path_ckpt), "best"
@@ -163,23 +166,39 @@ def load_vqa_checkpoint(state, path_ckpt: str) -> dict:
         base, prefix = path_ckpt, "ckpt"
         if not os.path.isfile(os.path.join(base, "ckpt_info.json")):
             prefix = "best"
-    path_info, path_model, path_optim = (
-        os.path.join(base, "%s_%s" % (prefix, name))
-        for name in ("info.json", "model.pt", "optim.pt"))
+    return tuple(os.path.join(base, "%s_%s" % (prefix, name))
+                 for name in ("info.json", "model.pt", "optim.pt"))
+
+
+def load_vqa_model(model, path_ckpt: str) -> bool:
+    """Load only the model payload of the triplet at ``path_ckpt`` (the
+    prefix rule of :func:`load_vqa_checkpoint`) into ``model`` in place;
+    False, with a warning, when there is none."""
+    _, path_model, _ = _vqa_paths(path_ckpt)
+    if not os.path.isfile(path_model):
+        print("Warning: no model checkpoint found at %s" % path_ckpt)
+        return False
+    model.load_state_dict(torch.load(path_model, map_location=_device(model),
+                                     weights_only=True))
+    return True
+
+
+def load_vqa_checkpoint(state, path_ckpt: str) -> dict:
+    """Load the triplet saved above into ``state`` in place -> the info
+    dict.  ``path_ckpt`` is a prefix, as in the reference: ``<dir>/best``
+    selects the ``best_*`` files inside ``<dir>``, ``<dir>`` the ``ckpt_*``
+    ones (or ``best_*`` when only those exist).  Missing pieces warn and
+    are skipped (reference ``train.py:344-364``)."""
+    path_info, _, path_optim = _vqa_paths(path_ckpt)
     info = {}
     if os.path.isfile(path_info):
         with open(path_info) as f:
             info = json.load(f)
     else:
         print("Warning: no info checkpoint found at %s" % path_ckpt)
-    device = next(state.model.parameters()).device
-    if os.path.isfile(path_model):
-        state.model.load_state_dict(torch.load(
-            path_model, map_location=device, weights_only=True))
-    else:
-        print("Warning: no model checkpoint found at %s" % path_ckpt)
+    load_vqa_model(state.model, path_ckpt)
     if os.path.isfile(path_optim):
-        payload = torch.load(path_optim, map_location=device,
+        payload = torch.load(path_optim, map_location=_device(state.model),
                              weights_only=True)
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])

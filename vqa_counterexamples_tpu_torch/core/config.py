@@ -56,6 +56,16 @@ def resolve_options(defaults: dict, yaml_path: str | None = None,
     return options
 
 
+def options_subdir(params: Mapping, keys=("maxlength", "minwcount", "nlp", "pad",
+                                          "trainsplit")) -> str:
+    """The processed-dir name of the reference (``vqa_processed.py:212-215``):
+    ``nans,2000_maxlength,26_..._trainsplit,train``."""
+    sub = "nans," + str(params["nans"])
+    for key in keys:
+        sub += "_" + key + "," + str(params[key])
+    return sub
+
+
 def save_options(options: Mapping, run_dir: str,
                  name: str = "options.yaml") -> str:
     """Store the resolved options in the run dir (provenance)."""

@@ -2,8 +2,9 @@
 
 The JAX package's ``data/__init__`` imports its jax-bound feature store, so
 its numpy-only modules cannot be imported on a host without jax; this
-module carries the pieces the port needs, and the CPU tests hold it to the
-JAX package's output bit for bit.
+module carries the pieces the port needs (the augmented-set join of
+``cli/build_vqacx`` among them), and the CPU tests hold it to the JAX
+package's output bit for bit.
 
 All index math happens once up front: ``CXArrays.from_examples`` vectorizes
 every example into int32 arrays, the batch iterator yields index slices,
@@ -13,6 +14,8 @@ feature matrix.
 
 from __future__ import annotations
 
+import json
+import pickle
 from typing import NamedTuple
 
 import numpy as np
@@ -32,10 +35,62 @@ def coco_num_to_name(num: int, split: str = "train") -> str:
     return "COCO_%s2014_%012d.jpg" % (split, num)
 
 
+def build_augmented_examples(examples_list: list, comp_pairs: list,
+                             knns: dict, split: str = "train") -> list:
+    """Join processed VQA2 examples with the complementary pairs and the
+    24-NN lists (vqacx_{train,val}set_builder.ipynb cells 7-18): an example
+    is kept iff its question has a complement whose image is in the
+    example image's kNN list; it gains ``comp`` (with ``knn_index``) and
+    ``knns``."""
+    comp_q = {}
+    for q1, q2 in comp_pairs:
+        comp_q[q1] = q2
+        comp_q[q2] = q1
+    qid_to_example = {ex["question_id"]: ex for ex in examples_list}
+    valid_qids = set(comp_q.keys()) & set(qid_to_example.keys())
+
+    filtered = []
+    for ex in examples_list:
+        q1 = ex["question_id"]
+        if q1 not in valid_qids:
+            continue
+        q2 = comp_q[q1]
+        if q2 not in valid_qids:
+            continue
+        i1 = coco_name_to_num(ex["image_name"])
+        ex2 = qid_to_example[q2]
+        i2 = coco_name_to_num(ex2["image_name"])
+        if i1 not in knns or i2 not in knns[i1]:
+            continue
+        ex = dict(ex)
+        ex["comp"] = dict(ex2)
+        ex["comp"]["knn_index"] = knns[i1].index(i2)
+        ex["knns"] = [coco_num_to_name(i, split) for i in knns[i1]]
+        filtered.append(ex)
+    return filtered
+
+
 def make_dataset_dict(examples_list: list, name_to_index: dict,
                       vocab_words: list, vocab_answers: list) -> dict:
     return {"examples_list": examples_list, "name_to_index": name_to_index,
             "vocab_words": vocab_words, "vocab_answers": vocab_answers}
+
+
+def load_dataset(path: str) -> dict:
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def save_dataset(dataset: dict, path: str) -> None:
+    with open(path, "wb") as f:
+        pickle.dump(dataset, f)
+
+
+def load_knns_json(path: str) -> dict:
+    """A kNN JSON keyed by COCO image id (counterexamples.py:194-196)."""
+    with open(path, "r") as f:
+        knns = json.load(f)
+    return {int(k): v for k, v in knns.items()}
 
 
 class CXArrays(NamedTuple):

@@ -43,6 +43,7 @@ Attribute names follow the reference checkpoint (``vqa_model``,
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -531,3 +532,17 @@ class SimilarityModel(CXModelBase):
         z_cos = cosine_similarity(z_orig[:, None, :], z_knns)
         a_xent = -_at_answer(torch.log_softmax(a_knns, dim=-1), answer_aids)
         return v_cos + z_cos + a_xent
+
+
+@torch.no_grad()
+def init_answer_embedding(model: NeuralModel, emb) -> NeuralModel:
+    """Copy a pretrained (A, dim_a) answer-embedding table into
+    NeuralModel's ``answer_embedding`` in place (JAX ``models/cx.py:633``;
+    reference cx.py:240-243 loads answer_embedding.pickle)."""
+    weight = model.answer_embedding.weight
+    value = torch.from_numpy(np.asarray(emb, dtype=np.float32))
+    if tuple(value.shape) != tuple(weight.shape):
+        raise ValueError("answer embedding table %s, the model's %s"
+                         % (tuple(value.shape), tuple(weight.shape)))
+    weight.copy_(value)
+    return model
