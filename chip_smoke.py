@@ -130,6 +130,31 @@ ends the run with a nonzero exit and no result line.
    and the phase's peak allocated memory are logged.  An epoch whose val
    acc@1 stays 0 writes no ``best_*`` (the reference's rule); the phase
    then takes its ``ckpt_*`` as the best, and says so.
+13. Extraction and the demo server at full width (random weights from
+   the seed): (a) the committed image fixtures
+   (``vqa_counterexamples_tpu_torch/data/fixtures/``) decoded at 448 and
+   held to their recorded SHA-256 (through PIL: the card's host has no
+   libjpeg, ``CARD_HOST_HAS_LIBJPEG``; where it is set the native decoder
+   is built and held too); (b) ``cli.extract.main(["--synthetic", "400",
+   "-b", "80", "--arch", "fbresnet152", "--size", "448", ...])``: the
+   shapes, 400 names, ``.npy`` the spatial mean of ``.att.npy``, the first
+   batch bit-equal to a direct trunk call, the CLI's ``stats``; then the
+   same over a raw ``train2014/`` of 240 copies of the fixtures (the PNG
+   among them); (c) ``serve.demo_server.create_server`` with
+   ``mutan_noatt_train.yaml`` (``main``'s default) and with
+   ``mutan_att_train.yaml``, ``--prewarm``, the synthetic vocab: six
+   captured buckets, each bucket's captured forward bit-equal to the
+   eager one on the same models with exactly one launch of the GRU
+   forward and of MUTAN a call (and of the folded MUTAN forward with
+   MutanAtt), its ms a call captured and eager; ``answer_batch`` of 3
+   against ``answer`` of each (vals within 1e-3, top-5 ids equal but
+   where near-tied candidates trade places, ``top5_agree``); (d) the
+   MutanNoAtt server on 127.0.0.1, port 0: ``/health``,
+   ``/checkpoints`` over two runs written by ``save_vqa_checkpoint``,
+   POST ``/`` and ``/batch``, ``/checkpoint`` to perturbed weights (the
+   answers change) and back (bit-equal to the first), then 16 client
+   threads x 8 requests with the batcher off and adaptive (items/s, p50 /
+   p99 ms).  The phase's seconds and peak allocated memory are logged.
 
 Phase 1 also holds the folded MUTAN kernels (forward and backward, each
 with a bit-equal rerun) at MutanAtt's attention shape, the kNN kernel at
@@ -138,15 +163,17 @@ the builder's, the GRU forward at the val batches' shapes (B 512 and B
 batch (B 128), the per-gate forward, the no-mask forward and the
 backward at the trainable CX step's B 768 and B 64, and MUTAN at
 MutanAtt's classifier shape and over the trainable step's 19,200
-duplicated rows (each with a bit-equal rerun, as at B 512); every GRU
-forward row
-logs the tile it launches with.  Phases 3-5, 7 and 10-12 log the peak
-of allocated device memory.  It prints the card's
+duplicated rows (each with a bit-equal rerun, as at B 512), and, at the
+demo server's smallest and largest buckets (B 1, B 32), the GRU forward
+without a mask, MUTAN at both of its fusion shapes and the folded MUTAN
+forward; every GRU forward row logs the tile it launches with.  Phases
+3-5, 7 and 10-13 log the peak of allocated device memory.  It prints the card's
 name and power limit, a ``{"kernels": [...]}`` line and, last, ``{"ok":
 true, "device": {...}}``.
 """
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -498,6 +525,7 @@ def phase_kernels(dev, card):
     del z, w_cls, b_cls, p1, p2
     rows.update(pretrain_kernel_rows(dev, gen, randn))
     rows.update(att_knn_kernel_rows(dev, gen, randn))
+    rows.update(serve_kernel_rows(dev, gen, randn))
     for name, row in rows.items():
         row["bound_ms"], row["bound_by"] = bound(*row.pop("work"))
         lib = ("  library %.3f ms" % row["library_ms"]
@@ -605,7 +633,7 @@ def pretrain_kernel_rows(dev, gen, randn):
     per-gate GRU forward and the GRU backward (T 26, B 512, H 2400; the
     backward also at MutanAtt's B 128), MUTAN (B 512, dh 360, R 10, dmm
     360)."""
-    from vqa_counterexamples_tpu_torch.ops.cuda import gru_kernel, mutan_kernel
+    from vqa_counterexamples_tpu_torch.ops.cuda import gru_kernel
 
     rows = {}
     T, B, H = 26, 512, 2400
@@ -648,28 +676,10 @@ def pretrain_kernel_rows(dev, gen, randn):
         rows["gru_bwd_b%d" % B] = gru_bwd_row("gru_bwd B%d" % B, randn, xp,
                                               w_hh, mask, s1, h1)
         del xp, s1, h1, mask
-    DH, R, DMM = 360, 10, 360
-    wv, wq = (randn(R * DMM, DH, scale=DH ** -0.5) for _ in range(2))
-    bv, bq = (randn(R * DMM, scale=0.1, dtype=torch.float32)
-              for _ in range(2))
     # MutanNoAtt's batch, and the trainable CX step's duplicated fusion
     # over B 768 x 25 candidates (logged outside the kernels line)
     for name, B in (("mutan", 512), ("mutan_b19200", 768 * 25)):
-        xv, xq = randn(B, DH), randn(B, DH)
-        args = (xv, xq, wv, bv, wq, bq, R)
-        first = mutan_kernel.tucker_fusion(*args)
-        err = check_close(name, first,
-                          mutan_kernel.tucker_fusion_plain(*args),
-                          TOL["mutan"])
-        check_rerun(name, first, mutan_kernel.tucker_fusion(*args))
-        rows[name] = dict(
-            max_abs_err=err,
-            ms=time_ms(lambda: mutan_kernel.tucker_fusion(*args), reps=20),
-            plain_ms=time_ms(lambda: mutan_kernel.tucker_fusion_plain(
-                *args), reps=20),
-            work=(2 * B * R * DMM * 2 * DH,
-                  2 * B * DH * 2 + 2 * R * DMM * DH * 2 + 2 * R * DMM * 4
-                  + B * DMM * 4))
+        rows[name] = mutan_row(name, randn, B, 360, 360, 10, 360)
     return rows
 
 
@@ -710,7 +720,7 @@ def att_knn_kernel_rows(dev, gen, randn):
     2048, k 25), and MUTAN at MutanAtt's classifier shape (B 128, 620 / 310
     -> 510, R 5; logged, outside the kernels line)."""
     from vqa_counterexamples_tpu_torch.ops.cuda import (
-        attmutan_kernel, knn_kernel, mutan_kernel)
+        attmutan_kernel, knn_kernel)
 
     rows = {}
     B, K, DH, R, M = 128, 196, 310, 5, 510
@@ -756,24 +766,7 @@ def att_knn_kernel_rows(dev, gen, randn):
               + R * M * 4 + B * R * M * 2))
     del xv, g, w, b, hq, args
     # MUTAN at MutanAtt's classifier shape
-    DHV, DHQ = 620, 310
-    xv, xq = randn(B, DHV), randn(B, DHQ)
-    wv, wq = randn(R * M, DHV, scale=DHV ** -0.5), randn(R * M, DHQ,
-                                                         scale=DHQ ** -0.5)
-    bv, bq = (randn(R * M, scale=0.1, dtype=torch.float32) for _ in range(2))
-    margs = (xv, xq, wv, bv, wq, bq, R)
-    first = mutan_kernel.tucker_fusion(*margs)
-    err = check_close("mutan_att", first,
-                      mutan_kernel.tucker_fusion_plain(*margs), TOL["mutan"])
-    check_rerun("mutan_att", first, mutan_kernel.tucker_fusion(*margs))
-    rows["mutan_att"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: mutan_kernel.tucker_fusion(*margs), reps=20),
-        plain_ms=time_ms(lambda: mutan_kernel.tucker_fusion_plain(*margs),
-                         reps=20),
-        work=(2 * B * R * M * (DHV + DHQ),
-              B * (DHV + DHQ) * 2 + R * M * (DHV + DHQ) * 2 + 2 * R * M * 4
-              + B * M * 4))
+    rows["mutan_att"] = mutan_row("mutan_att", randn, B, 620, 310, R, M)
     # kNN: one chunk of the COCO-train self-kNN
     N, D, Q, KN = 82783, 2048, 1024, 25
     corpus = torch.randn(N, D, generator=gen, device=dev)
@@ -797,6 +790,76 @@ def att_knn_kernel_rows(dev, gen, randn):
         # peak (the k winners' f32 rescoring is 0.03% of that)
         work=(3 * 2 * Q * N * D + 3 * Q * N,
               (Q * D + N * D + Q + N) * 4 + Q * KN * 8, PEAK_TF32_FLOPS))
+    return rows
+
+
+def mutan_row(name, randn, B, DHV, DHQ, R, M):
+    """MUTAN at (B, dhv, dhq, R, dmm) against its plain version, a bit-equal
+    rerun, both timed."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import mutan_kernel
+
+    xv, xq = randn(B, DHV), randn(B, DHQ)
+    wv, wq = randn(R * M, DHV, scale=DHV ** -0.5), randn(R * M, DHQ,
+                                                         scale=DHQ ** -0.5)
+    bv, bq = (randn(R * M, scale=0.1, dtype=torch.float32) for _ in range(2))
+    args = (xv, xq, wv, bv, wq, bq, R)
+    first = mutan_kernel.tucker_fusion(*args)
+    err = check_close(name, first, mutan_kernel.tucker_fusion_plain(*args),
+                      TOL["mutan"])
+    check_rerun(name, first, mutan_kernel.tucker_fusion(*args))
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: mutan_kernel.tucker_fusion(*args), reps=20),
+        plain_ms=time_ms(lambda: mutan_kernel.tucker_fusion_plain(*args),
+                         reps=20),
+        work=(2 * B * R * M * (DHV + DHQ),
+              B * (DHV + DHQ) * 2 + R * M * (DHV + DHQ) * 2 + 2 * R * M * 4
+              + B * M * 4))
+
+
+def attmutan_row(name, randn, B, K=196, DH=310, R=5, M=510):
+    """The folded MUTAN forward at (B, K, Dh, R, M) against its plain
+    version, a bit-equal rerun, both timed."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import attmutan_kernel
+
+    xv = randn(B, K, DH)
+    w = randn(R * M, DH, scale=DH ** -0.5)
+    b = randn(R * M, scale=0.1, dtype=torch.float32)
+    hq = randn(B, R, M, dtype=torch.float32)
+    args = (xv, w, b, hq)
+    first = attmutan_kernel.folded_mutan(*args)
+    err = check_close(name, first, attmutan_kernel.folded_mutan_plain(*args),
+                      TOL["attmutan"])
+    check_rerun(name, first, attmutan_kernel.folded_mutan(*args))
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: attmutan_kernel.folded_mutan(*args), reps=20),
+        plain_ms=time_ms(lambda: attmutan_kernel.folded_mutan_plain(*args),
+                         reps=20),
+        work=(2 * B * K * DH * M + 2 * B * R * DH * M,
+              B * K * DH * 2 + R * M * DH * 2 + R * M * 4 + B * R * M * 4
+              + B * K * M * 2))
+
+
+def serve_kernel_rows(dev, gen, randn):
+    """Phase 1's rows at the demo server's batch sizes, its smallest and
+    largest buckets (B 1 and B 32; logged, outside the kernels line): the
+    GRU forward without a mask (the question encoder), MUTAN at MutanNoAtt's
+    fusion (dh 360, R 10, dmm 360) and at MutanAtt's classifier (620 / 310
+    -> 510, R 5), the folded MUTAN forward at MutanAtt's attention shape."""
+    rows = {}
+    T, H = 26, 2400
+    w_hh = randn(3 * H, H, scale=H ** -0.5)
+    b_hh = randn(3 * H, scale=0.1, dtype=torch.float32)
+    for B in (1, 32):
+        rows["gru_serve_b%d" % B] = gru_fwd_row(
+            "gru B%d" % B, randn(T, B, 3 * H), w_hh, b_hh, None, False)
+        rows["mutan_serve_b%d" % B] = mutan_row(
+            "mutan B%d" % B, randn, B, 360, 360, 10, 360)
+        rows["mutan_att_serve_b%d" % B] = mutan_row(
+            "mutan_att B%d" % B, randn, B, 620, 310, 5, 510)
+        rows["attmutan_serve_b%d" % B] = attmutan_row(
+            "attmutan B%d" % B, randn, B)
     return rows
 
 
@@ -2452,6 +2515,413 @@ def phase_realdata(dev, card):
     log("  phase 12: " + memory_line(card))
 
 
+# the card's host has no libjpeg (no jpeglib.h, no libjpeg.so; ROADMAP.md,
+# "Constraints of the card's host"), so the native decoder cannot be built
+# there: phase 13 decodes with PIL, which it has.  Where a host has
+# libjpeg, set this and the phase builds the decoder and checks it too.
+CARD_HOST_HAS_LIBJPEG = False
+EXTRACT_IMAGES, EXTRACT_BATCH, RAW_IMAGES = 400, 80, 240
+SERVE_CLIENTS, SERVE_REQUESTS = 16, 8
+
+
+def check_fixture_digests(decoder):
+    """Decode the committed fixtures at 448 (``decoder`` None: PIL for
+    all) and hold each to its recorded SHA-256."""
+    from vqa_counterexamples_tpu_torch.data import image_fixtures
+    from vqa_counterexamples_tpu_torch.data.native_decoder import (
+        decode_files)
+
+    want = image_fixtures.load_digests()
+    out = decode_files(decoder, image_fixtures.fixture_paths(), 448)
+    got = {name: image_fixtures.digest(o)
+           for (name, *_), o in zip(image_fixtures.SHAPES, out)}
+    bad = sorted(k for k in want if got.get(k) != want[k])
+    log("  fixtures through %s: %d of %d match their recorded SHA-256%s"
+        % ("the native decoder (PIL for the PNG)" if decoder else "PIL",
+           len(want) - len(bad), len(want),
+           "" if not bad else "; DIFFERENT: %s" % bad))
+    if bad:
+        raise AssertionError("decoded fixtures differ from their digests")
+
+
+def trunk_batch_equal(att_file, model, images, dev, what):
+    """A direct trunk call on ``images`` (the CLI's first batch) against
+    the extracted rows, bit for bit."""
+    from vqa_counterexamples_tpu_torch.models import convnets
+
+    with torch.no_grad():
+        x = torch.from_numpy(images).to(dev)
+        if x.dtype == torch.uint8:
+            x = convnets.normalize_images_device(x)
+        direct = model(x).cpu().numpy()
+    rows = np.asarray(att_file[:len(images)])
+    equal = np.array_equal(direct, rows)
+    log("  %s: the first batch against a direct trunk call: %s" % (
+        what, "bit-equal" if equal else "DIFFERENT (max %.3e)"
+        % np.abs(direct - rows).max()))
+    if not equal:
+        raise AssertionError("%s: extraction differs from the trunk" % what)
+
+
+def phase_extract(dev, card, root):
+    """Phase 13a-b: the fixtures' decode, then ``cli.extract`` at
+    ResNet-152 / 448 / B 80 on synthetic images and on a raw folder."""
+    import shutil
+
+    from vqa_counterexamples_tpu_torch.cli import extract
+    from vqa_counterexamples_tpu_torch.data import image_fixtures
+    from vqa_counterexamples_tpu_torch.data import native_decoder
+    from vqa_counterexamples_tpu_torch.models import convnets
+
+    # a. the decoder
+    if CARD_HOST_HAS_LIBJPEG:
+        native = native_decoder.NativeImageDecoder()
+        if not native.available:
+            raise AssertionError("the native decoder did not build")
+        check_fixture_digests(native)
+    else:
+        log("  native decoder: not built (no libjpeg on this host); "
+            "decoding with PIL")
+    check_fixture_digests(None)
+
+    # b. extraction, synthetic
+    model = convnets.init_resnet(convnets.factory({"arch": "fbresnet152"}))
+    model.to(dev).eval()
+    stats = {}
+    t0 = time.perf_counter()
+    prefix = extract.main([
+        "--synthetic", str(EXTRACT_IMAGES), "-b", str(EXTRACT_BATCH),
+        "--arch", "fbresnet152", "--size", "448", "--mode", "both",
+        "--dir_data", os.path.join(root, "synthetic")], stats=stats)
+    seconds = time.perf_counter() - t0
+    att = np.load(prefix + ".att.npy", mmap_mode="r")
+    noatt = np.load(prefix + ".npy")
+    with open(prefix + ".txt") as f:
+        names = f.read().splitlines()
+    mean = np.asarray(att, dtype=np.float64).mean(axis=(1, 2))
+    mean_err = np.abs(mean - noatt).max() / np.abs(mean).max()
+    log("  extract --synthetic %d -b %d (fbresnet152, 448): %.2f s; att %s "
+        "noatt %s, %d names; .npy vs the spatial mean of .att.npy: %.3e of "
+        "its largest entry; stats %s (%s)"
+        % (EXTRACT_IMAGES, EXTRACT_BATCH, seconds, att.shape, noatt.shape,
+           len(names), mean_err, stats, card))
+    if (att.shape != (EXTRACT_IMAGES, 14, 14, 2048)
+            or noatt.shape != (EXTRACT_IMAGES, 2048)
+            or len(names) != EXTRACT_IMAGES or mean_err > 1e-5
+            or not np.isfinite(noatt).all()):
+        raise AssertionError("synthetic extraction: wrong files")
+    images = np.random.default_rng(0).normal(
+        size=(EXTRACT_BATCH, 448, 448, 3)).astype(np.float32)
+    trunk_batch_equal(att, model, images, dev, "synthetic")
+    del att
+
+    # b.4 extraction of a raw COCO folder made from the fixtures
+    img_dir = os.path.join(root, "raw_coco", "raw", "train2014")
+    os.makedirs(img_dir)
+    sources = image_fixtures.fixture_paths()
+    for i in range(RAW_IMAGES):
+        src = sources[i % len(sources)]
+        shutil.copyfile(src, os.path.join(img_dir, "COCO_train2014_%012d%s"
+                                          % (i, os.path.splitext(src)[1])))
+    stats = {}
+    t0 = time.perf_counter()
+    prefix = extract.main([
+        "-b", str(EXTRACT_BATCH), "--arch", "fbresnet152", "--size", "448",
+        "--dir_data", os.path.join(root, "raw_coco")], stats=stats)
+    seconds = time.perf_counter() - t0
+    att = np.load(prefix + ".att.npy", mmap_mode="r")
+    with open(prefix + ".txt") as f:
+        names = f.read().splitlines()
+    log("  extract of %d raw images (%d of them PNG): %.2f s; att %s; stats "
+        "%s (%s)" % (RAW_IMAGES, sum(n.endswith(".png") for n in names),
+                     seconds, att.shape, stats, card))
+    if att.shape != (RAW_IMAGES, 14, 14, 2048) or len(names) != RAW_IMAGES:
+        raise AssertionError("raw extraction: wrong files")
+    first = native_decoder.decode_files(
+        None, [os.path.join(img_dir, n) for n in names[:EXTRACT_BATCH]], 448)
+    trunk_batch_equal(att, model, first, dev, "raw folder")
+    del att, model
+
+
+def fixture_items(n):
+    """``n`` request items: the fixtures as base64, questions of the
+    synthetic vocab."""
+    import base64
+
+    from vqa_counterexamples_tpu_torch.data import image_fixtures
+
+    paths = image_fixtures.fixture_paths()
+    items = []
+    for i in range(n):
+        with open(paths[i % len(paths)], "rb") as f:
+            visual = base64.b64encode(f.read()).decode()
+        items.append({"visual": visual, "question":
+                      "w%d w%d w%d ?" % (i, 3 * i + 1, 7 * i + 2)})
+    return items
+
+
+def engine_checks(engine, options, attention, card):
+    """Phase 13c on one engine: six captured buckets, captured against
+    eager at each bucket (bit for bit), exact launch counts, ms a call;
+    ``answer_batch`` of 3 against ``answer`` of each."""
+    from vqa_counterexamples_tpu_torch.cli.profile_cx import profile_calls
+    from vqa_counterexamples_tpu_torch.data import synthetic
+    from vqa_counterexamples_tpu_torch.serve.demo_server import DemoEngine
+
+    if engine.n_graphs != 6:
+        raise AssertionError("prewarm captured %d buckets, not 6"
+                             % engine.n_graphs)
+    # the same models, run eagerly
+    eager = DemoEngine(options, engine.vqa_model, engine.cnn,
+                       *synthetic.synthetic_vocab(2000,
+                                                  options["vqa"]["nans"]),
+                       attention, capture=False)
+    want = {"gru": 1, "mutan": 1, "attmutan": 1 if attention else 0}
+    want = {k: want.get(k, 0) for k in SOURCES}
+    rng = np.random.default_rng(SEED)
+    for bucket in (1, 2, 4, 8, 16, 32):
+        images = rng.integers(0, 256, (bucket, 448, 448, 3), dtype=np.uint8)
+        lengths = rng.integers(3, 15, bucket)
+        wids = np.where(np.arange(26)[None] < lengths[:, None],
+                        rng.integers(1, 2001, (bucket, 26)), 0).astype(
+                            np.int32)
+        outs = {}
+        for label, eng in (("captured", engine), ("eager", eager)):
+            reset_counters()
+            outs[label] = eng.predict_prepared(images, wids)
+            got = read_counters()
+            if got != want:
+                raise AssertionError("bucket %d, %s: launches %s, expected %s"
+                                     % (bucket, label, got, want))
+        same = all(np.array_equal(a, b) for a, b in zip(outs["captured"],
+                                                         outs["eager"]))
+        timing = {}
+        for label, eng in (("captured", engine), ("eager", eager)):
+            eng.predict_prepared(images, wids)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                eng.predict_prepared(images, wids)
+            timing[label] = (time.perf_counter() - t0) / 5 * 1e3
+        log("  bucket %2d: captured %s eager; launches a call %s; %.3f ms a "
+            "call captured (%.1f images/s), %.3f eager (%s)"
+            % (bucket, "bit-equal to" if same else "DIFFERENT from",
+               {k: v for k, v in want.items() if v}, timing["captured"],
+               bucket / timing["captured"] * 1e3, timing["eager"], card))
+        if not same:
+            raise AssertionError("bucket %d: captured and eager differ"
+                                 % bucket)
+        if bucket in (1, 32):
+            r = profile_calls(lambda: engine.predict_prepared(images, wids),
+                              3, 1)
+            log("    profiled (captured): %.3f ms a call, device busy %.3f "
+                "ms, idle share %.1f%%, %.1f kernels a call; device ms by "
+                "group %s" % (r["wall_ms_profiled"], r["device_busy_ms"],
+                              100 * r["idle_share_profiled"], r["launches"],
+                              {k: round(v, 3) for k, v in
+                               r["device_ms_by_group"].items()}))
+        vals = outs["captured"][0]
+        if not (np.isfinite(vals).all() and (vals >= 0).all()
+                and (vals <= 1).all()):
+            raise AssertionError("bucket %d: probabilities out of range"
+                                 % bucket)
+    items = fixture_items(3)
+    batch = engine.answer_batch(items)
+    swaps = 0
+    for item, got in zip(items, batch):
+        one = engine.answer(item["visual"], item["question"])
+        if not (top5_agree(one, got) and top5_agree(got, one)):
+            raise AssertionError("answer vs answer_batch: %s vs %s"
+                                 % (one, got))
+        swaps += one["ans"] != got["ans"]
+        if len(got["att"]) != (2 if attention else 0):
+            raise AssertionError("%d glimpses" % len(got["att"]))
+    log("  answer_batch of 3 against answer of each: vals within 1e-3, "
+        "top-5 ids equal (%d of 3 with near-tied candidates in swapped "
+        "places); %d glimpse PNGs an item" % (swaps, len(batch[0]["att"])))
+
+
+def top5_agree(a, b, rel=1e-3):
+    """Two answers to one item, from two buckets: the vals within JAX's
+    1e-3 at every rank, and the ids equal but where candidates whose
+    probabilities agree to ``rel`` (bf16 logits a rounding step apart,
+    common among 2,000 answers at random weights) trade places, or the
+    fifth place goes to such a candidate."""
+    if np.abs(np.subtract(a["val"], b["val"])).max() > 1e-3:
+        return False
+
+    def close(p, q):
+        return abs(p - q) <= rel * max(p, q)
+
+    for r, name in enumerate(a["ans"]):
+        if name == b["ans"][r]:
+            continue
+        if name in b["ans"]:
+            if not close(a["val"][r], b["val"][b["ans"].index(name)]):
+                return False
+        elif r != 4 or not close(a["val"][4], b["val"][4]):
+            return False
+    return True
+
+
+def post(url, payload):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode())
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+@contextlib.contextmanager
+def serving(server):
+    import threading
+
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield "http://127.0.0.1:%d" % server.server_address[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+
+def load_test(url, label, card):
+    """SERVE_CLIENTS threads x SERVE_REQUESTS POST / each: items/s and the
+    p50 / p99 latency."""
+    import threading
+
+    items = fixture_items(SERVE_CLIENTS)
+    lat, errors = [], []
+
+    def client(i):
+        for _ in range(SERVE_REQUESTS):
+            t = time.perf_counter()
+            try:
+                out = post(url + "/", items[i])
+                if len(out.get("ans", ())) != 5:
+                    errors.append(out)
+            except Exception as exc:  # noqa: BLE001 — counted, then raised
+                errors.append(exc)
+            lat.append(time.perf_counter() - t)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    # the handler's per-request log lines are dropped meanwhile
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError("%s: %d failed requests: %s"
+                             % (label, len(errors), errors[:3]))
+    ms = np.sort(np.asarray(lat)) * 1e3
+    log("  %d clients x %d requests, --batcher %s: %.2f items/s, p50 %.2f "
+        "ms, p99 %.2f ms (%s)" % (SERVE_CLIENTS, SERVE_REQUESTS, label,
+                                  len(ms) / wall, np.percentile(ms, 50),
+                                  np.percentile(ms, 99), card))
+
+
+def http_checks(server, root, card):
+    """Phase 13d: every route of the server, the hot swap and back, then
+    the load of SERVE_CLIENTS threads with the batcher off and adaptive."""
+    from vqa_counterexamples_tpu_torch.serve.demo_server import (
+        DemoHTTPServer, MicroBatcher, make_handler)
+
+    engine = server.engine
+    items = fixture_items(3)
+    with serving(server) as url:
+        if get(url + "/health") != {"ok": True}:
+            raise AssertionError("/health")
+        listed = [c["name"] for c in get(url + "/checkpoints")["checkpoints"]]
+        if listed != ["a_original", "b_perturbed"]:
+            raise AssertionError("/checkpoints: %s" % listed)
+        first = post(url + "/", items[0])
+        batch = post(url + "/batch", {"items": items})["results"]
+        post(url + "/checkpoint", {"name": "b_perturbed"})
+        swapped = post(url + "/", items[0])
+        post(url + "/checkpoint", {"name": "a_original"})
+        back = post(url + "/", items[0])
+        log("  routes: /health, /checkpoints %s, POST / %s, /batch of %d, "
+            "/checkpoint b_perturbed: answers %s, back to a_original: %s; "
+            "graphs %d" % (listed, first["ans"], len(batch),
+                           "changed" if swapped["val"] != first["val"]
+                           else "UNCHANGED",
+                           "bit-equal" if back == first else "DIFFERENT",
+                           engine.n_graphs))
+        if (swapped["val"] == first["val"] or back != first
+                or not top5_agree(batch[0], first)
+                or not top5_agree(first, batch[0]) or engine.n_graphs != 6):
+            raise AssertionError("the hot swap or /batch went wrong")
+        load_test(url, "off", card)
+    batcher = MicroBatcher(engine, adaptive=True)
+    adaptive = DemoHTTPServer(("127.0.0.1", 0), make_handler(
+        engine, None, root, batcher))
+    with serving(adaptive) as url:
+        load_test(url, "adaptive", card)
+
+
+def phase_serve(dev, card):
+    """Phase 13: extraction and serving at full width (see the module
+    docstring)."""
+    from vqa_counterexamples_tpu_torch.core import checkpoint
+    from vqa_counterexamples_tpu_torch.core import config as config_lib
+    from vqa_counterexamples_tpu_torch.data import synthetic
+    from vqa_counterexamples_tpu_torch.engines import vqa_engine
+    from vqa_counterexamples_tpu_torch.models import factory
+    from vqa_counterexamples_tpu_torch.serve import demo_server
+
+    log("== phase 13: extraction and the demo server at full width")
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        phase_extract(dev, card, root)
+        torch.cuda.empty_cache()
+        for config, attention in ((NOATT_CONFIG, False), (ATT_CONFIG, True)):
+            options = config_lib.resolve_options({}, config, {})
+            ckpt_root = os.path.join(root, "runs_%s" % attention)
+            model = factory.factory_vqa(options["model"],
+                                        *synthetic.synthetic_vocab(
+                                            2000, options["vqa"]["nans"]))
+            vqa_engine.init_vqa_params(model, seed=0)   # main's weights
+            model.to(dev)
+            for name in ("a_original", "b_perturbed"):
+                state = vqa_engine.init_vqa_state(model)
+                checkpoint.save_vqa_checkpoint(
+                    {"epoch": 1, "best_acc1": 0.0}, state,
+                    os.path.join(ckpt_root, name), is_best=True)
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p.add_(0.05 * torch.randn_like(p))
+            del model, state
+            t0 = time.perf_counter()
+            server = demo_server.create_server([
+                "--path_opt", config, "--port", "0", "--prewarm",
+                "--ckpt_root", ckpt_root])
+            log("  %s: server built, six buckets captured in %.2f s"
+                % (options["model"]["arch"], time.perf_counter() - t0))
+            try:
+                engine_checks(server.engine, options, attention, card)
+                if not attention:
+                    http_checks(server, ckpt_root, card)
+            finally:
+                server.server_close()
+            del server
+            torch.cuda.empty_cache()
+    log("  phase 13: %.1f s; %s" % (time.perf_counter() - t_phase,
+                                    memory_line(card)))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -2475,6 +2945,7 @@ def main():
     phase_trainable(dev, card)
     phase_zoo(dev, card)
     phase_realdata(dev, card)
+    phase_serve(dev, card)
     log("total %.1f s" % (time.perf_counter() - t0))
     # launches: each kernel's path; the CX training path (phase 3) runs
     # gru, vfeat, vfeat_bwd and mixture, MutanNoAtt pretraining (phase 5)

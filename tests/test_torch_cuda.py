@@ -1097,3 +1097,103 @@ def test_captured_contrastive_step_equals_eager(dev, monkeypatch):
     assert torch.isfinite(met_cap).all() and s_cap.step == 6
     assert all(torch.equal(a, b) for a, b in zip(ev_cap, ev_eag))
     _assert_same_training(m_cap, s_cap.optimizer, m_eag, s_eag.optimizer)
+
+
+# ------------------------------------------------ the demo server's graphs
+
+def _serving_engine(dev, capture, attention=False):
+    """A DemoEngine at narrow widths on the card (the ResNet-50 name at
+    depth (1, 1, 1, 1), 64 x 64 images, skip-thoughts 16 -> 48)."""
+    import os
+
+    from vqa_counterexamples_tpu_torch.core import config as port_config
+    from vqa_counterexamples_tpu_torch.data import synthetic
+    from vqa_counterexamples_tpu_torch.engines import vqa_engine
+    from vqa_counterexamples_tpu_torch.models import convnets, factory
+    from vqa_counterexamples_tpu_torch.serve.demo_server import DemoEngine
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    opt = port_config.load_options_file(os.path.join(
+        repo, "configs", "vqa2", "mutan_att_train.yaml" if attention
+        else "mutan_noatt_train.yaml"))
+    opt["model"]["seq2vec"].update(emb_size=16, hidden_size=48,
+                                   dir_st="/no_st")
+    if attention:
+        opt["model"].update(dim_q=48)
+        opt["model"]["attention"].update(dim_hv=24, dim_hq=24, dim_mm=16,
+                                         R=3)
+        opt["model"]["fusion"].update(dim_hv=48, dim_hq=24, dim_mm=16, R=3)
+    else:
+        opt["model"]["fusion"].update(dim_q=48, dim_hv=24, dim_hq=24,
+                                      dim_mm=24, R=3)
+    opt["vqa"].update(maxlength=8, nans=6)
+    opt["coco"].update(arch="resnet50", size=64)
+    words, answers = synthetic.synthetic_vocab(30, 6)
+    model = factory.factory_vqa(opt["model"], words, answers)
+    vqa_engine.init_vqa_params(model, seed=0)
+    cnn = convnets.init_resnet(convnets.ResNet(depths=(1, 1, 1, 1)))
+    return DemoEngine(opt, model.to(dev), cnn, words, answers, attention,
+                      capture=capture)
+
+
+def _serving_inputs(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (n, 64, 64, 3), dtype=np.uint8),
+            rng.integers(0, 31, (n, 8)).astype(np.int32))
+
+
+@pytest.mark.parametrize("attention", [False, True], ids=["noatt", "att"])
+def test_captured_serving_buckets_equal_eager(dev, monkeypatch, attention):
+    """One graph per bucket, bit-equal to the eager forward; a hot swap
+    copies into the captured tensors (no recapture) and swapping back
+    gives the first answers again, bit for bit."""
+    monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
+    captured = _serving_engine(dev, None, attention)
+    eager = _serving_engine(dev, False, attention)
+    assert captured.prewarm(max_bucket=8) == [1, 2, 4, 8]
+    assert captured.n_graphs == 4 and eager.n_graphs == 0
+    for n in (1, 3, 8):
+        images, wids = _serving_inputs(n, seed=n)
+        got = captured.predict_prepared(images, wids)
+        want = eager.predict_prepared(images, wids)
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b)
+    images, wids = _serving_inputs(2)
+    first = captured.predict_prepared(images, wids)
+    original = {k: v.detach().clone()
+                for k, v in captured.vqa_model.state_dict().items()}
+    captured.set_params({k: v + 0.25 for k, v in original.items()})
+    swapped = captured.predict_prepared(images, wids)
+    assert not np.array_equal(swapped[0], first[0])
+    captured.set_params(original)
+    back = captured.predict_prepared(images, wids)
+    assert all(np.array_equal(a, b) for a, b in zip(back, first))
+    assert captured.n_graphs == 4
+
+
+def test_captured_serving_from_many_threads(dev, monkeypatch):
+    """Sixteen threads predicting at once on two buckets get what a lone
+    caller gets, bit for bit (fill, replay and copy-out under the bucket's
+    lock)."""
+    import threading
+
+    monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
+    engine = _serving_engine(dev, None)
+    inputs = [_serving_inputs(1 + i % 2, seed=i) for i in range(16)]
+    want = [engine.predict_prepared(*x) for x in inputs]
+    got = [None] * len(inputs)
+
+    def worker(i):
+        for _ in range(4):
+            got[i] = engine.predict_prepared(*inputs[i])
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(inputs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for g, w in zip(got, want):
+        assert all(np.array_equal(a, b) for a, b in zip(g, w))
+    assert engine.n_graphs == 2

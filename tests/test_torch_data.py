@@ -128,9 +128,17 @@ def test_port_import_leaves_jax_out():
             "import vqa_counterexamples_tpu_torch.ops.topk\n"
             "import vqa_counterexamples_tpu_torch.data.features\n"
             "import vqa_counterexamples_tpu_torch.cli.knn as k\n"
+            "import vqa_counterexamples_tpu_torch.cli.extract as e\n"
+            "import vqa_counterexamples_tpu_torch.serve.demo_server as d\n"
+            "import vqa_counterexamples_tpu_torch.models.convnets\n"
+            "import vqa_counterexamples_tpu_torch.data.native_decoder\n"
+            "import vqa_counterexamples_tpu_torch.data.image_fixtures\n"
+            "import vqa_counterexamples_tpu_torch.core.graphs\n"
             "c.build_parser()\n"
             "t.build_parser()\n"
             "k.build_parser()\n"
+            "e.build_parser()\n"
+            "d.build_parser()\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'vqa_counterexamples_tpu'))\n"
             "print(bad)\n"

@@ -50,6 +50,7 @@ import torch
 GROUPS = (("vfeat_bwd", ("vfeat_bwd",)), ("vfeat_fwd", ("vfeat_fwd",)),
           ("mixture", ("mixture",)), ("gru_bwd", ("gru_bwd",)),
           ("gru", ("gru_",)), ("mutan", ("mutan",)),
+          ("conv", ("fprop", "cudnn", "conv2d", "implicit_convolve")),
           ("gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "sm80_")),
           ("adam", ("adam", "foreach", "multi_tensor")),
           ("memcpy/memset", ("memcpy", "memset")))

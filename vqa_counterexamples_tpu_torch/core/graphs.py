@@ -41,6 +41,7 @@ still counts the launches that the steps executed.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -294,3 +295,108 @@ class GraphedStep:
         delta = [a - b for a, b in zip(self.ledger.read(), warm)]
         self.ledger.restore(counts)
         return _Captured(graph, names, packed, delta)
+
+
+class GraphedCall:
+    """A forward-only sibling of :class:`GraphedStep` for serving:
+    ``body(inputs) -> {name: tensor}`` (tensors of any shape), no optimizer,
+    no generators.
+
+    On a CUDA device (``capture`` None or True) each input layout gets one
+    graph, captured at its first call after a warm-up on a side stream (as
+    ``jax.jit`` compiles one program per shape); every later call copies
+    its inputs into the layout's static buffers, replays, and returns
+    clones of the graph's outputs, so a caller's results outlive the next
+    replay.  On the CPU, or with ``capture=False``, the body runs eagerly
+    on the same buffers.
+
+    Calls may come from many threads at once.  A lock per layout covers
+    fill, replay (or the eager body) and copy-out; captures take one more
+    lock, one at a time, and run in ``thread_local`` error mode so that
+    other threads' replays and copies may go on meanwhile (they use other
+    streams than the capture's).  :meth:`exclusive` holds every layout's
+    lock: an in-place weight update under it waits for in-flight calls
+    and is read by every later replay, since a graph reads the parameters
+    by address and never copies them.
+
+    Launch counts are kept as :class:`GraphedStep` keeps them (recorded
+    at capture, added per replay)."""
+
+    def __init__(self, body, device, *, capture=None, counters=()):
+        import threading
+
+        self.body = body
+        self.device = torch.device(device)
+        self.capture = (self.device.type == "cuda" if capture is None
+                        else bool(capture))
+        if self.capture and self.device.type != "cuda":
+            raise ValueError("a CUDA graph needs a CUDA device, got %s"
+                             % self.device)
+        self.ledger = LaunchLedger(counters)
+        self._inputs = {}     # layout -> StaticInputs
+        self._graphs = {}     # layout -> (graph, outputs)
+        self._locks = {}      # layout -> threading.Lock
+        self._guard = threading.Lock()        # the dicts above
+        self._capture_lock = threading.Lock()
+        self._stream = None
+
+    @property
+    def n_graphs(self) -> int:
+        return len(self._graphs)
+
+    def _lock(self, layout):
+        import threading
+
+        with self._guard:
+            return self._locks.setdefault(layout, threading.Lock())
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        """Hold every layout's lock (in a fixed order) and the guard that
+        creates them; on a card, the device is synchronized before they
+        are released."""
+        # holding the guard too: no call on a new layout starts meanwhile
+        with self._guard, contextlib.ExitStack() as stack:
+            for key in sorted(self._locks, key=repr):
+                stack.enter_context(self._locks[key])
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    def __call__(self, inputs: dict) -> dict:
+        layout = input_layout(inputs)
+        with self._lock(layout):
+            static = self._inputs.get(layout)
+            if static is None:
+                static = self._inputs[layout] = StaticInputs(layout,
+                                                             self.device)
+            static.load(inputs)
+            if not self.capture:
+                return self.body(static.tensors)
+            entry = self._graphs.get(layout)
+            if entry is None:
+                with self._capture_lock:
+                    entry = self._graphs[layout] = self._capture(static)
+            graph, outputs, delta = entry
+            graph.replay()
+            self.ledger.add(delta)
+            return {k: v.clone() for k, v in outputs.items()}
+
+    def _capture(self, static):
+        current = torch.cuda.current_stream(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        stream = self._stream
+        counts = self.ledger.read()
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self.body(static.tensors)          # warm-up: builds, cuDNN plans
+        current.wait_stream(stream)
+        warm = self.ledger.read()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            outputs = self.body(static.tensors)
+        delta = [a - b for a, b in zip(self.ledger.read(), warm)]
+        self.ledger.restore(counts)
+        return graph, outputs, delta

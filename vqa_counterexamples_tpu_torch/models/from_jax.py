@@ -165,3 +165,33 @@ def vqa_adam_state_from_jax(opt_state, model: torch.nn.Module,
     optax's Adam over the whole VQA param tree into the state of every
     parameter of ``model``."""
     _carry_adam(opt_state, model, optimizer, vqa_state_dict_from_jax)
+
+
+def resnet_from_jax(params: dict) -> dict:
+    """The JAX trunk's flax tree (``models/convnets.ResNet`` of the JAX
+    package: HWIO conv ``kernel``s, FrozenBatchNorm ``scale`` / ``bias`` /
+    ``mean`` / ``var``) -> a ``state_dict`` of this port's
+    ``models/convnets.ResNet`` (OIHW weights, the BN buffers under the
+    reference's names).  The depths are read from the tree."""
+    from .convnets import flax_bn_names, flax_conv_names
+
+    depths = tuple(len([k for k in params
+                        if k.startswith("layer%d_" % s)]) for s in (1, 2, 3, 4))
+
+    def leaf(path):
+        node = params
+        for key in path:
+            node = node[key]
+        return node
+
+    sd = {}
+    for path, name in flax_conv_names(depths):
+        sd[name + ".weight"] = _t(leaf(path)["kernel"]).permute(
+            3, 2, 0, 1).contiguous()
+    for path, name in flax_bn_names(depths):
+        bn = leaf(path)
+        for ours, theirs in (("weight", "scale"), ("bias", "bias"),
+                             ("running_mean", "mean"),
+                             ("running_var", "var")):
+            sd["%s.%s" % (name, ours)] = _t(bn[theirs])
+    return sd
