@@ -456,11 +456,18 @@ def test_mutan_att_eval_matches_jax(world, dtype):
 
 
 def test_mutan_att_needs_maps_and_mlb_is_not_ported(world):
+    """MutanAtt refuses pooled features; the factory now builds MLBAtt
+    from the same tree (tests/test_torch_mlb.py holds it against JAX), and
+    an arch it does not know raises ``ValueError`` as JAX's does."""
     with pytest.raises(ValueError, match="feature maps"):
         world.pmodel(torch.zeros(2, 24), torch.zeros(2, 3, dtype=torch.long))
-    opt = dict(tiny_options(), arch="MLBAtt")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_factory.factory_vqa(opt, world.words, world.answers)
+    opt = copy.deepcopy(dict(tiny_options(), arch="MLBAtt"))
+    opt["attention"]["dim_h"] = opt["fusion"]["dim_h"] = 20
+    mlb = port_factory.factory_vqa(opt, world.words, world.answers)
+    assert type(mlb).__name__ == "MLBAtt" and not hasattr(mlb, "fusion_att")
+    with pytest.raises(ValueError, match="arch"):
+        port_factory.factory_vqa(dict(opt, arch="NoSuchAtt"), world.words,
+                                 world.answers)
     m = world.pmodel
     assert m.opt["attention"]["dim_v"] == 20 and m.opt["attention"][
         "dim_q"] == 20

@@ -4,9 +4,11 @@ and hidden sizes off the tile multiples, unaligned widths, dropout masks
 shared or per gate) and, for the vfeat forward and backward, the GRU
 backward and kNN, at their paths' full shapes too (vfeat also over
 COCO-train's 82,783-row table); and the captured CUDA graphs of the train
-and eval steps against the eager steps, bit for bit (CX, MutanNoAtt and
-MutanAtt at small sizes), the generators' reseeding under replay, and a
-resume after a captured epoch.
+and eval steps against the eager steps, bit for bit (CX, MutanNoAtt,
+MutanAtt, MLBNoAtt with UniSkip and with the LSTM encoders, and MLBAtt at
+small sizes), the generators' reseeding under replay, a resume after a
+captured epoch, UniSkip's no-mask GRU pair at full width, and the native
+store's prefetch into the pinned buffers.
 
 Marked ``cuda``: they skip where no card is visible.  On a host with a card
 and no JAX (the tests' conftest imports jax), run them as
@@ -1197,3 +1199,171 @@ def test_captured_serving_from_many_threads(dev, monkeypatch):
     for g, w in zip(got, want):
         assert all(np.array_equal(a, b) for a, b in zip(g, w))
     assert engine.n_graphs == 2
+
+
+@pytest.mark.parametrize("batch", [512, 128])
+def test_gru_no_mask_train_pair_at_uniskip_batches(dev, batch):
+    """UniSkip's training path (MLBNoAtt at B 512, its val and the MLBAtt
+    batch B 128): the forward with h_proj out and no mask, then the
+    backward with no mask, at full width (T 26, H 2400) against their
+    plain versions, bit-equal on a rerun, and through
+    ``gru_recurrence_train`` the gradients against the same Function with
+    the plain versions swapped in."""
+    xp, w, b, _ = _gru_inputs(dev, 26, batch, 2400, "none", seed=batch)
+    got = gru_kernel.gru_recurrence(xp, w, b, None, want_hproj=True)
+    ref = gru_kernel.gru_recurrence_plain(xp, w, b, None, want_hproj=True)
+    assert got[1] is not None and gru_kernel.forward_tile(xp, w, b,
+                                                          None).tma
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.float(), r.float(), atol=5e-2,
+                                   rtol=5e-2)
+    ds = _randn(torch.Generator().manual_seed(2), dev, 26, batch, 2400)
+    bwd = gru_kernel.gru_recurrence_bwd(xp, w, None, *got, ds)
+    bwd_ref = gru_kernel.gru_recurrence_bwd_plain(xp, w, None, *got, ds)
+    again = gru_kernel.gru_recurrence_bwd(xp, w, None, *got, ds)
+    torch.cuda.synchronize()
+    for name, a, r, c in zip(("dxp", "dW", "db"), bwd, bwd_ref, again):
+        _assert_rel(a, r, 2e-2, name)
+        assert torch.equal(a, c), name
+    leaves = [t.float().requires_grad_() for t in (xp, w, b)]
+    grads = []
+    for plain in (False, True):
+        saved = (gru_kernel.gru_recurrence, gru_kernel.gru_recurrence_bwd)
+        if plain:
+            gru_kernel.gru_recurrence = gru_kernel.gru_recurrence_plain
+            gru_kernel.gru_recurrence_bwd = \
+                gru_kernel.gru_recurrence_bwd_plain
+        try:
+            states = gru_kernel.gru_recurrence_train(
+                leaves[0].to(torch.bfloat16), leaves[1].to(torch.bfloat16),
+                leaves[2], None)
+            (states.float() * ds.float()).sum().backward()
+        finally:
+            gru_kernel.gru_recurrence, gru_kernel.gru_recurrence_bwd = saved
+        grads.append([t.grad.clone() for t in leaves])
+        for t in leaves:
+            t.grad = None
+    torch.cuda.synchronize()
+    for name, got_g, ref_g in zip(("xp", "w_hh", "b_hh"), *grads):
+        _assert_rel(got_g, ref_g, 2e-2, name)
+
+
+def _tiny_mlb(dev, name, seq2vec=None):
+    """A small MLB model from a ``configs/vqa2`` YAML (its arch, encoder
+    type, glimpses, dropouts and activations; narrow widths) on the card,
+    or with another encoder, and 36 synthetic examples (B 8: four full
+    batches and a short one of 4)."""
+    import os
+
+    from vqa_counterexamples_tpu_torch.core import config as config_lib
+    from vqa_counterexamples_tpu_torch.data import synthetic
+    from vqa_counterexamples_tpu_torch.data.vqa_dataset import VQAArrays
+    from vqa_counterexamples_tpu_torch.engines import vqa_engine
+    from vqa_counterexamples_tpu_torch.models import factory
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    opt = config_lib.load_options_file(
+        os.path.join(repo, "configs", "vqa2", name))["model"]
+    opt["seq2vec"] = seq2vec or dict(opt["seq2vec"], emb_size=16,
+                                     hidden_size=48)
+    dim_q = 2 * 48 if opt["seq2vec"]["arch"] == "2-lstm" else 48
+    att = opt["arch"] == "MLBAtt"
+    if att:
+        opt.update(dim_v=24, dim_q=dim_q)
+        opt["attention"]["dim_h"] = 32
+        opt["fusion"]["dim_h"] = 32
+    else:
+        opt["fusion"].update(dim_v=24, dim_q=dim_q, dim_h=32)
+    examples, store, words, answers = synthetic.make_synthetic_vqa(
+        36, 30, 10, dim_v=24, spatial=att, seed=2)
+    model = factory.factory_vqa(opt, words, answers)
+    vqa_engine.init_vqa_params(model, seed=4)
+    return model.to(dev), VQAArrays(examples, store, samplingans=True)
+
+
+@pytest.mark.parametrize("name,seq2vec", [
+    ("default.yaml", None), ("mlb_att_trainval.yaml", None),
+    ("default.yaml", {"arch": "lstm", "emb_size": 16, "hidden_size": 48}),
+    ("default.yaml", {"arch": "2-lstm", "emb_size": 16, "hidden_size": 48})],
+    ids=["mlb_noatt", "mlb_att", "lstm", "2-lstm"])
+def test_captured_mlb_train_step_equals_eager(dev, monkeypatch, name,
+                                              seq2vec):
+    """MLBNoAtt (UniSkip: the no-mask GRU pair), MLBAtt (BayesianUniSkip,
+    4 glimpses) and MLBNoAtt over the LSTM encoders: two epochs of
+    captured steps against eager ones from one start, dropout on, bit for
+    bit (metrics, parameters, Adam moments)."""
+    import copy
+
+    from vqa_counterexamples_tpu_torch.engines import vqa_engine
+
+    monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
+    model, arrays = _tiny_mlb(dev, name, seq2vec)
+    att = type(model).__name__ == "MLBAtt"
+    feats = None if att else arrays.store.to_device(dev)
+    runs = []
+    for capture, m in ((None, model), (False, copy.deepcopy(model))):
+        state = vqa_engine.init_vqa_state(m, lr=1e-3)
+        step = vqa_engine.make_vqa_train_step(m, state.optimizer,
+                                              base_seed=7, capture=capture)
+        rng = np.random.default_rng(1)
+        metrics = []
+        for _ in range(2):
+            for batch in arrays.batches(8, rng=rng, device_features=feats,
+                                        device=dev):
+                state, out = step(state, batch)
+                metrics.append([float(out[k]) for k in
+                                ("loss", "acc1", "acc5")])
+        runs.append((m, state, step, metrics))
+    (m_cap, s_cap, step_cap, met_cap), (m_eag, s_eag, _, met_eag) = runs
+    assert step_cap.graphed.n_graphs == 2   # B 8 and the short B 4
+    assert met_cap == met_eag and np.isfinite(met_cap).all()
+    _assert_same_training(m_cap, s_cap.optimizer, m_eag, s_eag.optimizer)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pinned_native_batches_match_host_path(dev, tmp_path, dtype):
+    """Att-map batches of an ``.att.npy`` store (f32, and bf16 as its
+    uint16 bit-view) through the native store's prefetch tickets into the
+    pinned buffers: the host path's batches bit for bit, no ticket left
+    when the pass ends or when the generator is closed after one batch."""
+    import ml_dtypes
+
+    from vqa_counterexamples_tpu_torch.data.features import FeatureStore
+    from vqa_counterexamples_tpu_torch.data.vqa_dataset import VQAArrays
+
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(20, 3, 3, 8)).astype(np.float32)
+    if dtype == "bfloat16":
+        feats = feats.astype(ml_dtypes.bfloat16)
+    names = ["n%d" % i for i in range(20)]
+    prefix = str(tmp_path / "trainset")
+    np.save(prefix + ".att.npy", feats.view(np.uint16)
+            if dtype == "bfloat16" else feats)
+    with open(prefix + ".txt", "w") as f:
+        f.write("\n".join(names) + "\n")
+    examples = [{"question_id": i, "question_wids": [1, 2, 0],
+                 "image_name": names[int(rng.integers(0, 20))],
+                 "answer_aid": i % 3, "answers_aid": [i % 3, 1],
+                 "answers_count": [3, 2]} for i in range(37)]
+    store = FeatureStore.load(prefix, dataset="att")
+    arrays = VQAArrays(examples, store, samplingans=True)
+    assert arrays.gather_path == "native"
+    host = list(arrays.batches(8, rng=np.random.default_rng(1)))
+    card = list(arrays.batches(8, rng=np.random.default_rng(1), device=dev))
+    torch.cuda.synchronize()
+    assert len(card) == len(host) == 5 and store.outstanding == 0
+    for c, h in zip(card, host):
+        assert c["visual"].dtype == (torch.bfloat16 if dtype == "bfloat16"
+                                     else torch.float32)
+        got = c["visual"].cpu()
+        if dtype == "bfloat16":
+            got = got.view(torch.int16).numpy().view(np.uint16)
+            want = np.asarray(h["visual"]).view(np.uint16)
+        else:
+            got, want = got.numpy(), h["visual"]
+        np.testing.assert_array_equal(got, want)
+    gen = arrays.batches(8, shuffle=False, device=dev)
+    next(gen)
+    assert store.outstanding == 1
+    gen.close()
+    assert store.outstanding == 0

@@ -219,12 +219,23 @@ def test_feature_store_round_trip_with_jax(tmp_path):
 
 
 def test_feature_store_refuses_hdf5_and_bf16(tmp_path):
+    """The store reads HDF5 and bf16 now (tests/test_torch_store.py):
+    what it refuses is a prefix with neither file, and an ``.npy`` of
+    another element type; a uint16 ``.npy`` is read as bf16 rows, as
+    JAX's ``load`` reads it."""
     (tmp_path / "f.txt").write_text("a\nb\n")
-    with pytest.raises(NotImplementedError, match="HDF5"):
+    with pytest.raises(FileNotFoundError, match="hdf5"):
         FeatureStore.load(str(tmp_path / "f"))
-    np.save(str(tmp_path / "f.npy"), np.zeros((2, 3), np.uint16))
-    with pytest.raises(NotImplementedError, match="f32"):
+    np.save(str(tmp_path / "f.npy"), np.zeros((2, 3), np.int32))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         FeatureStore.load(str(tmp_path / "f"))
+    bits = np.arange(6, dtype=np.uint16).reshape(2, 3) + 16256  # 1.0, ...
+    np.save(str(tmp_path / "f.npy"), bits)
+    got, ref = (S.load(str(tmp_path / "f")) for S in (FeatureStore, JaxStore))
+    assert got.dtype == ref.dtype and got.dtype.itemsize == 2
+    np.testing.assert_array_equal(got.features.view(np.uint16), bits)
+    np.testing.assert_array_equal(got.features.view(np.uint16),
+                                  ref.features.view(np.uint16))
 
 
 # ---------------------------------------------------------------- the CLI

@@ -7,7 +7,10 @@ with Adam; the others (RandomBaseline and DistanceBaseline, built with no
 backbone, BlackBox, SemanticBaseline, which needs ``--sb_lambda``,
 and SimilarityModel) are evaluated once an epoch, as JAX's CLI runs them.
 ContrastiveModel raises ``ValueError`` here, as it does in JAX's CLI: it
-trains with ``cli/contrastive.py``.  The run builds the frozen-backbone
+trains with ``cli/contrastive.py``.  The backbone is the YAML's
+``model`` (MutanNoAtt or MLBNoAtt: with MLB the fused vector z is
+``fusion.dim_h`` wide, and the fused classify + softmax kernel stays off,
+its head having a tanh).  The run builds the frozen-backbone
 q/v/z caches, runs ``--epochs`` epochs (per-epoch val, the best epoch by
 recall kept in ``best/``, the last in ``ckpt/``), then with ``--test``
 loads the best checkpoint and scores every test example's candidates,

@@ -1,6 +1,7 @@
 """VQA pretraining CLI (port of ``cli/train.py``; reference ``train.py``).
 
-Trains the MutanNoAtt or MutanAtt classifier with per-epoch validation
+Trains a VQA classifier (MutanNoAtt, MLBNoAtt, MutanAtt or MLBAtt, over
+the skip-thoughts GRU or an LSTM encoder) with per-epoch validation
 (acc@1 / acc@5 and the OpenEnded result rows), the best epoch by val acc@1
 kept as ``best_*`` beside the last ``ckpt_*`` (or every epoch from
 ``--save_all_from`` on), and ``logger.json``; a trainval run writes the
@@ -9,6 +10,9 @@ test2015 / test-dev2015 rows each epoch instead of validating::
     python -m vqa_counterexamples_tpu_torch.cli.train \\
         --path_opt configs/vqa2/mutan_noatt_train.yaml --synthetic 2048 \\
         --epochs 1
+
+(``configs/vqa2/default.yaml`` and ``mlb_noatt_train.yaml`` train MLBNoAtt,
+``mlb_att_trainval.yaml`` MLBAtt.)
 
 Without ``--synthetic`` it reads the real data as the JAX CLI does: the
 processed pickles under ``vqa.dir``/processed/<options_subdir> (built from
@@ -23,11 +27,13 @@ annotations, each epoch's val rows are scored on a thread by
 
 ``--resume best|ckpt`` continues from ``dir_logs``; ``-e`` only evaluates.
 The device is ``cuda``; with no card visible the CLI refuses to run unless
-``--device cpu`` is given.  MutanAtt's att maps stay on the host and
-stream through ``VQAArrays.batches``' gather (the next batch prefetched, in
-pinned buffers for a card), as the JAX CLI's do.  ``--mesh``,
-``--distributed``, an encoder other than skip-thoughts and the MLB archs
-raise ``NotImplementedError`` (see ROADMAP.md for when they come).
+``--device cpu`` is given.  The attention archs' att maps stay on the host
+and stream through ``VQAArrays.batches``' gather (the next batch
+prefetched by the native store's tickets, or a worker thread where it
+cannot be built; in pinned buffers for a card), as the JAX CLI's do; f32
+or bf16 maps, as ``cli/extract.py`` wrote them.  ``--mesh`` and
+``--distributed`` raise ``NotImplementedError`` (see ROADMAP.md for when
+they come).
 """
 
 from __future__ import annotations

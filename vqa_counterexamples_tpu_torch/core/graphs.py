@@ -311,10 +311,13 @@ class GraphedCall:
     on the same buffers.
 
     Calls may come from many threads at once.  A lock per layout covers
-    fill, replay (or the eager body) and copy-out; captures take one more
-    lock, one at a time, and run in ``thread_local`` error mode so that
-    other threads' replays and copies may go on meanwhile (they use other
-    streams than the capture's).  :meth:`exclusive` holds every layout's
+    fill, replay (or the eager body) and copy-out.  On a card one more
+    lock covers each call's device work (its buffers' allocation, the
+    fill, the replay and the copy-out, or a capture with its warm-up), so
+    a capture never runs beside another thread's allocations, copies or
+    replays (with them beside it, a capture in a concurrent prewarm of
+    four buckets was once invalidated on an H100).  Captures run in
+    ``thread_local`` error mode.  :meth:`exclusive` holds every layout's
     lock: an in-place weight update under it waits for in-flight calls
     and is read by every later replay, since a graph reads the parameters
     by address and never copies them.
@@ -337,7 +340,9 @@ class GraphedCall:
         self._graphs = {}     # layout -> (graph, outputs)
         self._locks = {}      # layout -> threading.Lock
         self._guard = threading.Lock()        # the dicts above
-        self._capture_lock = threading.Lock()
+        # a call's device work on a card; captures exclude the rest
+        self._device_lock = (threading.Lock() if self.capture
+                             else contextlib.nullcontext())
         self._stream = None
 
     @property
@@ -365,7 +370,7 @@ class GraphedCall:
 
     def __call__(self, inputs: dict) -> dict:
         layout = input_layout(inputs)
-        with self._lock(layout):
+        with self._lock(layout), self._device_lock:
             static = self._inputs.get(layout)
             if static is None:
                 static = self._inputs[layout] = StaticInputs(layout,
@@ -375,8 +380,7 @@ class GraphedCall:
                 return self.body(static.tensors)
             entry = self._graphs.get(layout)
             if entry is None:
-                with self._capture_lock:
-                    entry = self._graphs[layout] = self._capture(static)
+                entry = self._graphs[layout] = self._capture(static)
             graph, outputs, delta = entry
             graph.replay()
             self.ledger.add(delta)

@@ -5,10 +5,12 @@ the JAX package's bit for bit for one numpy ``rng``).
 All question/answer tensors are precomputed as int32 arrays once.  With
 the feature matrix on the device (the noatt case) a batch's visual rows
 are gathered there by index; otherwise (att maps) the host gathers them,
-the next batch's rows on one worker thread while the current batch is
-consumed (the JAX package's thread path).  For a card the worker gathers
-straight into two reused pinned buffers and the batch goes up on a copy
-stream of its own (see :meth:`VQAArrays.batches`).
+the next batch's rows while the current batch is consumed: through the
+native C++ store's prefetch tickets where an ``.npy`` backs the store
+(the JAX package's native path), else on a worker thread (its thread
+path).  For a card the rows go straight into two reused pinned buffers and
+the batch goes up on a copy stream of its own (see
+:meth:`VQAArrays.batches`).
 ``samplingans=True`` draws the train answer from the human answers
 weighted by occurrence count (reference ``vqa.py:62-76``).
 """
@@ -79,10 +81,12 @@ class VQAArrays:
 
         ``device_features``: the matrix on a device; a batch's rows are
         gathered there by ``index_select``.  Otherwise the host gathers the
-        rows, the next batch's on a worker thread; with a CUDA ``device``
-        into two reused pinned buffers, each batch then copied to the card
-        on a side stream that the consuming stream waits for, and a buffer
-        refilled only after its copy has finished.  Answers are sampled in
+        rows, the next batch's ahead of time (through the native store
+        where :attr:`gather_path` is ``"native"``, else on a worker
+        thread); with a CUDA ``device`` into two reused pinned buffers,
+        each batch then copied to the card on a side stream that the
+        consuming stream waits for, and a buffer refilled only after its
+        copy has finished.  Answers are sampled in
         batch order on the calling thread, so the ``rng`` draws are the
         same on every path."""
         rng = rng or np.random.default_rng()
@@ -118,50 +122,106 @@ class VQAArrays:
             yield from self._pinned_batches(starts, rows, assemble,
                                             torch.device(device))
             return
+        store = self.store
+        if store.gather_path == "native":
+            def start(i):
+                buf = np.empty((len(rows[i]),) + store.row_shape,
+                               store.dtype)
+                return _ticket(store, store.prefetch_rows(rows[i], buf), buf)
+
+            yield from _ahead(len(starts), start,
+                              lambda i, visual: assemble(starts[i], visual))
+            return
         with ThreadPoolExecutor(max_workers=1) as pool:
-            future = pool.submit(self.store.gather_rows, rows[0])
-            for i, s in enumerate(starts):
-                visual = future.result()
-                if i + 1 < len(starts):
-                    future = pool.submit(self.store.gather_rows, rows[i + 1])
-                yield assemble(s, visual)
+            yield from _ahead(
+                len(starts),
+                lambda i: pool.submit(store.gather_rows, rows[i]).result,
+                lambda i, visual: assemble(starts[i], visual))
+
+    @property
+    def gather_path(self) -> str:
+        """Which host gather serves the att-map batches: ``"native"`` (the
+        C++ store's prefetch tickets) or ``"numpy"``."""
+        return self.store.gather_path
 
     def _pinned_batches(self, starts, rows, assemble, device):
         """The host gather for a card: batch i is gathered into pinned
-        buffer i % 2 on the worker thread (its rows split over
-        ``GATHER_THREADS`` copying threads), copied up on ``copy``; the
-        consuming stream waits for the copy's event, and the worker waits
-        for it before it refills that buffer (batch i + 2)."""
-        shape = (len(rows[0]),) + self.store.row_shape
-        bufs = [torch.empty(shape, dtype=torch.float32, pin_memory=True)
+        buffer i % 2 (by a native prefetch ticket, or on a worker thread
+        whose rows are split over ``GATHER_THREADS`` copying threads),
+        copied up on ``copy``; the consuming stream waits for the copy's
+        event, and the buffer is refilled (batch i + 2) only after that
+        copy has finished."""
+        store = self.store
+        shape = (len(rows[0]),) + store.row_shape
+        dtype = torch.bfloat16 if store.dtype.itemsize == 2 else torch.float32
+        bufs = [torch.empty(shape, dtype=dtype, pin_memory=True)
                 for _ in range(2)]
         done = [None, None]
         copy = torch.cuda.Stream(device)
 
-        def fill(i):
+        def host_rows(i):
+            """Buffer i % 2 as the numpy array batch i is gathered into,
+            once the copy of the batch it held (i - 2) has finished."""
             if done[i % 2] is not None:
                 done[i % 2].synchronize()
             out = bufs[i % 2][:len(rows[i])]
-            host = out.numpy()
+            view = out.view(torch.int16) if out.dtype == torch.bfloat16 \
+                else out
+            return out, view.numpy().view(store.dtype)
+
+        def prefetch(i):
+            out, host = host_rows(i)
+            return _ticket(store, store.prefetch_rows(rows[i], host), out)
+
+        def fill(i):
+            out, host = host_rows(i)
             parts = np.array_split(np.arange(len(rows[i])), GATHER_THREADS)
-            list(gather.map(lambda p: self.store.gather_rows(
+            list(gather.map(lambda p: store.gather_rows(
                 rows[i][p], out=host[p[0]:p[-1] + 1]),
                 [p for p in parts if len(p)]))
             return out
 
+        def ship(i, out):
+            consumer = torch.cuda.current_stream(device)
+            with torch.cuda.stream(copy):
+                visual = out.to(device, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(copy)
+            done[i % 2] = event
+            consumer.wait_event(event)
+            visual.record_stream(consumer)
+            return assemble(starts[i], visual)
+
         with ThreadPoolExecutor(GATHER_THREADS) as gather, \
                 ThreadPoolExecutor(max_workers=1) as pool:
-            future = pool.submit(fill, 0)
-            for i, s in enumerate(starts):
-                host = future.result()
-                consumer = torch.cuda.current_stream(device)
-                with torch.cuda.stream(copy):
-                    visual = host.to(device, non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record(copy)
-                done[i % 2] = event
-                consumer.wait_event(event)
-                visual.record_stream(consumer)
-                if i + 1 < len(starts):
-                    future = pool.submit(fill, i + 1)
-                yield assemble(s, visual)
+            start = (prefetch if store.gather_path == "native"
+                     else lambda i: pool.submit(fill, i).result)
+            yield from _ahead(len(starts), start, ship)
+
+
+def _ticket(store: FeatureStore, ticket, out):
+    """A fetch that waits for a native prefetch ``ticket`` and gives
+    ``out``, the buffer it writes."""
+    def finish():
+        store.wait_rows(ticket)
+        return out
+    return finish
+
+
+def _ahead(n: int, start, make):
+    """Yield ``make(i, start(i)())`` for i < n, the fetch of batch i + 1
+    started before batch i is made and handed out.  ``start(i)`` begins a
+    fetch and returns the call that finishes it.  A fetch in flight is
+    finished before the generator lets go of it, also when the consumer
+    closes the generator early: a native ticket must not outlive the
+    buffer it writes."""
+    pending = start(0)
+    try:
+        for i in range(n):
+            fetched, pending = pending(), None
+            if i + 1 < n:
+                pending = start(i + 1)
+            yield make(i, fetched)
+    finally:
+        if pending is not None:
+            pending()

@@ -1,5 +1,5 @@
-"""Attention VQA classifier (port of ``models/att.py``): ``MutanAtt``, the
-reference's ``AbstractAtt`` tower with MUTAN at both stages.
+"""Attention VQA classifiers (port of ``models/att.py``): ``MutanAtt`` and
+``MLBAtt`` over the reference's ``AbstractAtt`` tower.
 
 Visual features come channels-last ``(B, H, W, C)``, as in the JAX
 package.  The reference's 1x1 convolutions (``conv_v_att``, ``conv_att``)
@@ -9,17 +9,18 @@ tower's linears follow the compute policy (flax ``Dense(dtype=policy)``):
 under bf16 their operands and outputs are bf16, the bias added in bf16.
 
 Forward: the question vector from ``seq2vec``; the attention stage fuses
-every position with the question (``fusion_att``, MUTAN over the positions
-as candidates: the folded kernels under bf16 on the card), ``conv_att``
-gives ``nb_glimpses`` maps, a softmax over the positions, and each glimpse
-is the map-weighted sum of the raw features; each glimpse through its
-``list_linear_v_fusion.{g}``, concatenated, fused with the question
-(``fusion_classif``) and classified.  In training every dropout draws from
-the one ``generator``, in the JAX package's order: the encoder's masks,
-then the attention stage's v, q and mm, the glimpses', the question's for
-the fusion, the classifier's.  MLBAtt is not ported: when it is, the
-MUTAN-specific parts (the two fusions and their widths) become the hooks
-of a shared tower.
+every position with the question (MutanAtt: ``fusion_att``, MUTAN over the
+positions as candidates, the folded kernels under bf16 on the card;
+MLBAtt: a Hadamard product), ``conv_att`` gives ``nb_glimpses`` maps, a
+softmax over the positions, and each glimpse is the map-weighted sum of
+the raw features; each glimpse through its ``list_linear_v_fusion.{g}``,
+concatenated, fused with the question (MutanAtt: ``fusion_classif``;
+MLBAtt: a Hadamard product) and classified.  The two archs differ only in
+those two fusions and the widths around them, the hooks of
+``AbstractAtt``.  In training every dropout draws from the one
+``generator``, in the JAX package's order: the encoder's masks, then the
+attention stage's v, q and mm, the glimpses', the question's for the
+fusion, the classifier's.
 """
 
 from __future__ import annotations
@@ -42,10 +43,11 @@ def policy_linear(x: torch.Tensor, weight: torch.Tensor,
     return pdot(x, w.t()) + cast_in(bias)
 
 
-class MutanAtt(nn.Module):
-    """MUTAN at both stages (reference ``att.py:39-163, 195-223``):
-    ``fusion_att`` over the positions and ``fusion_classif`` over the
-    glimpses, both with their embeddings off (the tower embeds)."""
+class AbstractAtt(nn.Module):
+    """The tower (reference ``att.py:39-163``).  A subclass gives the
+    widths of the glimpse projections, of the question's projection for
+    the fusion and of the classifier's input, and the two fusions (and
+    adds the modules they need after the tower's)."""
 
     def __init__(self, opt: dict, vocab_words, vocab_answers):
         super().__init__()
@@ -55,22 +57,35 @@ class MutanAtt(nn.Module):
         opt_att = opt["attention"]
         glimpses = opt_att["nb_glimpses"]
         dim_v = opt["dim_v"]
-        dim_q = opt.get("dim_q") or opt["seq2vec"].get("hidden_size", 2400)
+        dim_q = opt.get("dim_q") or seq2vec_mod.output_dim(opt["seq2vec"])
         self.seq2vec = seq2vec_mod.factory(self.vocab_words, opt["seq2vec"])
         self.conv_v_att = nn.Conv2d(dim_v, opt_att["dim_v"], 1)
         self.linear_q_att = nn.Linear(dim_q, opt_att["dim_q"])
         self.conv_att = nn.Conv2d(opt_att["dim_mm"], glimpses, 1)
-        opt_f = opt["fusion"]
         self.list_linear_v_fusion = nn.ModuleList(
-            [nn.Linear(dim_v, int(opt_f["dim_hv"] // glimpses))
+            [nn.Linear(dim_v, self._glimpse_fusion_dim())
              for _ in range(glimpses)])
-        self.linear_q_fusion = nn.Linear(dim_q, opt_f["dim_hq"])
-        self.linear_classif = nn.Linear(opt_f["dim_mm"],
+        self.linear_q_fusion = nn.Linear(dim_q, self._q_fusion_dim())
+        self.linear_classif = nn.Linear(self._classif_dim(),
                                         len(self.vocab_answers))
-        self.fusion_att = fusion_mod.MutanFusion2d(
-            opt_att, visual_embedding=False, question_embedding=False)
-        self.fusion_classif = fusion_mod.MutanFusion(
-            opt_f, visual_embedding=False, question_embedding=False)
+
+    # subclass hooks ------------------------------------------------------
+    def _glimpse_fusion_dim(self) -> int:
+        raise NotImplementedError
+
+    def _q_fusion_dim(self) -> int:
+        raise NotImplementedError
+
+    def _classif_dim(self) -> int:
+        raise NotImplementedError
+
+    def _fusion_att(self, x_v, x_q, training, generator):
+        """(B, WH, dim_hv) positions x (B, dim_hq) question -> (B, WH,
+        dim_mm)."""
+        raise NotImplementedError
+
+    def _fusion_classif(self, x_v, x_q, training, generator):
+        raise NotImplementedError
 
     def _linears(self):
         return [self.conv_v_att, self.linear_q_att, self.conv_att,
@@ -85,8 +100,6 @@ class MutanAtt(nn.Module):
         for layer in self._linears():
             fusion_mod.lecun_normal_(layer.weight, generator)
             layer.bias.zero_()
-        self.fusion_att.reset_parameters(generator)
-        self.fusion_classif.reset_parameters(generator)
 
     def encode_question(self, input_q: torch.Tensor, training: bool = False,
                         generator: torch.Generator | None = None
@@ -107,11 +120,9 @@ class MutanAtt(nn.Module):
                             self.linear_q_att.bias)
         if "activation_q" in opt_att:
             x_q = fusion_mod.activation(opt_att["activation_q"])(x_q)
-        # positions as candidates: the question stays (B, dim_hq) and its
-        # rank projection runs once per example, not once per position;
-        # exact in training too, as the module draws no dropout
-        x_att = self.fusion_att.fuse_candidates(x_v, x_q, training=training,
-                                                generator=generator)
+        # the question stays (B, dim_hq): its side of the fusion runs once
+        # per example, not once per position
+        x_att = self._fusion_att(x_v, x_q, training, generator)
         if "activation_mm" in opt_att:
             x_att = fusion_mod.activation(opt_att["activation_mm"])(x_att)
         x_att = dropout(x_att, opt_att["dropout_mm"], generator, training)
@@ -139,7 +150,7 @@ class MutanAtt(nn.Module):
                             self.linear_q_fusion.bias)
         if "activation_q" in opt_f:
             x_q = fusion_mod.activation(opt_f["activation_q"])(x_q)
-        return self.fusion_classif(x_v, x_q, training, generator)
+        return self._fusion_classif(x_v, x_q, training, generator)
 
     def classify(self, x: torch.Tensor, training: bool = False,
                  generator: torch.Generator | None = None) -> torch.Tensor:
@@ -172,3 +183,66 @@ class MutanAtt(nn.Module):
         x = self.classify(x, training, generator)
         return (x, att_maps) if return_att else x
 
+
+
+class MutanAtt(AbstractAtt):
+    """MUTAN at both stages (reference ``att.py:195-223``):
+    ``fusion_att`` over the positions and ``fusion_classif`` over the
+    glimpses, both with their embeddings off (the tower embeds)."""
+
+    def __init__(self, opt: dict, vocab_words, vocab_answers):
+        super().__init__(opt, vocab_words, vocab_answers)
+        self.fusion_att = fusion_mod.MutanFusion2d(
+            opt["attention"], visual_embedding=False,
+            question_embedding=False)
+        self.fusion_classif = fusion_mod.MutanFusion(
+            opt["fusion"], visual_embedding=False, question_embedding=False)
+
+    def _glimpse_fusion_dim(self) -> int:
+        return int(self.opt["fusion"]["dim_hv"]
+                   // self.opt["attention"]["nb_glimpses"])
+
+    def _q_fusion_dim(self) -> int:
+        return self.opt["fusion"]["dim_hq"]
+
+    def _classif_dim(self) -> int:
+        return self.opt["fusion"]["dim_mm"]
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        super().reset_parameters(generator)
+        self.fusion_att.reset_parameters(generator)
+        self.fusion_classif.reset_parameters(generator)
+
+    def _fusion_att(self, x_v, x_q, training, generator):
+        # positions as candidates: the rank projection of the question runs
+        # once per example; exact in training too, as the module draws no
+        # dropout
+        return self.fusion_att.fuse_candidates(x_v, x_q, training=training,
+                                               generator=generator)
+
+    def _fusion_classif(self, x_v, x_q, training, generator):
+        return self.fusion_classif(x_v, x_q, training, generator)
+
+
+class MLBAtt(AbstractAtt):
+    """Hadamard products at both stages (reference ``att.py:166-192``, JAX
+    ``att.py:160-183``); the attention widths are tied to its ``dim_h`` by
+    the factory.  The question's projection for the fusion is ``dim_h``
+    per glimpse, the classifier reads ``dim_h * nb_glimpses``."""
+
+    def _glimpse_fusion_dim(self) -> int:
+        return self.opt["fusion"]["dim_h"]
+
+    def _q_fusion_dim(self) -> int:
+        return self.opt["fusion"]["dim_h"] * self.opt["attention"][
+            "nb_glimpses"]
+
+    def _classif_dim(self) -> int:
+        return self._q_fusion_dim()
+
+    def _fusion_att(self, x_v, x_q, training, generator):
+        return x_v * x_q[:, None, :]
+
+    def _fusion_classif(self, x_v, x_q, training, generator):
+        return x_v * x_q

@@ -147,9 +147,10 @@ class CXModelBase(nn.Module):
                 if hasattr(self, name)]
 
     def _dims(self):
-        """(dim_v, dim_q, dim_mm) of the backbone's fusion."""
+        """(dim_v, dim_q, dim_z) of the backbone's fusion: z is MUTAN's
+        dim_mm or MLB's dim_h wide (``dim_z``)."""
         fus = self.vqa_model.opt["fusion"]
-        return fus["dim_v"], fus["dim_q"], fus["dim_mm"]
+        return fus["dim_v"], fus["dim_q"], self.vqa_model.dim_z
 
     def vqa_forward(self, image_features, question_wids, q_emb=None,
                     v_proj=None, z_emb=None, want_logits: bool = True,
@@ -185,7 +186,13 @@ class CXModelBase(nn.Module):
     def _fused_head_ok(self) -> bool:
         """The fused classify + softmax kernel serves the frozen,
         activation-free answer head under the bf16 policy (JAX
-        ``cx.py:171``: never with a trainable backbone)."""
+        ``cx.py:155-177``: never with a trainable backbone).  The MLB
+        backbones' head has ``activation: tanh``, so they stay on the
+        unfused head: this gate is JAX's, and it must not be loosened to
+        try the kernel, which computes z @ W + b only and which at MLB's
+        dz 1200 does not fit an H100 CTA anyway (``mixture_plan`` raises:
+        19 z chunks, 4 logit panels and 2 W stages need 256,808 of
+        232,448 bytes)."""
         return (not self.trainable_vqa
                 and "activation" not in self.vqa_model.opt.get("classif", {})
                 and compute_dtype() == torch.bfloat16)
@@ -267,10 +274,10 @@ class NeuralModel(CXModelBase):
         self.n_layers = n_layers
         self.drop_p = drop_p
         self.dim_a = dim_a
-        fus = vqa_model.opt["fusion"]
+        dim_v, dim_q, dim_z = self._dims()
         self.slices = scorer_ops.FeatureSlices(
-            dim_v=fus["dim_v"], dim_q=fus["dim_q"], dim_z=fus["dim_mm"],
-            dim_a=dim_a, knn_size=knn_size)
+            dim_v=dim_v, dim_q=dim_q, dim_z=dim_z, dim_a=dim_a,
+            knn_size=knn_size)
         self.answer_embedding = nn.Embedding(len(vqa_model.vocab_answers),
                                              dim_a)
         self.linear_1 = nn.Linear(self.slices.input_size, dim_h)

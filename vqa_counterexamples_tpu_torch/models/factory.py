@@ -1,6 +1,6 @@
-"""Model factories (port of ``models/factory.py``): ``factory_vqa`` for
-MutanNoAtt and MutanAtt (with the reference constructors' dim tying),
-``factory_cx`` for the ten CX models of ``cx_model_names``, and
+"""Model factories (port of ``models/factory.py``): ``factory_vqa`` for the
+four VQA archs of ``model_names`` (with the reference constructors' dim
+tying), ``factory_cx`` for the ten CX models of ``cx_model_names``, and
 ``flagship_cx``, the flagship configuration at full width."""
 
 from __future__ import annotations
@@ -15,19 +15,31 @@ from . import cx as cx_mod
 from . import noatt as noatt_mod
 
 
+model_names = ["MLBNoAtt", "MutanNoAtt", "MLBAtt", "MutanAtt"]
+
+
 def factory_vqa(opt: dict, vocab_words: Sequence[str],
                 vocab_answers: Sequence[str]) -> nn.Module:
+    """The dispatch of JAX ``factory.py:35-60`` (reference
+    ``models/utils.py:14-30``); the options are copied, then tied as the
+    reference constructors tie them."""
     opt = copy.deepcopy(opt)
     arch = opt["arch"]
+    if arch == "MLBNoAtt":
+        return noatt_mod.MLBNoAtt(opt, vocab_words, vocab_answers)
     if arch == "MutanNoAtt":
         opt["fusion"]["dim_h"] = opt["fusion"]["dim_mm"]  # noatt.py:52
         return noatt_mod.MutanNoAtt(opt, vocab_words, vocab_answers)
+    if arch == "MLBAtt":
+        opt["attention"]["dim_v"] = opt["attention"]["dim_h"]   # att.py:170
+        opt["attention"]["dim_q"] = opt["attention"]["dim_h"]
+        opt["attention"]["dim_mm"] = opt["attention"]["dim_h"]
+        return att_mod.MLBAtt(opt, vocab_words, vocab_answers)
     if arch == "MutanAtt":
         opt["attention"]["dim_v"] = opt["attention"]["dim_hv"]  # att.py:199
         opt["attention"]["dim_q"] = opt["attention"]["dim_hq"]
         return att_mod.MutanAtt(opt, vocab_words, vocab_answers)
-    raise NotImplementedError(
-        "VQA arch %r is not ported yet (ROADMAP.md, Queue 1)" % arch)
+    raise ValueError("unknown VQA model arch %r" % arch)
 
 
 cx_model_names = ["RandomBaseline", "DistanceBaseline", "BlackBox",

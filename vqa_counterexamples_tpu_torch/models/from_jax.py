@@ -9,11 +9,18 @@ modules use, so ``module.load_state_dict(...)`` takes it as is, and
 Layout conversions: flax ``Dense`` kernel (in, out) -> ``nn.Linear.weight``
 (out, in), or a 1x1 ``nn.Conv2d`` weight (out, in, 1, 1) for the attention
 models' ``conv_*``; the fused MUTAN ``w_hv`` (din, R*dmm) -> per-rank
-``list_linear_hv.{r}`` Linears; ``list_linear_v_fusion_{g}`` ->
-``list_linear_v_fusion.{g}``; GRU ``w_ih`` (D, 3H) / ``w_hh`` (H, 3H)
--> ``gru_cell.weight_ih`` (3H, D) / ``weight_hh`` (3H, H), gate order
-r, z, n unchanged.  The same conversions carry optax's Adam moments into
-``torch.optim.Adam`` (:func:`adam_state_from_jax`).
+``list_linear_hv.{r}`` Linears (an MLB fusion has only its ``linear_v`` /
+``linear_q``, the MLBAtt tower no fusion module at all);
+``list_linear_v_fusion_{g}`` -> ``list_linear_v_fusion.{g}``; GRU
+``w_ih`` (D, 3H) / ``w_hh`` (H, 3H) -> ``gru_cell.weight_ih`` (3H, D) /
+``weight_hh`` (3H, H), gate order r, z, n unchanged; an LSTM layer's
+``LSTMParams`` ``w_ih`` (D, 4H) / ``w_hh`` (H, 4H) -> ``weight_ih_l{k}``
+(4H, D) / ``weight_hh_l{k}`` (4H, H), gate order i, f, g, o unchanged,
+under ``rnn`` (the LSTM encoder's layers ``lstm_{k}``) or ``rnn_0`` /
+``rnn_1`` (TwoLSTM's ``lstm_0`` / ``lstm_1``: the trees of the two are
+alike, so the encoder's arch is named).  The same conversions carry
+optax's Adam moments into ``torch.optim.Adam``
+(:func:`adam_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -37,12 +44,15 @@ def _linear(sd: dict, prefix: str, kernel, bias) -> None:
 
 def _mutan(sd: dict, prefix: str, fus: dict, dmm: int) -> None:
     """A MutanFusion subtree: ``linear_v`` / ``linear_q`` where the module
-    has them, the per-rank Linears from the stacked ``w_h*`` / ``b_h*``."""
+    has them, the per-rank Linears from the stacked ``w_h*`` / ``b_h*``;
+    or an MLBFusion one, which has only the former."""
     for side in ("v", "q"):
         if "linear_" + side in fus:
             lin = fus["linear_" + side]
             _linear(sd, prefix + "linear_" + side, lin["kernel"],
                     lin["bias"])
+        if "w_h" + side not in fus:
+            continue
         w, b = np.asarray(fus["w_h" + side]), np.asarray(fus["b_h" + side])
         for r in range(w.shape[1] // dmm):
             cols = slice(r * dmm, (r + 1) * dmm)
@@ -56,18 +66,49 @@ def _conv1x1(sd: dict, prefix: str, kernel, bias) -> None:
     sd[prefix + ".bias"] = _t(bias)
 
 
-def vqa_state_dict_from_jax(params: dict, prefix: str = "") -> dict:
-    """MutanNoAtt or MutanAtt (skip-thoughts encoder) param tree ->
-    state_dict."""
+# torch recurrent leaves and their JAX names (weights transposed)
+_RNN_LEAVES = (("weight_ih", "w_ih"), ("bias_ih", "b_ih"),
+               ("weight_hh", "w_hh"), ("bias_hh", "b_hh"))
+
+
+def _rnn_leaf(cell, torch_name: str, jax_name: str) -> torch.Tensor:
+    leaf = _t(_field(cell, jax_name))
+    return leaf.t().contiguous() if torch_name.startswith("weight") else leaf
+
+
+def _seq2vec(sd: dict, prefix: str, s2v: dict, arch: str | None) -> None:
+    """The encoder's subtree: the skip-thoughts GRU, or the LSTM layers of
+    ``arch`` ``"lstm"`` / ``"2-lstm"`` (which must be named)."""
+    emb = s2v["embedding"]
+    if isinstance(emb, dict):       # flax Embed (the LSTM encoders)
+        emb = emb["embedding"]
+    sd[prefix + "embedding.weight"] = _t(emb)
+    if "gru" in s2v:
+        for ours, theirs in _RNN_LEAVES:
+            sd[prefix + "gru_cell." + ours] = _rnn_leaf(s2v["gru"], ours,
+                                                        theirs)
+        return
+    if arch not in ("lstm", "2-lstm"):
+        raise ValueError("an LSTM encoder's tree: name its arch (lstm or "
+                         "2-lstm), got %r" % (arch,))
+    layer = 0
+    while "lstm_%d" % layer in s2v:
+        lstm = s2v["lstm_%d" % layer]
+        rnn, k = (("rnn", layer) if arch == "lstm"
+                  else ("rnn_%d" % layer, 0))
+        for ours, theirs in _RNN_LEAVES:
+            sd["%s%s.%s_l%d" % (prefix, rnn, ours, k)] = _rnn_leaf(
+                lstm, ours, theirs)
+        layer += 1
+
+
+def vqa_state_dict_from_jax(params: dict, prefix: str = "",
+                            seq2vec_arch: str | None = None) -> dict:
+    """A MutanNoAtt, MLBNoAtt, MutanAtt or MLBAtt param tree -> state_dict.
+    ``seq2vec_arch`` names an LSTM encoder's arch (``"lstm"`` or
+    ``"2-lstm"``); the skip-thoughts GRU needs no name."""
     sd = {}
-    s2v = params["seq2vec"]
-    sd[prefix + "seq2vec.embedding.weight"] = _t(s2v["embedding"])
-    gru = s2v["gru"]
-    cell = prefix + "seq2vec.gru_cell."
-    sd[cell + "weight_ih"] = _t(_field(gru, "w_ih")).t().contiguous()
-    sd[cell + "bias_ih"] = _t(_field(gru, "b_ih"))
-    sd[cell + "weight_hh"] = _t(_field(gru, "w_hh")).t().contiguous()
-    sd[cell + "bias_hh"] = _t(_field(gru, "b_hh"))
+    _seq2vec(sd, prefix + "seq2vec.", params["seq2vec"], seq2vec_arch)
     cls = params["linear_classif"]
     dmm = np.asarray(cls["kernel"]).shape[0]
     if "conv_v_att" in params:
@@ -83,10 +124,11 @@ def vqa_state_dict_from_jax(params: dict, prefix: str = "") -> dict:
         for name in ("linear_q_att", "linear_q_fusion"):
             _linear(sd, prefix + name, params[name]["kernel"],
                     params[name]["bias"])
-        _mutan(sd, prefix + "fusion_att.", params["fusion_att_module"],
-               np.asarray(params["conv_att"]["kernel"]).shape[0])
-        _mutan(sd, prefix + "fusion_classif.",
-               params["fusion_classif_module"], dmm)
+        if "fusion_att_module" in params:      # MutanAtt (MLBAtt: none)
+            _mutan(sd, prefix + "fusion_att.", params["fusion_att_module"],
+                   np.asarray(params["conv_att"]["kernel"]).shape[0])
+            _mutan(sd, prefix + "fusion_classif.",
+                   params["fusion_classif_module"], dmm)
     else:
         _mutan(sd, prefix + "fusion.", params["fusion_module"], dmm)
     _linear(sd, prefix + "linear_classif", cls["kernel"], cls["bias"])
@@ -118,14 +160,16 @@ def cx_trainable_state_dict_from_jax(tree: dict) -> dict:
     return sd
 
 
-def cx_state_dict_from_jax(params: dict) -> dict:
+def cx_state_dict_from_jax(params: dict,
+                           seq2vec_arch: str | None = None) -> dict:
     """A CX model's param tree (with the nested ``vqa_model`` where the
     model has a backbone) -> state_dict.  Serves any tree shaped like the
     params, e.g. the Adam moments of a trainable backbone."""
     sd = {}
     if "vqa_model" in params:
         sd.update(vqa_state_dict_from_jax(params["vqa_model"],
-                                          prefix="vqa_model."))
+                                          prefix="vqa_model.",
+                                          seq2vec_arch=seq2vec_arch))
     sd.update(cx_trainable_state_dict_from_jax(params))
     return sd
 
@@ -156,15 +200,18 @@ def adam_state_from_jax(opt_state, model: torch.nn.Module,
     when it trains) into ``optimizer``'s state for ``model``'s trainable
     parameters (``step``, ``exp_avg``, ``exp_avg_sq``), in place.  Leaves
     are numpy (or array-like)."""
-    _carry_adam(opt_state, model, optimizer, cx_state_dict_from_jax)
+    arch = getattr(getattr(model, "vqa_model", None), "seq2vec", None)
+    _carry_adam(opt_state, model, optimizer, lambda tree: (
+        cx_state_dict_from_jax(tree, getattr(arch, "arch", None))))
 
 
 def vqa_adam_state_from_jax(opt_state, model: torch.nn.Module,
                             optimizer: torch.optim.Optimizer) -> None:
-    """The same for a MutanNoAtt or MutanAtt trained by the VQA engine:
-    optax's Adam over the whole VQA param tree into the state of every
-    parameter of ``model``."""
-    _carry_adam(opt_state, model, optimizer, vqa_state_dict_from_jax)
+    """The same for a VQA model trained by the VQA engine: optax's Adam
+    over the whole VQA param tree into the state of every parameter of
+    ``model`` (its encoder's arch read from the model)."""
+    _carry_adam(opt_state, model, optimizer, lambda tree: (
+        vqa_state_dict_from_jax(tree, seq2vec_arch=model.seq2vec.arch)))
 
 
 def resnet_from_jax(params: dict) -> dict:

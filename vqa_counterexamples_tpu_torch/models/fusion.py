@@ -1,6 +1,12 @@
-"""MUTAN fusion (port of ``models/fusion.MutanFusion`` / ``MutanFusion2d``).
+"""The fusions (port of ``models/fusion.py``): MLB (``MLBFusion``, a
+Hadamard product) and MUTAN (``MutanFusion`` / ``MutanFusion2d``).
 
-``sum_r (x_v @ Wv_r + bv_r) * (x_q @ Wq_r + bq_r)`` with
+MLB: ``act_v(linear_v(drop_v(v))) * act_q(linear_q(drop_q(q)))``; a side
+whose ``dim_v`` / ``dim_q`` the options omit is used as it comes, and its
+Linear does not exist.  Its linears are flax ``Dense`` with the default
+dtype in JAX, so they compute in f32 under either policy.
+
+MUTAN: ``sum_r (x_v @ Wv_r + bv_r) * (x_q @ Wq_r + bq_r)`` with
 ``x_v = act_v(linear_v(drop_v(v)))`` and ``x_q = act_q(linear_q(
 drop_q(q)))``; with ``visual_embedding`` / ``question_embedding`` off (the
 attention models' two fusions) that side's input is used as it comes and
@@ -61,6 +67,76 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
     std = (1.0 / weight.shape[1]) ** 0.5 / 0.87962566103423978
     nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
                           generator=generator)
+
+
+class MLBFusion(nn.Module):
+    """dropout -> linear -> activation on each modality, then their
+    Hadamard product (reference ``fusion.py:16-50``, JAX
+    ``fusion.py:66-133``): (B, dim_v) x (B, dim_q) -> (B, dim_h) f32."""
+
+    def __init__(self, opt: dict):
+        super().__init__()
+        self.opt = dict(opt)
+        if "dim_v" in opt:
+            self.linear_v = nn.Linear(opt["dim_v"], opt["dim_h"])
+        if "dim_q" in opt:
+            self.linear_q = nn.Linear(opt["dim_q"], opt["dim_h"])
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """JAX initializers: lecun_normal kernels, zero biases."""
+        for name in ("linear_v", "linear_q"):
+            if hasattr(self, name):
+                lecun_normal_(getattr(self, name).weight, generator)
+                getattr(self, name).bias.zero_()
+
+    def _side(self, x, side, training, generator):
+        if not hasattr(self, "linear_" + side):
+            return x
+        x = dropout(x, self.opt.get("dropout_" + side, 0), generator,
+                    training)
+        x = dense(x, getattr(self, "linear_" + side))
+        if "activation_" + side in self.opt:
+            x = activation(self.opt["activation_" + side])(x)
+        return x
+
+    def forward(self, input_v: torch.Tensor, input_q: torch.Tensor,
+                training: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """In training the v mask is drawn first, then the q mask."""
+        x_v = self._side(input_v, "v", training, generator)
+        return x_v * self._side(input_q, "q", training, generator)
+
+    def v_project(self, input_v: torch.Tensor) -> torch.Tensor:
+        """The image side in eval mode, (N, dim_v) -> (N, dim_h): a
+        constant per image under a frozen backbone."""
+        return self._side(input_v, "v", False, None)
+
+    def fuse_candidates(self, input_v: torch.Tensor | None,
+                        input_q: torch.Tensor,
+                        hv: torch.Tensor | None = None,
+                        training: bool = False,
+                        generator: torch.Generator | None = None
+                        ) -> torch.Tensor:
+        """(B, K, Dv) x (B, Dq) -> (B, K, dim_h) with the question side
+        computed once per example; ``hv``: precomputed ``v_project`` rows
+        (B, K, dim_h) in its place (eval mode).  In training the question
+        is duplicated over the candidates, each row drawing its own masks
+        (JAX's duplicated path)."""
+        if hv is not None:
+            if training:
+                raise ValueError("cached v projections need eval mode")
+            return hv * self._side(input_q, "q", False, None)[:, None]
+        batch, k1 = input_v.shape[:2]
+        if training:
+            q_dup = input_q[:, None, :].expand(
+                batch, k1, input_q.shape[-1]).reshape(batch * k1, -1)
+            out = self(input_v.reshape(batch * k1, -1), q_dup, training,
+                       generator)
+            return out.reshape(batch, k1, -1)
+        x_v = self._side(input_v.reshape(batch * k1, -1), "v", False, None)
+        x_q = self._side(input_q, "q", False, None)
+        return x_v.reshape(batch, k1, -1) * x_q[:, None]
 
 
 class MutanFusion(nn.Module):

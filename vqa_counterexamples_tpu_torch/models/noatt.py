@@ -1,13 +1,15 @@
-"""MutanNoAtt VQA classifier (port of ``models/noatt.py``).
+"""No-attention VQA classifiers (port of ``models/noatt.py``): ``MLBNoAtt``
+and ``MutanNoAtt`` over one ``AbstractNoAtt`` tower.
 
-question -> seq2vec -> MUTAN fusion with the pooled visual features ->
-classifier over the answer vocabulary.  The pieces are exposed as methods
-because the CX models drive them separately.  Attribute names follow the
-reference checkpoint: ``seq2vec``, ``fusion``, ``linear_classif``.
+question -> seq2vec -> fusion with the pooled visual features (MLB's
+Hadamard product or MUTAN) -> classifier over the answer vocabulary.  The
+pieces are exposed as methods because the CX models drive them
+separately.  Attribute names follow the reference checkpoint: ``seq2vec``,
+``fusion``, ``linear_classif``.
 
 In training (``training=True``) every dropout of the reference draws its
-mask from the one ``generator`` passed in: the encoder's variational masks,
-the fusion's input dropouts, then the classifier's.
+mask from the one ``generator`` passed in: the encoder's masks, the
+fusion's input dropouts, then the classifier's.
 """
 
 from __future__ import annotations
@@ -21,16 +23,25 @@ from . import seq2vec as seq2vec_mod
 from .common import dropout
 
 
-class MutanNoAtt(nn.Module):
+class AbstractNoAtt(nn.Module):
+    """The tower; a subclass names its fusion (:meth:`_make_fusion`) and
+    the width ``dim_z`` of the fused vector the classifier reads."""
+
     def __init__(self, opt: dict, vocab_words, vocab_answers):
         super().__init__()
         self.opt = opt
         self.vocab_words = tuple(vocab_words)
         self.vocab_answers = tuple(vocab_answers)
         self.seq2vec = seq2vec_mod.factory(self.vocab_words, opt["seq2vec"])
-        self.fusion = fusion_mod.MutanFusion(opt["fusion"])
-        self.linear_classif = nn.Linear(opt["fusion"]["dim_mm"],
-                                        len(self.vocab_answers))
+        self.fusion = self._make_fusion(opt["fusion"])
+        self.linear_classif = nn.Linear(self.dim_z, len(self.vocab_answers))
+
+    def _make_fusion(self, opt_fusion: dict) -> nn.Module:
+        raise NotImplementedError
+
+    @property
+    def dim_z(self) -> int:
+        raise NotImplementedError
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -84,3 +95,27 @@ class MutanNoAtt(nn.Module):
         """(weight (A, dz), bias (A,)) of the answer head, for the fused
         classify + softmax kernel."""
         return self.linear_classif.weight, self.linear_classif.bias
+
+
+class MLBNoAtt(AbstractNoAtt):
+    """Hadamard-product fusion (reference ``noatt.py:38-46``): z is
+    ``fusion.dim_h`` wide."""
+
+    def _make_fusion(self, opt_fusion: dict) -> nn.Module:
+        return fusion_mod.MLBFusion(opt_fusion)
+
+    @property
+    def dim_z(self) -> int:
+        return self.opt["fusion"]["dim_h"]
+
+
+class MutanNoAtt(AbstractNoAtt):
+    """Tucker rank-R fusion (reference ``noatt.py:49-58``): z is
+    ``fusion.dim_mm`` wide."""
+
+    def _make_fusion(self, opt_fusion: dict) -> nn.Module:
+        return fusion_mod.MutanFusion(opt_fusion)
+
+    @property
+    def dim_z(self) -> int:
+        return self.opt["fusion"]["dim_mm"]

@@ -1,11 +1,13 @@
-"""Question encoder: the skip-thoughts GRU (port of
-``models/seq2vec.SkipThoughts``).
+"""Question encoders (port of ``models/seq2vec.py``): the skip-thoughts GRU
+(``SkipThoughts``: UniSkip / BayesianUniSkip), ``LSTMEncoder`` and
+``TwoLSTM``.
 
 Word id 0 is padding: the embedding is masked by ``wids != 0`` and the
 sentence vector is the hidden state at the last valid timestep.
 Attribute names follow the reference checkpoint (``seq2vec.embedding``,
-``seq2vec.gru_cell.weight_ih`` ...), so ``state_dict()`` carries the keys
-``models/port_torch.port_seq2vec`` of the JAX package reads.
+``seq2vec.gru_cell.weight_ih``, ``seq2vec.rnn.weight_ih_l0`` for the LSTM,
+``seq2vec.rnn_0`` / ``rnn_1`` for TwoLSTM ...), so ``state_dict()`` carries
+the keys ``models/port_torch.port_seq2vec`` of the JAX package reads.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from torch import nn
 
 from ..ops import rnn as rnn_ops
 from .common import dropout as dropout_fn
+from .fusion import lecun_normal_
 
 
 class _Embedding(torch.autograd.Function):
@@ -60,6 +63,7 @@ class SkipThoughts(nn.Module):
     ``fixed_emb`` the embedding table gets no gradient.  In eval both
     flavours are the same GRU.
     """
+    arch = "skipthoughts"
 
     def __init__(self, vocab_size: int, emb_size: int = 620,
                  hidden_size: int = 2400, dropout: float = 0.25,
@@ -111,20 +115,123 @@ class SkipThoughts(nn.Module):
         return rnn_ops.select_last_tm(states, lengths)
 
 
+def _lstm_layer(rnn: nn.LSTM, layer: int):
+    """(weight_ih, bias_ih, weight_hh, bias_hh) of one layer of ``rnn``."""
+    return tuple(getattr(rnn, "%s_l%d" % (name, layer)) for name in (
+        "weight_ih", "bias_ih", "weight_hh", "bias_hh"))
+
+
+@torch.no_grad()
+def _reset_lstm(rnn: nn.LSTM, generator: torch.Generator) -> None:
+    """JAX ``lstm_init``: weights U(-1/sqrt(H), 1/sqrt(H)), zero biases."""
+    s = rnn.hidden_size ** -0.5
+    for layer in range(rnn.num_layers):
+        w_ih, b_ih, w_hh, b_hh = _lstm_layer(rnn, layer)
+        w_ih.uniform_(-s, s, generator=generator)
+        w_hh.uniform_(-s, s, generator=generator)
+        b_ih.zero_()
+        b_hh.zero_()
+
+
+class _LSTMBase(nn.Module):
+    """The embedding and the LSTM helpers both LSTM encoders share.  The
+    ``nn.LSTM`` modules are parameter containers only (``weight_ih_l{k}``
+    (4H, D), ``weight_hh_l{k}`` (4H, H), gate rows i, f, g, o); the
+    recurrence is ``ops/rnn.lstm_scan``."""
+
+    def __init__(self, vocab_size: int, emb_size: int):
+        super().__init__()
+        self.embedding = nn.Embedding(vocab_size + 1, emb_size)
+
+    def _embed(self, wids: torch.Tensor) -> torch.Tensor:
+        """(B, T) word ids -> time-major (T, B, E) embeddings, padding 0."""
+        emb = embedding(wids.long(), self.embedding.weight) \
+            * (wids != 0)[..., None]
+        return emb.transpose(0, 1)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """JAX initializers: flax ``Embed``'s (truncated normal, variance
+        1/E), then each LSTM's, in the order they were added."""
+        lecun_normal_(self.embedding.weight, generator)
+        for module in self.children():
+            if isinstance(module, nn.LSTM):
+                _reset_lstm(module, generator)
+
+
+class LSTMEncoder(_LSTMBase):
+    """Reference ``LSTM`` (JAX ``seq2vec.py:30-52``): embed -> an
+    ``num_layers`` LSTM, layers chained time-major -> the state at the
+    last word."""
+    arch = "lstm"
+
+    def __init__(self, vocab_size: int, emb_size: int, hidden_size: int,
+                 num_layers: int = 1):
+        super().__init__(vocab_size, emb_size)
+        self.rnn = nn.LSTM(emb_size, hidden_size, num_layers=num_layers,
+                           batch_first=True)
+
+    def forward(self, wids: torch.Tensor, training: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = self._embed(wids)
+        for layer in range(self.rnn.num_layers):
+            x = rnn_ops.lstm_scan(*_lstm_layer(self.rnn, layer), x)
+        return rnn_ops.select_last_tm(x, rnn_ops.process_lengths(wids))
+
+
+class TwoLSTM(_LSTMBase):
+    """Reference ``TwoLSTM`` (JAX ``seq2vec.py:55-80``): embed -> tanh ->
+    two stacked LSTMs (``rnn_0``, ``rnn_1``); the last state of each,
+    dropout 0.3 on each in training (first ``rnn_0``'s, then ``rnn_1``'s
+    mask from ``generator``), concatenated: 2H wide."""
+    arch = "2-lstm"
+
+    def __init__(self, vocab_size: int, emb_size: int, hidden_size: int):
+        super().__init__(vocab_size, emb_size)
+        self.rnn_0 = nn.LSTM(emb_size, hidden_size, batch_first=True)
+        self.rnn_1 = nn.LSTM(hidden_size, hidden_size, batch_first=True)
+
+    def forward(self, wids: torch.Tensor, training: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        lengths = rnn_ops.process_lengths(wids)
+        x0 = rnn_ops.lstm_scan(*_lstm_layer(self.rnn_0, 0),
+                               torch.tanh(self._embed(wids)))
+        x1 = rnn_ops.lstm_scan(*_lstm_layer(self.rnn_1, 0), x0)
+        vecs = [dropout_fn(rnn_ops.select_last_tm(x, lengths), 0.3,
+                           generator, training) for x in (x0, x1)]
+        return torch.cat(vecs, dim=1)
+
+
 def factory(vocab_words, opt: dict) -> nn.Module:
-    """Dispatch of the reference ``seq2vec.factory`` (``seq2vec.py:79-97``):
-    only the skip-thoughts encoders are ported."""
+    """Dispatch of the reference ``seq2vec.factory`` (``seq2vec.py:79-97``;
+    JAX ``seq2vec.py:127-149``)."""
     arch = opt["arch"]
-    if arch != "skipthoughts":
-        raise NotImplementedError(
-            "seq2vec arch %r is not ported yet (ROADMAP.md, Queue 1 #9)"
-            % arch)
-    return SkipThoughts(
-        vocab_size=len(vocab_words), emb_size=opt.get("emb_size", 620),
-        hidden_size=opt.get("hidden_size", 2400),
-        dropout=opt.get("dropout", 0.25),
-        fixed_emb=opt.get("fixed_emb", False),
-        bayesian=opt.get("type", "BayesianUniSkip").startswith("Bayesian"))
+    if arch == "skipthoughts":
+        return SkipThoughts(
+            vocab_size=len(vocab_words), emb_size=opt.get("emb_size", 620),
+            hidden_size=opt.get("hidden_size", 2400),
+            dropout=opt.get("dropout", 0.25),
+            fixed_emb=opt.get("fixed_emb", False),
+            bayesian=opt.get("type", "BayesianUniSkip").startswith(
+                "Bayesian"))
+    if arch == "2-lstm":
+        return TwoLSTM(len(vocab_words), opt["emb_size"], opt["hidden_size"])
+    if arch == "lstm":
+        return LSTMEncoder(len(vocab_words), opt["emb_size"],
+                           opt["hidden_size"], opt.get("num_layers", 1))
+    raise NotImplementedError(arch)
+
+
+def output_dim(opt: dict) -> int:
+    """Width of the sentence vector of the encoder ``opt`` selects."""
+    arch = opt["arch"]
+    if arch == "skipthoughts":
+        return opt.get("hidden_size", 2400)
+    if arch == "2-lstm":
+        return 2 * opt["hidden_size"]
+    if arch == "lstm":
+        return opt["hidden_size"]
+    raise NotImplementedError(arch)
 
 
 @torch.no_grad()

@@ -1,5 +1,5 @@
-"""The GRU over a question, with variational dropout in training (port of
-``ops/rnn.py``).
+"""The recurrences over a question (port of ``ops/rnn.py``): the GRU, with
+variational dropout in training, and the LSTM.
 
 The input projection for all timesteps is computed time-major outside the
 recurrence; the recurrence then runs over the (T, B, 3H) stack.  Gate
@@ -22,6 +22,11 @@ bf16, as the TPU kernel did; through its autograd Function when a weight
 needs a gradient); under f32 it is a plain f32 loop under autograd (the
 JAX ``lax.scan`` paths).  Weights use the ``nn.GRUCell`` layout:
 ``weight_ih`` (3H, D), ``weight_hh`` (3H, H), gate-major rows r, z, n.
+
+The LSTM (:func:`lstm_scan`, gate rows i, f, g, o as ``nn.LSTM``'s) is
+plain PyTorch under autograd at both policies, JAX's default branch step
+for step: the JAX package has no Pallas LSTM kernel, and cuDNN's
+``nn.LSTM`` rounds elsewhere.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import os
 import torch
 
 from ..core import rng as rng_lib
-from ..core.policy import compute_dtype, dot_f32
+from ..core.policy import cast_in, compute_dtype, dot_f32
 from .cuda import gru_kernel
 from .cuda.gru_kernel import gru_recurrence
 
@@ -145,3 +150,35 @@ def gru_scan(weight_ih: torch.Tensor, bias_ih: torch.Tensor,
         return states
     x_proj = _x_proj(weight_ih, bias_ih, xt, mask_x, torch.float32)
     return _gru_loop_f32(x_proj, weight_hh, bias_hh, mask_h)
+
+
+def lstm_scan(weight_ih: torch.Tensor, bias_ih: torch.Tensor,
+              weight_hh: torch.Tensor, bias_hh: torch.Tensor,
+              x_tm: torch.Tensor) -> torch.Tensor:
+    """Run an LSTM over time-major (T, B, D) inputs -> all hidden states
+    (T, B, H), h_0 = c_0 = 0 (JAX ``lstm_scan`` with ``time_major_in`` /
+    ``_out``, its default branch).  The input projections of every step in
+    one product (policy-dtype operands, f32 accumulation and bias), then
+    rounded to the policy dtype; each step adds h (rounded to the policy
+    dtype) times ``weight_hh`` with f32 accumulation, and ``bias_hh``; the
+    gates, c and h in f32.  Stacked layers chain time-major."""
+    seq_len, batch, dim_in = x_tm.shape
+    h4 = weight_ih.shape[0]
+    dim_h = h4 // 4
+    x_proj = dot_f32(x_tm.reshape(seq_len * batch, dim_in),
+                     weight_ih.t()) + bias_ih
+    x_proj = x_proj.reshape(seq_len, batch, h4).to(compute_dtype())
+    # the products of policy-dtype values are exact in f32: rounding the
+    # weight once and multiplying in f32 gives JAX's f32-accumulated dot
+    w = cast_in(weight_hh.t()).float()
+    h = x_tm.new_zeros((batch, dim_h), dtype=torch.float32)
+    c = torch.zeros_like(h)
+    states = []
+    for t in range(seq_len):
+        gates = (x_proj[t].float() + torch.matmul(cast_in(h).float(), w)
+                 + bias_hh)
+        i, f, g, o = gates.split(dim_h, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        states.append(h)
+    return torch.stack(states)

@@ -16,12 +16,15 @@ bundled web client (``serve/demo_web``) works unchanged.  Beyond it:
 
 The forward (:meth:`DemoEngine.predict_prepared`) is the JAX server's
 ``predict``: uint8 images normalized on the card, the ResNet trunk
-(``models/convnets``), then MutanAtt on the (B, 14, 14, 2048) maps with
-``return_att``, or MutanNoAtt on their spatial mean; a softmax and the top
-5.  On the card each power-of-two bucket is one captured CUDA graph
-(``core/graphs.GraphedCall``), as JAX compiles one program per bucket; its
-kernels are the GRU forward, MUTAN and, with MutanAtt, the folded MUTAN
-forward (under the bf16 policy, ``VQACX_COMPUTE_DTYPE=bfloat16``).  A
+(``models/convnets``), then an attention arch (MutanAtt, MLBAtt) on the
+(B, 14, 14, 2048) maps with ``return_att``, or a no-attention one
+(MutanNoAtt, MLBNoAtt) on their spatial mean, as the YAML's arch names it;
+a softmax and the top 5.  On the card each power-of-two bucket is one
+captured CUDA graph (``core/graphs.GraphedCall``), as JAX compiles one
+program per bucket; its kernels are the GRU forward, and MUTAN and, with
+MutanAtt, the folded MUTAN forward (under the bf16 policy,
+``VQACX_COMPUTE_DTYPE=bfloat16``); the MLB archs run the GRU forward
+only.  A
 checkpoint swap copies the weights into the captured tensors in place
 while no bucket is replaying, and captures nothing anew.  The device is
 ``cuda``; with no card visible the server refuses to start unless
