@@ -186,6 +186,31 @@ ends the run with a nonzero exit and no result line.
    MLBNoAtt and MLBAtt (``--prewarm``): buckets 1 and 32 captured against
    eager bit for bit with the GRU forward once a call, ``answer_batch``
    against ``answer`` with a PNG per glimpse, one HTTP round trip each.
+15. Runs over several ranks (``parallel/``), every rank on this card:
+   (a) NCCL at one rank, in this process (torchrun's environment for
+   rank 0 of 1): phase 3's epoch of captured CX steps with the gradients'
+   all-reduce captured in the graph against the same epoch with no mesh
+   (bit-equal), the eval and the launch counts equal, the host launches a
+   step of both (the all-reduce may add at most 2), then
+   ``cli.counterexamples --mesh data=1`` (one spawned NCCL rank):
+   ``final_results.txt`` bit-equal to phase 4's; (b) gloo, the CX
+   flagship (phase 3's data and epoch, dropout on) at ``data=2`` and
+   ``data=2,model=2`` (4 spawned ranks, the bf16 feature matrix
+   row-sharded over 'model'): every rank's launch counters (GRU forward,
+   vfeat forward and backward, mixture), the per-step losses, step 1's
+   all-reduced gradients, the eval and the trained parameters held to one
+   rank's (``TOL["mesh"]``), the ms of an eager step and of its
+   all-reduce alone; (c) ``cli.train --mesh data=2`` (gloo) with
+   ``mutan_noatt_train.yaml`` (B 512, 256 a rank) and
+   ``mutan_att_train.yaml`` (B 128): every rank's launches of the per-gate
+   GRU forward, its backward, MUTAN (and the folded MUTAN pair), the
+   logged losses and the val answers against phases 6 and 8; (d)
+   ``cli.knn --mesh data=2`` over phase 9's 82,783 x 2048 features (41,392
+   and 41,391 rows a rank): the indices, distances and json bit-equal to
+   phase 9's, the build's seconds; (e) ``cli.extract --mesh data=2`` on
+   160 synthetic images, B 80: the ``.npy``, ``.att.npy`` and ``.txt``
+   byte-equal to a one-rank run's.  Ranks that are processes start in
+   ``spawn`` mode and import this script as their main module.
 
 Phase 1 also holds the folded MUTAN kernels (forward and backward, each
 with a bit-equal rerun) at MutanAtt's attention shape, the kNN kernel at
@@ -266,6 +291,17 @@ TOL = {
     # kNN distances (tests/test_pallas_knn.py), and the self-distance: f32
     # cancellation noise of about sqrt(eps |q|^2), some 2e-2 at dim 2048
     "knn": dict(rtol=1e-4, self_atol=2e-2),
+    # phase 15, ranks against one rank where only the sum order differs
+    # (the gradients' all-reduce, the per-rank GEMMs of half the rows):
+    # per-step and eval losses, eval recall, the share of val answers that
+    # agree; step 1's all-reduced gradients are held to the two halves'
+    # sum made in one process ("split_rel": the same kernels on the same
+    # rows, added in one f32 sum, so only that sum's order); a trained
+    # parameter may differ by 6 lr a step (Adam moves an entry by up to
+    # about 3 lr a step while its moments are young, and flips the sign of
+    # the move wherever a bf16 gradient's sign is rounding noise)
+    "mesh": dict(loss_rel=5e-3, recall_rel=2e-2, adam_lr_steps=6.0,
+                 answers=0.98, split_rel=1e-6),
 }
 # each kernel wrapper (``ops/cuda.launch_counters``) by name: its source
 SOURCES = {"gru": "gru", "gru_pg": "gru", "gru_bwd": "gru", "vfeat": "vfeat",
@@ -1077,25 +1113,42 @@ def phase_slice(dev, card):
     return launches, (arrays, model, features)
 
 
-def step_grads(model, feats, batch, n_valid, q, z):
-    """One train step's loss and gradients (no update) -> {name: grad}."""
+def step_grads(model, feats, batch, n_valid, q, z, parts=1):
+    """One train step's loss and gradients (no update) -> {name: grad}.
+    With ``parts`` > 1: the sum of the gradients of the batch's ``parts``
+    row ranges, each computed as a data-parallel rank computes its rows
+    (the loss over the global ``n_valid``, the draws at the global shape),
+    in rank order: what the ranks' all-reduce adds up."""
     from vqa_counterexamples_tpu_torch.core import rng
     from vqa_counterexamples_tpu_torch.engines import cx_engine
     from vqa_counterexamples_tpu_torch.ops.metrics import nll
 
-    gens = rng.step_generators(SEED, 0, ("dropout", "lesion"), feats.device)
-    model.train()
-    scores = model(None, batch["question_wids"], batch["answer_aids"],
-                   features_table=feats, image_idxs=batch["image_idxs"],
-                   dropout_gen=gens["dropout"], lesion_gen=gens["lesion"],
-                   **cx_engine.cache_kwargs(batch, q, None, z))
-    mask = (torch.arange(scores.shape[0], device=scores.device)
-            < n_valid).float()
-    loss = torch.sum(nll(scores, batch["comp_idxs"]) * mask) / n_valid
-    model.zero_grad(set_to_none=True)
-    loss.backward()
-    return {n: p.grad.detach().clone()
-            for n, p in cx_engine.trainable_parameters(model)}
+    rows = batch["comp_idxs"].shape[0]
+    size = rows // parts
+    total = None
+    for d in range(parts):
+        part = {k: v[d * size:(d + 1) * size] for k, v in batch.items()}
+        gens = rng.step_generators(SEED, 0, ("dropout", "lesion"),
+                                   feats.device)
+        model.train()
+        with (rng.global_batch(rows, d * size, size) if parts > 1
+              else contextlib.nullcontext()):
+            scores = model(None, part["question_wids"], part["answer_aids"],
+                           features_table=feats,
+                           image_idxs=part["image_idxs"],
+                           dropout_gen=gens["dropout"],
+                           lesion_gen=gens["lesion"],
+                           **cx_engine.cache_kwargs(part, q, None, z))
+        mask = (torch.arange(scores.shape[0], device=scores.device)
+                + d * size < n_valid).float()
+        loss = torch.sum(nll(scores, part["comp_idxs"]) * mask) / n_valid
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in cx_engine.trainable_parameters(model)}
+        total = grads if total is None else {
+            n: total[n] + g for n, g in grads.items()}
+    return total
 
 
 def phase_train(dev, card, ctx):
@@ -1296,6 +1349,7 @@ def phase_cli(dev, card):
     log("  --scan_steps 2 (a group of 2 and a single step): the same "
         "final_results.txt, to the bit")
     log("  phase 4: " + memory_line(card))
+    return texts[0]
 
 
 def pretrain_grads(model, batch, dev, plain):
@@ -1556,6 +1610,7 @@ def phase_train_cli(dev):
                              % (info, sorted(logged["val"]), len(rows)))
     if min(launches[k] for k in ("gru", "gru_pg", "gru_bwd", "mutan")) <= 0:
         raise AssertionError("the CLI run missed a kernel: %s" % launches)
+    return logged, rows
 
 
 def phase_att_pretrain(dev, card):
@@ -1724,6 +1779,7 @@ def phase_att_cli(dev):
     if min(launches[k] for k in ("gru", "gru_pg", "gru_bwd", "mutan",
                                  "attmutan", "attmutan_bwd")) <= 0:
         raise AssertionError("the CLI run missed a kernel: %s" % launches)
+    return logged, rows
 
 
 def phase_knn(dev, card, n=82783):
@@ -1753,7 +1809,8 @@ def phase_knn(dev, card, n=82783):
         build_s = time.perf_counter() - t0
         launches = read_counters()
         with open(os.path.join(tmp, "knn.json")) as f:
-            table = json.load(f)
+            text = f.read()
+            table = json.loads(text)
         saved = np.load(prefix + "_knn_results.npy", allow_pickle=True).item()
     want = {name: 0 for name in SOURCES}
     want["knn"] = -(-n // 1024)
@@ -1776,7 +1833,7 @@ def phase_knn(dev, card, n=82783):
     log("  kNN build: %d queries x %d x %d, k %d, %.2f s through the CLI "
         "(load, %d chunks, the .npy and the json; %s)"
         % (n, n, dim, k, build_s, want["knn"], card))
-    return launches
+    return launches, dict(dist=dist, idx=idx, json=text, seconds=build_s)
 
 
 def trainable_model(dataset, dev):
@@ -3506,6 +3563,481 @@ def phase_mlb(dev, card):
     log("  phase 14: %.1f s (%s)" % (time.perf_counter() - t_phase, seconds))
 
 
+# ---------------------------------------------------------------- phase 15
+
+def torch_flags():
+    """The numerics flags ``main`` sets (a spawned rank sets them too)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def torchrun_env(rank=0, world=1):
+    """torchrun's environment for one rank of ``world`` on this host."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": str(rank), "WORLD_SIZE": str(world),
+           "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def cx_epoch(dev, mesh, capture=None, parts=1):
+    """Phase 2's data and the flagship model from the seed on ``dev``, the
+    q / z caches, an epoch of train steps (dropout on, Adam at 1e-4, B
+    768: the third batch 512 valid rows of 768) and an eval pass, under
+    ``mesh`` (None: one rank), counted; step 1's gradients.  With
+    ``model`` > 1 the bf16 feature matrix is row-sharded.  ``parts`` > 1
+    (one rank): also the first batch's gradients as the sum of ``parts``
+    ranks' (``step_grads``), before any step."""
+    from vqa_counterexamples_tpu_torch import parallel
+    from vqa_counterexamples_tpu_torch.data import synthetic, vqacx
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+    dataset, store = synthetic.make_synthetic_cx(
+        n_examples=2048, n_images=1024, dim_v=2048, knn_size=24,
+        n_answers=2000, seed=SEED)
+    arrays = vqacx.CXArrays.from_examples(dataset["examples_list"],
+                                          dataset["name_to_index"])
+    model = flagship_model(dataset, dev)
+    init = {n: p.detach().float().cpu().clone()
+            for n, p in cx_engine.trainable_parameters(model)}
+    torch.cuda.synchronize()
+    reset_counters()
+    q, _, z, _ = cx_engine.build_frozen_caches(
+        model, store.to_device(dev), arrays, use_q=True, use_v=False,
+        use_z=True)
+    feats, q, _, z = cx_engine.make_tables_bf16_resident(
+        store.to_device(dev), q, None, z)
+    if mesh is not None and mesh.size("model") > 1:
+        feats = parallel.shard_rows(feats, mesh)
+    tables = dict(q_table=q, z_table=z)
+    split = None
+    if parts > 1:    # what the ranks' all-reduce adds up, made here
+        idx, n_valid = next(vqacx.batch_indices(
+            arrays.size, 768, shuffle=True,
+            rng=np.random.default_rng(SEED + 1)))
+        split = {n: g.float().cpu() for n, g in step_grads(
+            model, feats, cx_engine.batch_to_device(
+                vqacx.gather_batch(arrays, idx), dev), n_valid, q, z,
+            parts=parts).items()}
+        model.zero_grad(set_to_none=True)
+    state = cx_engine.init_cx_state(model, lr=1e-4)
+    step = cx_engine.make_cx_train_step(model, state.optimizer,
+                                        base_seed=SEED, use_z_cache=True,
+                                        capture=capture, mesh=mesh)
+    rows, grads = [], {}
+
+    def first_grads(*args, **kwargs):
+        out = step(*args, **kwargs)
+        if not grads:    # step 1's gradients (all-reduced under a mesh)
+            grads.update({n: p.grad.detach().float().cpu().clone() for n, p
+                          in cx_engine.trainable_parameters(model)})
+        return out
+
+    state, _ = cx_engine.train_epoch(
+        recorded(first_grads, rows, ("loss", "correct")), state, feats,
+        arrays, 768, rng=np.random.default_rng(SEED + 1), **tables)
+    res = cx_engine.eval_model(
+        cx_engine.make_cx_eval_step(model, use_z_cache=True,
+                                    capture=capture, mesh=mesh),
+        feats, arrays, 768, **tables)
+    torch.cuda.synchronize()
+    return dict(rows=rows, eval=res, counts=read_counters(), init=init,
+                grads=grads, split=split, model=model, state=state,
+                step=step, feats=feats, arrays=arrays, tables=tables)
+
+
+def rank_counts(mesh):
+    """Every rank's launch counters, (world, 10), on every rank."""
+    from vqa_counterexamples_tpu_torch import parallel
+
+    mine = torch.tensor([list(read_counters().values())], dtype=torch.int64,
+                        device=mesh.device)
+    return parallel.gather_rows(mine, mesh.rank, mesh.world_size, mesh,
+                                None).cpu()
+
+
+def require_counts(what, counts, want):
+    """Each rank's row of ``counts`` must have moved every kernel of
+    ``want``."""
+    names = list(SOURCES)
+    for rank, row in enumerate(counts.tolist()):
+        missed = [k for k in want if row[names.index(k)] <= 0]
+        if missed:
+            raise AssertionError("%s: rank %d never launched %s (%s)"
+                                 % (what, rank, missed, dict(zip(names,
+                                                                 row))))
+
+
+def time_allreduce(mesh, numel, reps=5):
+    """ms of one all-reduce of ``numel`` f32 over the data group (the
+    gradients' and the metrics' concatenation of a step)."""
+    flat = torch.zeros(numel, device=mesh.device)
+    mesh.all_reduce(flat, "data")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        mesh.all_reduce(flat, "data")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def rank_cx(axes):
+    """A rank of phase 15b: :func:`cx_epoch` on ``cuda:0`` under gloo, its
+    kernels counted on every rank, its trained parameters, then the ms of
+    an eager step and of its all-reduce alone."""
+    from vqa_counterexamples_tpu_torch import parallel
+    from vqa_counterexamples_tpu_torch.data import vqacx
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+    torch_flags()
+    with parallel.mesh_from_env(axes, "cuda", "gloo") as mesh:
+        r = cx_epoch(mesh.device, mesh)
+        counts = rank_counts(mesh)
+        require_counts("CX %s" % axes, counts,
+                       ("gru", "vfeat", "vfeat_bwd", "mixture"))
+        params = {n: p.detach().float().cpu() for n, p in
+                  cx_engine.trainable_parameters(r["model"])}
+        batch = vqacx.gather_batch(r["arrays"], np.arange(768))
+        reps = 3
+        state = r["state"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            state, _ = r["step"](state, r["feats"], batch, 768,
+                                 **r["tables"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / reps * 1e3
+        numel = sum(p.numel() for _, p in
+                    cx_engine.trainable_parameters(r["model"])) + 2
+        return dict(rows=torch.cat(r["rows"]).cpu(), eval=r["eval"],
+                    counts=counts, params=params, grads=r["grads"],
+                    step_ms=step_ms,
+                    allreduce_ms=time_allreduce(mesh, numel),
+                    eager=r["step"].graphed.eager_reason)
+
+
+def rank_cli(module, argv, axes, want):
+    """A rank of a CLI run, started as torchrun starts one: the numerics
+    flags, the process group (gloo, every rank on ``cuda:0``), the CLI's
+    ``main`` with ``--distributed``, then every rank's launch counters
+    (each of ``want`` must have moved on every rank), the run's seconds
+    and, where the CLI returned a train state, the ms of an all-reduce of
+    its parameters' size."""
+    import importlib
+
+    from vqa_counterexamples_tpu_torch import parallel
+
+    torch_flags()
+    with parallel.mesh_from_env(axes, "cuda", "gloo") as mesh:
+        reset_counters()
+        t0 = time.perf_counter()
+        out = importlib.import_module(module).main(
+            argv + ["--distributed", "--dist_backend", "gloo"])
+        seconds = time.perf_counter() - t0
+        counts = rank_counts(mesh)
+        require_counts(module, counts, want)
+        allreduce_ms = None
+        if hasattr(out, "model"):
+            allreduce_ms = time_allreduce(mesh, sum(
+                p.numel() for p in out.model.parameters()) + 3)
+            out = out.step
+        return dict(out=out, counts=counts, seconds=seconds,
+                    allreduce_ms=allreduce_ms)
+
+
+def spawn_ranks(fn, args, world):
+    """``parallel.spawn`` of a phase-15 rank function -> (rank 0's result,
+    seconds with the ranks' start-up)."""
+    from vqa_counterexamples_tpu_torch import parallel
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = parallel.spawn(fn, args, world=world)
+    return out, time.perf_counter() - t0
+
+
+def held(what, got, ref, rel):
+    """``|got - ref| <= rel |ref|`` or raise; returns the relative
+    difference."""
+    err = abs(got - ref) / max(abs(ref), 1e-30)
+    if not err <= rel:
+        raise AssertionError("%s: %r against one rank's %r (rel %.2e > %g)"
+                             % (what, got, ref, err, rel))
+    return err
+
+
+def hold_to_one_rank(what, got, ref, card, seconds):
+    """15b: the ranks' per-step losses, the eval results and the trained
+    parameters against one rank's (sum order only); step 1's all-reduced
+    gradients against the sum of the two halves' gradients made in this
+    process (``step_grads(parts=2)``: the all-reduce must add them
+    exactly), and, for the record, against one rank's."""
+    tol = TOL["mesh"]
+    losses = got["rows"][:, 0].tolist()
+    ref_losses = torch.cat(ref["rows"]).cpu()[:, 0].tolist()
+    worst = max(held("%s step %d loss" % (what, i), a, b, tol["loss_rel"])
+                for i, (a, b) in enumerate(zip(losses, ref_losses)))
+    for k in ("loss", "recall", "recall_1"):
+        held("%s eval %s" % (what, k), got["eval"][k], ref["eval"][k],
+             tol["loss_rel"] if k == "loss" else tol["recall_rel"])
+    def grad_errs(ours, theirs):
+        return {n: (ours[n] - g).abs().max().item()
+                / max(g.abs().max().item(), 1e-30)
+                for n, g in theirs.items()}
+
+    split_err = max(grad_errs(got["grads"], ref["split"]).values())
+    # against one rank: out.bias shifts all K scores alike, its gradient
+    # is rounding noise
+    one = grad_errs(got["grads"], ref["grads"])
+    one.pop("out.bias")
+    worst_one = sorted(one.items(), key=lambda kv: -kv[1])[:3]
+    state = ref["model"].state_dict()
+    names = sorted(ref["init"])
+    param_err = max((got["params"][n] - state[n].detach().float().cpu())
+                    .abs().max().item() for n in names)
+    moved = torch.cat([(got["params"][n] - ref["init"][n]).reshape(-1)
+                       for n in names])
+    ref_moved = torch.cat([(state[n].detach().float().cpu()
+                            - ref["init"][n]).reshape(-1) for n in names])
+    dtheta = ((moved - ref_moved).norm() / ref_moved.norm()).item()
+    bound = tol["adam_lr_steps"] * 1e-4 * len(losses)
+    log("  %s: %d steps, losses %s (one rank %s; worst rel %.2e, bound "
+        "%g), eval %s; step 1's all-reduced gradients within %.2e of the "
+        "two halves' sum made in one process (of each tensor's largest "
+        "entry, bound %g), within %s of one rank's whole-batch gradients; "
+        "the trained parameters within %.2e of one rank's (bound %.1e: %g "
+        "lr a step), their move from the seed %.2e of one rank's "
+        "(relative norm); launches by rank %s; %.1f s with the ranks' "
+        "start-up (%s)"
+        % (what, len(losses), ["%.4f" % x for x in losses],
+           ["%.4f" % x for x in ref_losses], worst, tol["loss_rel"],
+           got["eval"], split_err, tol["split_rel"],
+           ", ".join("%s %.2e" % kv for kv in worst_one), param_err, bound,
+           tol["adam_lr_steps"], dtheta, got["counts"].tolist(), seconds,
+           card))
+    if not (split_err <= tol["split_rel"] and param_err <= bound):
+        raise AssertionError("%s: gradients %.2e from the halves' sum, "
+                             "parameters %.2e from one rank's"
+                             % (what, split_err, param_err))
+
+
+def phase_parallel(dev, card, refs):
+    """Phase 15: the runs over several ranks (``parallel/``).  ``refs``:
+    phase 4's final_results.txt, phase 6's and 8's (logged, val rows) and
+    phase 9's kNN build."""
+    from vqa_counterexamples_tpu_torch import parallel
+    from vqa_counterexamples_tpu_torch.cli import counterexamples
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    # --- (a) NCCL at one rank: the all-reduce captured in the graph ---
+    log("== phase 15a: the CX step under NCCL at one rank (data=1)")
+    t = time.perf_counter()
+    ref = cx_epoch(dev, None)
+    with torchrun_env(), parallel.mesh_from_env({"data": 1}, dev) as mesh:
+        one = cx_epoch(dev, mesh)
+        if one["step"].graphed.capture is not True:
+            raise AssertionError("the NCCL step is not captured")
+        hold_equal("CX train, NCCL data=1 (captured, all-reduce in the "
+                   "graph) vs no mesh",
+                   (one["rows"], one["model"], one["state"].optimizer),
+                   (ref["rows"], ref["model"], ref["state"].optimizer))
+        if one["eval"] != ref["eval"] or one["counts"] != ref["counts"]:
+            raise AssertionError("NCCL data=1: eval %s / launches %s, no "
+                                 "mesh %s / %s" % (one["eval"],
+                                                   one["counts"],
+                                                   ref["eval"],
+                                                   ref["counts"]))
+        launches = {}
+        for name, r in (("no mesh", ref), ("NCCL data=1", one)):
+            rng = np.random.default_rng(SEED + 2)
+            launches[name] = step_profile(
+                "CX train step, captured, %s" % name,
+                lambda: cx_engine.train_epoch(
+                    r["step"], r["state"], r["feats"], r["arrays"], 768,
+                    rng=rng, **r["tables"]),
+                3, 3, card)["host_launches"]
+        extra = launches["NCCL data=1"] - launches["no mesh"]
+        log("  host launches a step: %.2f with the all-reduce, %.2f "
+            "without (+%.2f; bound 2)" % (launches["NCCL data=1"],
+                                          launches["no mesh"], extra))
+        if extra > 2:
+            raise AssertionError("the all-reduce added %.2f host launches a "
+                                 "step" % extra)
+    del ref, one
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        counterexamples.main(["--cx_model", "NeuralModel", "--synthetic",
+                              "2048", "--z_cache", "--epochs", "1", "--test",
+                              "-b", "768", "--seed", str(SEED), "--device",
+                              str(dev), "--project_dir", tmp, "--mesh",
+                              "data=1"])
+        (run,) = os.listdir(os.path.join(tmp, "logs", "cx"))
+        with open(os.path.join(tmp, "logs", "cx", run,
+                               "final_results.txt")) as f:
+            text = f.read()
+    log("  cli.counterexamples --mesh data=1 (one spawned NCCL rank): "
+        "final_results.txt %s phase 4's: %s"
+        % ("equal to" if text == refs["cli"] else "DIFFERS from", text))
+    if text != refs["cli"]:
+        raise AssertionError("--mesh data=1 changed final_results.txt")
+    seconds["15a"] = round(time.perf_counter() - t, 1)
+
+    # --- (b) gloo: the CX flagship on 2 and 4 ranks of cuda:0 ---
+    log("== phase 15b: the CX step over gloo ranks on one card")
+    t = time.perf_counter()
+    ref = cx_epoch(dev, None, parts=2)
+    for axes in ({"data": 2}, {"data": 2, "model": 2}):
+        got, secs = spawn_ranks(rank_cx, (axes,), int(np.prod(list(
+            axes.values()))))
+        label = "CX %s" % ",".join("%s=%d" % kv for kv in axes.items())
+        hold_to_one_rank(label, got, ref, card, secs)
+        log("  %s: %.1f ms a step (eager: %s), the all-reduce of the "
+            "gradients alone %.1f ms (%.0f%% of the step) (%s)"
+            % (label, got["step_ms"], got["eager"], got["allreduce_ms"],
+               100 * got["allreduce_ms"] / got["step_ms"], card))
+    del ref
+    torch.cuda.empty_cache()
+    seconds["15b"] = round(time.perf_counter() - t, 1)
+
+    # --- (c) gloo: VQA pretraining through cli.train --mesh data=2 ---
+    log("== phase 15c: VQA pretraining through cli.train --mesh data=2")
+    t = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    for label, config, n, batch, key, want in (
+            ("MutanNoAtt", os.path.join(root, "configs", "vqa2",
+                                        "mutan_noatt_train.yaml"),
+             2048, 512, "train_cli", ("gru", "gru_pg", "gru_bwd", "mutan")),
+            ("MutanAtt", ATT_CONFIG, 1024, 128, "att_cli",
+             ("gru", "gru_pg", "gru_bwd", "mutan", "attmutan",
+              "attmutan_bwd"))):
+        with tempfile.TemporaryDirectory() as tmp:
+            got, secs = spawn_ranks(rank_cli, (
+                "vqa_counterexamples_tpu_torch.cli.train",
+                ["--path_opt", config, "--synthetic", str(n), "--epochs",
+                 "1", "-b", str(batch), "--seed", str(SEED), "--dir_logs",
+                 tmp, "--mesh", "data=2"], {"data": 2}, want), 2)
+            with open(os.path.join(tmp, "logger.json")) as f:
+                logged = json.load(f)["logged"]
+            with open(os.path.join(tmp, "results", "val",
+                                   "vqa_OpenEnded_mscoco_epoch_1.json")) as f:
+                rows = json.load(f)
+        ref_logged, ref_rows = refs[key]
+        tol = TOL["mesh"]
+        for tag, meter in (("train", "loss"), ("val", "loss")):
+            held("%s %s %s" % (label, tag, meter),
+                 logged[tag][meter]["1"], ref_logged[tag][meter]["1"],
+                 tol["loss_rel"])
+        same = np.mean([a == b for a, b in zip(rows, ref_rows)])
+        steps = got["out"]
+        log("  %s (B %d, %d a rank): %d steps; train loss %.4f, val loss "
+            "%.4f, acc1 %.3f (one rank %.4f, %.4f, %.3f); %.1f%% of %d val "
+            "answers as one rank's (bound %.0f%%); launches by rank %s; "
+            "%.1f ms a step (the batch_time meter), an all-reduce of the "
+            "parameters %.1f ms; %.1f s in the ranks, %.1f s with their "
+            "start-up (%s)"
+            % (label, batch, batch // 2, steps, logged["train"]["loss"]["1"],
+               logged["val"]["loss"]["1"], logged["val"]["acc1"]["1"],
+               ref_logged["train"]["loss"]["1"],
+               ref_logged["val"]["loss"]["1"],
+               ref_logged["val"]["acc1"]["1"], 100 * same, len(rows),
+               100 * tol["answers"], got["counts"].tolist(),
+               1e3 * logged["train"]["batch_time"]["1"],
+               got["allreduce_ms"], got["seconds"], secs, card))
+        if len(rows) != len(ref_rows) or same < tol["answers"]:
+            raise AssertionError("%s: %d val rows, %.3f equal to one rank's"
+                                 % (label, len(rows), same))
+    seconds["15c"] = round(time.perf_counter() - t, 1)
+
+    # --- (d) the sharded kNN build at COCO-train scale ---
+    log("== phase 15d: the kNN builder over two ranks (cli.knn --mesh "
+        "data=2)")
+    t = time.perf_counter()
+    from vqa_counterexamples_tpu_torch.data.features import FeatureStore
+    from vqa_counterexamples_tpu_torch.data.vqacx import coco_num_to_name
+
+    n, knn_ref = refs["knn"]["idx"].shape[0], refs["knn"]
+    with tempfile.TemporaryDirectory() as tmp:
+        feats = np.random.default_rng(SEED).standard_normal(
+            (n, 2048), dtype=np.float32)
+        prefix = os.path.join(tmp, "trainset")
+        FeatureStore(feats, [coco_num_to_name(i) for i in range(n)]).save(
+            prefix)
+        del feats
+        got, secs = spawn_ranks(rank_cli, (
+            "vqa_counterexamples_tpu_torch.cli.knn",
+            ["--path_features", prefix, "-k", "25", "--json-out",
+             os.path.join(tmp, "knn.json"), "--mesh", "data=2"],
+            {"data": 2}, ("knn",)), 2)
+        with open(os.path.join(tmp, "knn.json")) as f:
+            text = f.read()
+    dist, idx = got["out"]
+    equal = (np.array_equal(dist, knn_ref["dist"])
+             and np.array_equal(idx, knn_ref["idx"])
+             and text == knn_ref["json"])
+    log("  %d x 2048 over two ranks (%d and %d rows): indices, distances "
+        "and the json %s phase 9's one-rank build; launches by rank %s; "
+        "%.2f s in the ranks (one rank, phase 9: %.2f s), %.1f s with "
+        "their start-up (%s)"
+        % (n, -(-n // 2), n // 2, "bit-equal to" if equal else
+           "DIFFERENT from", got["counts"].tolist(), got["seconds"],
+           knn_ref["seconds"], secs, card))
+    if not equal:
+        raise AssertionError("the sharded kNN build differs from one "
+                             "rank's: %d indices, %d distances"
+                             % ((idx != knn_ref["idx"]).sum(),
+                                (dist != knn_ref["dist"]).sum()))
+    seconds["15d"] = round(time.perf_counter() - t, 1)
+
+    # --- (e) extraction over two ranks ---
+    log("== phase 15e: extraction over two ranks (cli.extract --mesh "
+        "data=2)")
+    t = time.perf_counter()
+    from vqa_counterexamples_tpu_torch.cli import extract
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "160", "-b", "80"]
+        one = extract.main(argv + ["--device", str(dev), "--dir_data",
+                                   os.path.join(tmp, "one")])
+        got, secs = spawn_ranks(rank_cli, (
+            "vqa_counterexamples_tpu_torch.cli.extract",
+            argv + ["--dir_data", os.path.join(tmp, "two"), "--mesh",
+                    "data=2"], {"data": 2}, ()), 2)
+        two = got["out"]
+        import filecmp
+
+        same = {suffix: filecmp.cmp(one + suffix, two + suffix,
+                                    shallow=False)
+                for suffix in (".npy", ".att.npy", ".txt")}
+    log("  ResNet-152 at 448, 160 synthetic images in batches of 80 (one "
+        "a rank): files byte-equal to one rank's: %s; %.1f s in the ranks, "
+        "%.1f s with their start-up (%s)"
+        % (same, got["seconds"], secs, card))
+    if not all(same.values()):
+        raise AssertionError("extraction over two ranks changed %s"
+                             % [k for k, v in same.items() if not v])
+    seconds["15e"] = round(time.perf_counter() - t, 1)
+    log("  phase 15: %.1f s (%s)" % (time.perf_counter() - t_phase,
+                                     seconds))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -3519,18 +4051,19 @@ def main():
     rows = phase_kernels(dev, card)
     _, ctx = phase_slice(dev, card)
     launches = phase_train(dev, card, ctx)
-    phase_cli(dev, card)
+    refs = {"cli": phase_cli(dev, card)}
     del ctx
     launches_pre = phase_pretrain(dev, card)
-    phase_train_cli(dev)
+    refs["train_cli"] = phase_train_cli(dev)
     launches_att = phase_att_pretrain(dev, card)
-    phase_att_cli(dev)
-    launches_knn = phase_knn(dev, card)
+    refs["att_cli"] = phase_att_cli(dev)
+    launches_knn, refs["knn"] = phase_knn(dev, card)
     phase_trainable(dev, card)
     phase_zoo(dev, card)
     phase_realdata(dev, card)
     phase_serve(dev, card)
     phase_mlb(dev, card)
+    phase_parallel(dev, card, refs)
     log("total %.1f s" % (time.perf_counter() - t0))
     # launches: each kernel's path; the CX training path (phase 3) runs
     # gru, vfeat, vfeat_bwd and mixture, MutanNoAtt pretraining (phase 5)

@@ -188,11 +188,17 @@ def test_contrastive_cli(tmp_path, capsys, trainable):
     assert len(more) == 3 and more[:2] == info
 
 
-def test_contrastive_cli_refusals(tmp_path):
+def test_contrastive_cli_refusals(tmp_path, monkeypatch):
+    """``--mesh data=2`` runs now (two gloo ranks, each on its rows of the
+    triple batches, the gradients all-reduced): the same recall as one
+    rank; the missing real data and the device rule still raise."""
     base = ["--synthetic", "64", "--epochs", "1", "--path_opt",
             _tiny_cli_options(tmp_path), "--project_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="Queue 1 #12"):
-        port_cli.main(base + ["--mesh", "data=2", "--device", "cpu"])
+    monkeypatch.setenv("VQACX_DIST_TIMEOUT", "120")
+    one = port_cli.main(base + ["--device", "cpu", "-c", "one"])
+    ranked = port_cli.main(base + ["--mesh", "data=2", "--device", "cpu",
+                                   "-c", "mesh"])
+    assert ranked == one and len(one) == 1
     # without --synthetic the CLI reads the real VQA-CX pickles, and raises
     # as the JAX CLI does where they are missing
     (tmp_path / "real.yaml").write_text(yaml.safe_dump(

@@ -701,9 +701,11 @@ def _assert_same_training(model_a, opt_a, model_b, opt_b):
         assert torch.equal(a, b)
 
 
-def _cx_run(model, arrays, tables, capture, epochs=2, batch_size=16):
+def _cx_run(model, arrays, tables, capture, epochs=2, batch_size=16,
+            mesh=None):
     """``epochs`` epochs of ``train_epoch`` (3 steps each) -> (state,
-    per-step (loss, correct), the step, the launch counts)."""
+    per-step (loss, correct), the step, the launch counts); ``mesh``: the
+    step's ``parallel.Mesh``."""
     from vqa_counterexamples_tpu_torch.core import graphs
     from vqa_counterexamples_tpu_torch.engines import cx_engine
     from vqa_counterexamples_tpu_torch.ops.cuda import launch_counters
@@ -712,7 +714,7 @@ def _cx_run(model, arrays, tables, capture, epochs=2, batch_size=16):
     state = cx_engine.init_cx_state(model, lr=1e-3)
     step = cx_engine.make_cx_train_step(model, state.optimizer,
                                         base_seed=3, use_z_cache=True,
-                                        capture=capture)
+                                        capture=capture, mesh=mesh)
     ledger = graphs.LaunchLedger(launch_counters().values())
     before = ledger.read()
     metrics = []
@@ -745,6 +747,42 @@ def test_captured_cx_train_step_equals_eager(dev, monkeypatch):
     assert n_cap == n_eag and max(n_cap) >= 6
     _assert_same_training(model, s_cap.optimizer, eager_model,
                           s_eag.optimizer)
+
+
+def _nccl_one_rank_equals_unmeshed():
+    """One spawned rank (``parallel.spawn`` gives it torchrun's
+    environment): the captured CX steps with no mesh, then under a
+    one-rank NCCL mesh, trained bit for bit alike."""
+    import copy
+
+    from vqa_counterexamples_tpu_torch import parallel
+
+    dev = torch.device("cuda", 0)
+    model, arrays, tables = _tiny_cx(dev)
+    ranked_model = copy.deepcopy(model)
+    s_one, m_one, _, n_one = _cx_run(model, arrays, tables, None)
+    with parallel.mesh_from_env({"data": 1}, dev) as mesh:
+        assert mesh.backend == "nccl"
+        s_nccl, m_nccl, step, n_nccl = _cx_run(ranked_model, arrays, tables,
+                                               None, mesh=mesh)
+        assert step.graphed.capture and step.graphed.n_graphs == 1
+    assert m_nccl == m_one and n_nccl == n_one
+    _assert_same_training(model, s_one.optimizer, ranked_model,
+                          s_nccl.optimizer)
+    return True
+
+
+def test_nccl_one_rank_captured_step_equals_unmeshed(dev, monkeypatch):
+    """A one-rank NCCL mesh: the step is still captured, its gradients'
+    all-reduce inside the graph, and it trains bit for bit as the step
+    with no mesh.  It runs in a process of its own: a process that has
+    had an NCCL group invalidated a later capture with no mesh (global
+    capture mode) in this file, three runs in three on an H100."""
+    from vqa_counterexamples_tpu_torch import parallel
+
+    monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
+    assert parallel.spawn(_nccl_one_rank_equals_unmeshed, world=1,
+                          timeout=600)
 
 
 def test_captured_cx_eval_step_equals_eager(dev, monkeypatch):

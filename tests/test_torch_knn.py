@@ -180,12 +180,27 @@ def test_knn_windows_match_jax_chunking():
             chunking.windows(n, chunk))
 
 
-def test_knn_refuses_what_is_not_ported():
+def test_knn_refuses_what_is_not_ported(monkeypatch):
+    """``approx`` is still refused; a corpus sharded over a mesh runs now
+    (two gloo ranks: the one-rank result bit for bit), and refuses shards
+    of fewer than k rows, as JAX's does."""
+    from vqa_counterexamples_tpu_torch import parallel
+
+    import torch_parallel_ranks
+
     corpus = _corpus(20, 4, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_topk.knn(corpus, k=3, approx=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_topk.knn(corpus, k=3, mesh=object())
+    monkeypatch.setenv("VQACX_DIST_TIMEOUT", "120")
+    ref = port_topk.knn(corpus, k=3, device="cpu")
+    got = parallel.spawn(torch_parallel_ranks.knn_run,
+                         (corpus, 3, 1024, {"data": 2}), world=2,
+                         timeout=600)
+    for a, b in zip(got, ref):
+        assert a.tobytes() == b.tobytes()
+    mesh = parallel.Mesh({"data": 8}, 0, 8, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError, match="at least k rows"):
+        port_topk.knn(corpus, k=3, mesh=mesh)
     with pytest.raises(ValueError, match="engine"):
         port_topk.knn(corpus, k=3, engine="xla")
 
@@ -269,6 +284,31 @@ def test_knn_cli_matches_jax(tmp_path):
     assert "1" in table and 1 not in table["1"]
 
 
+def test_knn_cli_bf16_store_matches_jax(tmp_path):
+    """A bf16 feature file, as ``cli/extract.py --feat-dtype bfloat16``
+    writes it (uint16 bits): the port casts it to f32 on the device, JAX's
+    CLI with ``np.asarray(features, np.float32)``; the same json and
+    indices."""
+    import ml_dtypes
+
+    prefix = str(tmp_path / "trainset")
+    bf16 = _corpus(60, 20, seed=3).astype(ml_dtypes.bfloat16)
+    np.save(prefix + ".npy", bf16.view(np.uint16))
+    with open(prefix + ".txt", "w") as f:
+        f.write("".join(name + "\n" for name in _names(60)))
+    args = ["--path_features", prefix, "-k", "6", "-b", "32"]
+    jax_knn_cli.main(args + ["--out", str(tmp_path / "j.npy"),
+                             "--json-out", str(tmp_path / "j.json")])
+    dist, idx = port_knn_cli.main(args + [
+        "--out", str(tmp_path / "p.npy"), "--json-out",
+        str(tmp_path / "p.json"), "--device", "cpu"])
+    ref = np.load(tmp_path / "j.npy", allow_pickle=True).item()
+    np.testing.assert_array_equal(idx, ref["indices"])
+    np.testing.assert_allclose(dist, ref["distances"], **TOL)
+    assert (tmp_path / "p.json").read_text() == (
+        tmp_path / "j.json").read_text()
+
+
 def test_knn_cli_default_out_and_engines(tmp_path):
     prefix = _store(tmp_path, n=40)
     runs = [port_knn_cli.main(["--path_features", prefix, "-k", "4",
@@ -285,7 +325,29 @@ def test_knn_cli_device_rule_and_unported_flags(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         port_knn_cli.main(["--path_features", prefix])
-    for extra in (["--approx"], ["--mesh", "data=4"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_knn_cli.main(["--path_features", prefix, "--device", "cpu",
-                               *extra])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_knn_cli.main(["--path_features", prefix, "--device", "cpu",
+                           "--approx"])
+    # --mesh and --distributed run now: the .npy and the json byte for
+    # byte the one-rank run's
+    monkeypatch.setenv("VQACX_DIST_TIMEOUT", "120")
+    outs = {}
+    for name, extra in (("one", []), ("mesh", ["--mesh", "data=4"]),
+                        ("distributed", ["--distributed"])):
+        if name == "distributed":    # torchrun's environment, one rank
+            import socket
+
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                         "MASTER_ADDR": "127.0.0.1",
+                         "MASTER_PORT": str(port)}.items():
+                monkeypatch.setenv(k, v)
+        out = tmp_path / name
+        port_knn_cli.main(["--path_features", prefix, "-k", "5", "--device",
+                           "cpu", "--out", str(out) + ".npy", "--json-out",
+                           str(out) + ".json", *extra])
+        outs[name] = [(tmp_path / (name + s)).read_bytes()
+                      for s in (".npy", ".json")]
+    assert outs["mesh"] == outs["one"] == outs["distributed"]

@@ -1120,15 +1120,45 @@ def test_train_cli_evaluate_and_trainval(tmp_path, monkeypatch):
 
 
 def test_train_cli_device_rule_and_unported_flags(tmp_path, monkeypatch):
+    """The device rule, and ``--mesh data=4`` / ``--distributed``, which run
+    now (#12): the meshed run's logged meters and val rows against one
+    rank's (dropout on: the masks drawn at the global batch's shape)."""
     path, _ = _tiny_config(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = [a for a in _cli(path, "--epochs", "1")
             if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="--device cpu"):
         port_cli.main(args)
-    for extra in (["--mesh", "data=4"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_cli.main(_cli(path, "--epochs", "1", *extra))
+    monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "float32")
+    monkeypatch.setenv("VQACX_DIST_TIMEOUT", "120")
+    runs = {}
+    for name, extra in (("one", []), ("mesh", ["--mesh", "data=4"]),
+                        ("distributed", ["--distributed"])):
+        if name == "distributed":    # torchrun's environment, one rank
+            import socket
+
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                         "MASTER_ADDR": "127.0.0.1",
+                         "MASTER_PORT": str(port)}.items():
+                monkeypatch.setenv(k, v)
+        logs = tmp_path / name
+        port_cli.main(_cli(path, "--epochs", "1", "--dir_logs", str(logs),
+                           *extra))
+        runs[name] = (json.loads((logs / "logger.json").read_text())[
+            "logged"], json.loads((logs / "results" / "val" /
+                                   "vqa_OpenEnded_mscoco_epoch_1.json")
+                                  .read_text()))
+    for name in ("mesh", "distributed"):
+        logged, rows = runs[name]
+        assert rows == runs["one"][1], name
+        for tag in ("train", "val"):
+            for meter in ("loss", "acc1", "acc5"):
+                assert logged[tag][meter]["1"] == pytest.approx(
+                    runs["one"][0][tag][meter]["1"], rel=1e-5), (name, tag,
+                                                                 meter)
     # without --synthetic the CLI reads the real data, and raises as the
     # JAX CLI does where it is missing
     opt = yaml.safe_load(open(path))

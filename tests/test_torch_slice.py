@@ -155,16 +155,35 @@ def test_port_cli_scores_synthetic(tmp_path, monkeypatch, dtype):
 @pytest.mark.parametrize("flag,tag", [
     (["--mesh", "data=2"], "Queue 1 #12"), (["--viz"], "Queue 1 #13"),
     (["--init_params", "p.msgpack"], "Queue 1: the msgpack bridge")])
-def test_port_cli_refuses_training(tmp_path, flag, tag):
+def test_port_cli_refuses_training(tmp_path, monkeypatch, flag, tag):
     """Training runs now (tests/test_torch_train.py), the scanned trainer
     too (``--scan_steps``, tests/test_torch_scan.py), pairwise training and
-    the zoo as well (tests/test_torch_zoo.py); ``--mesh``, ``--viz`` and
+    the zoo as well (tests/test_torch_zoo.py); ``--viz`` and
     ``--init_params`` are what the port still refuses, citing their
-    ROADMAP tags, before it trains anything or makes a run dir."""
+    ROADMAP tags, before it trains anything or makes a run dir.
+    ``--mesh`` (#12) runs now (NeuralModel, which does not train on
+    pairwise triples, without ``--pairwise``): two gloo ranks, the scan
+    ignored as JAX's CLI ignores it under a mesh, the same evals as one
+    rank's scanned run (to the sum order)."""
+    argv = ["--cx_model", "NeuralModel", "--synthetic", "64", "--epochs",
+            "1", "--scan_steps", "4", "--pairwise", "--device", "cpu",
+            "--path_opt", _tiny_cli_options(tmp_path)]
+    if "--mesh" in flag:
+        monkeypatch.setenv("VQACX_DIST_TIMEOUT", "120")
+        argv.remove("--pairwise")
+        one = port_cli.main(argv + ["--project_dir", str(tmp_path / "one")])
+        ranked = port_cli.main(argv + ["--project_dir",
+                                       str(tmp_path / "mesh")] + flag)
+        assert len(ranked) == len(one) == 1
+        assert set(ranked[0]) == set(one[0]) == {"loss", "recall",
+                                                 "recall_1"}
+        for k, v in one[0].items():
+            assert ranked[0][k] == pytest.approx(v, rel=1e-4, abs=1e-6), k
+        (run,) = os.listdir(tmp_path / "mesh" / "logs" / "cx")
+        assert os.path.exists(tmp_path / "mesh" / "logs" / "cx" / run /
+                              "ckpt" / "model.ckpt")
+        return
     with pytest.raises(NotImplementedError,
                        match=re.escape("(ROADMAP.md, %s)" % tag)):
-        port_cli.main(["--cx_model", "NeuralModel", "--synthetic", "64",
-                       "--epochs", "1", "--scan_steps", "4", "--pairwise",
-                       "--device", "cpu", "--project_dir", str(tmp_path),
-                       "--path_opt", _tiny_cli_options(tmp_path)] + flag)
+        port_cli.main(argv + ["--project_dir", str(tmp_path)] + flag)
     assert not (tmp_path / "logs").exists()

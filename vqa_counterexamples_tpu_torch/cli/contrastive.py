@@ -19,7 +19,9 @@ to run unless ``--device cpu`` is given.  Without ``--synthetic`` it reads
 the real VQA-CX data through the CX CLI's ``load_real_data`` (the
 augmented pickles of ``cli/build_vqacx``, the ``_small`` train pickle under
 ``--dev_mode``); the backbone stays at its seeded init, as in the JAX CLI.
-``--mesh`` raises ``NotImplementedError`` (see ROADMAP.md).
+``--mesh data=D`` trains on D ranks (``--distributed``: one rank of a
+torchrun launch), each on its rows of every triple batch, the gradients
+all-reduced, as the CX CLI does; rank 0 prints and writes the files.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import os
 from datetime import datetime
 
 import numpy as np
-import torch
+
+from .. import parallel
 
 
 def build_parser():
@@ -57,6 +60,7 @@ def build_parser():
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--mesh", type=str, default=None,
                         help="data-parallel mesh spec, e.g. 'data=8'")
+    parallel.add_distributed_flag(parser)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda; cpu must be asked "
                              "for)")
@@ -64,30 +68,39 @@ def build_parser():
 
 
 def main(argv=None):
+    args = build_parser().parse_args(argv)
+    args.test = False
+    return parallel.run(_run, args, argv, main)
+
+
+def _run(args, mesh):
     from ..core import checkpoint as ckpt_lib
     from ..core import config as config_lib
-    from ..core.experiment import ScalarWriter
+    from ..core.experiment import scalar_writer
     from ..data import vqacx
     from ..engines import contrastive_engine as ce
     from ..engines import cx_engine
     from ..models import factory
-    from .counterexamples import (check_unported, load_real_data,
+    from .counterexamples import (check_batch, load_real_data,
                                   load_synthetic_data, resolve_device)
 
-    args = build_parser().parse_args(argv)
-    args.test = False
     options = config_lib.resolve_options({}, args.path_opt, {
         "optim": {"lr": args.learning_rate, "batch_size": args.batch_size,
                   "epochs": args.epochs}})
-    check_unported(args)
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    check_batch(options["optim"]["batch_size"], mesh)
+    main_rank = mesh is None or mesh.is_main
 
     run_name = args.resume or (
         datetime.now().strftime("%b%d-%H-%M-%S") + "_" + args.comment)
+    if mesh is not None:   # rank 0's clock names the run
+        run_name = mesh.broadcast_object(run_name)
     save_dir = os.path.join(args.project_dir, "logs", "cx", run_name)
-    os.makedirs(os.path.join(save_dir, "ckpt"), exist_ok=True)
-    os.makedirs(os.path.join(save_dir, "best"), exist_ok=True)
-    writer = ScalarWriter(os.path.join(args.project_dir, "runs", run_name))
+    if main_rank:
+        os.makedirs(os.path.join(save_dir, "ckpt"), exist_ok=True)
+        os.makedirs(os.path.join(save_dir, "best"), exist_ok=True)
+    writer = scalar_writer(os.path.join(args.project_dir, "runs", run_name),
+                           mesh)
 
     print("=> Loading data...")
     if args.synthetic:
@@ -110,6 +123,7 @@ def main(argv=None):
                                trainable_vqa=args.trainable_vqa)
     cx_engine.init_cx_params(model, seed=args.seed)
     model.to(device)
+    parallel.replicated(model, mesh)
     state = cx_engine.init_cx_state(model, lr=options["optim"]["lr"])
 
     batch_size = options["optim"]["batch_size"]
@@ -137,21 +151,20 @@ def main(argv=None):
             model, features_val, val_arrays, use_q=True, use_v=True,
             use_z=False)
 
+    if mesh is not None:
+        print("=> Mesh %s over %d ranks (%s)"
+              % (mesh.axes, mesh.world_size, mesh.backend))
     train_step = ce.make_contrastive_train_step(model, state.optimizer,
-                                                base_seed=args.seed)
-    eval_step = ce.make_contrastive_eval_step(model)
+                                                base_seed=args.seed,
+                                                mesh=mesh)
+    eval_step = ce.make_contrastive_eval_step(model, mesh=mesh)
 
     def run_eval():
-        sums, n = [], 0
-        for step, (idx, n_valid) in enumerate(vqacx.batch_indices(
-                val_arrays.size, batch_size, shuffle=False)):
-            out = eval_step(features_val,
-                            vqacx.gather_batch(val_arrays, idx), n_valid,
-                            step, q_table=q_val, v_table=v_val)
-            sums.append(out["correct"])
-            n += n_valid
+        rows, n = cx_engine.eval_sums(eval_step, features_val, val_arrays,
+                                      batch_size, dict(q_table=q_val,
+                                                       v_table=v_val))
         # float64 sum of the per-batch counts, as JAX's ``float(...) +=``
-        correct = sum(torch.stack(sums).cpu().tolist())
+        correct = sum(float(x) for x in rows[:, 1])
         return {"contrastive/recall": correct / n, "recall": correct / n}
 
     print("=> Starting training...")
@@ -181,7 +194,9 @@ def main(argv=None):
         is_best = eval_results["contrastive/recall"] > best_recall
         if is_best:
             best_recall = eval_results["contrastive/recall"]
-        ckpt_lib.save_cx_checkpoint(state, info, save_dir, is_best=is_best)
+        if main_rank:
+            ckpt_lib.save_cx_checkpoint(state, info, save_dir,
+                                        is_best=is_best)
     writer.close()
     return info
 

@@ -41,10 +41,20 @@ Without ``--synthetic`` it reads the real VQA-CX data as the JAX CLI does
 NeuralModel's answer embedding, with ``cx_model.pretrained_emb``, the
 table ``answer_embedding.pickle`` in ``vqa.path_trainset`` (written by
 ``cli/build_answer_embedding``).  Missing files raise
-``FileNotFoundError``.  ``--mesh``, ``--distributed``, ``--init_params``
-and ``--viz`` raise ``NotImplementedError`` (see ROADMAP.md for when they
-come).  The device is ``cuda``; with no card visible the CLI refuses to
-run unless ``--device cpu`` is given.
+``FileNotFoundError``.  ``--init_params`` and ``--viz`` raise
+``NotImplementedError`` (see ROADMAP.md for when they come).  The device
+is ``cuda``; with no card visible the CLI refuses to run unless ``--device
+cpu`` is given.
+
+``--mesh data=D[,model=M]`` trains on D x M ranks (``parallel/``: spawned
+here, one process each; ``--distributed`` is one rank of a torchrun
+launch): each rank builds the caches and the global batches, trains on
+its rows of each batch (``batch_size % D`` raises) and all-reduces the
+gradients, so every rank steps the same parameters; with ``model=M > 1``
+each keeps its row range of the feature matrix and the v table.  The
+kernels stay on under every rank.  ``--scan_steps`` is ignored under a
+mesh, as JAX's CLI ignores it; under gloo (``--dist_backend gloo``, or on
+the CPU) the steps run eagerly.  Rank 0 prints and writes the run's files.
 """
 
 from __future__ import annotations
@@ -57,6 +67,8 @@ from datetime import datetime
 
 import numpy as np
 import torch
+
+from .. import parallel
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -114,9 +126,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="disable the precomputed per-image fusion "
                              "v-projection cache")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="data-parallel mesh spec, e.g. 'data=8'")
-    parser.add_argument("--distributed", action="store_true",
-                        help="multi-host bootstrap")
+                        help="data-parallel mesh spec, e.g. 'data=8' or "
+                             "'data=2,model=2'")
+    parallel.add_distributed_flag(parser)
     parser.add_argument("--init_params", type=str, default=None,
                         help="params file to graft over the initialized CX "
                              "params")
@@ -183,8 +195,7 @@ def load_synthetic_data(args, n_examples):
 def check_unported(args) -> None:
     """Raise for the flags the port does not cover yet, each with its
     ROADMAP tag, before anything is built."""
-    for flag, item in (("mesh", "Queue 1 #12"), ("distributed", "Queue 1 #12"),
-                       ("init_params", "Queue 1: the msgpack bridge"),
+    for flag, item in (("init_params", "Queue 1: the msgpack bridge"),
                        ("viz", "Queue 1 #13")):
         if getattr(args, flag, None):
             _not_ported("--" + flag, item)
@@ -205,16 +216,35 @@ TRAINED = ("NeuralModel", "LinearContext", "PairwiseModel",
            "PairwiseLinearModel")
 
 
+def check_batch(batch_size: int, mesh) -> None:
+    """``batch_size % data`` raises ``ValueError``, as in JAX's CLIs."""
+    if mesh is not None and batch_size % mesh.size("data"):
+        raise ValueError("batch_size %d must divide over data=%d"
+                         % (batch_size, mesh.size("data")))
+
+
 def main(argv=None):
+    args = build_parser().parse_args(argv)
+    check_unported(args)
+    if args.cx_model == "ContrastiveModel":
+        # its forward returns (B, K+1, H) embeddings, which the K-way CE of
+        # the CX steps cannot score: JAX's CLI fails on it with a
+        # ValueError in its first eval; the model trains in cli/contrastive
+        raise ValueError("ContrastiveModel returns embeddings, not scores: "
+                         "train it with cli/contrastive.py")
+    return parallel.run(_run, args, argv, main)
+
+
+def _run(args, mesh):
     from ..core import checkpoint as ckpt_lib
     from ..core import config as config_lib
-    from ..core.experiment import ScalarWriter
+    from ..core.experiment import scalar_writer
     from ..data import vqacx
     from ..engines import cx_engine
     from ..models import factory
     from ..models.cx import init_answer_embedding
 
-    args = build_parser().parse_args(argv)
+    main_rank = mesh is None or mesh.is_main
     # ---- options (CLI non-None > YAML > defaults) ----
     cli_overrides = {
         "optim": {"lr": args.learning_rate, "batch_size": args.batch_size,
@@ -224,14 +254,8 @@ def main(argv=None):
     }
     options = config_lib.resolve_options({}, args.path_opt, cli_overrides)
     options["vgenome"] = None
-    check_unported(args)
-    if args.cx_model == "ContrastiveModel":
-        # its forward returns (B, K+1, H) embeddings, which the K-way CE of
-        # the CX steps cannot score: JAX's CLI fails on it with a
-        # ValueError in its first eval; the model trains in cli/contrastive
-        raise ValueError("ContrastiveModel returns embeddings, not scores: "
-                         "train it with cli/contrastive.py")
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    check_batch(options["optim"]["batch_size"], mesh)
 
     # ---- run-dir bookkeeping ----
     if args.cx_model == "NeuralModel" and not args.comment:
@@ -245,13 +269,17 @@ def main(argv=None):
         run_name = datetime.now().strftime("%b%d-%H-%M-%S")
         if args.comment:
             run_name += "_" + args.comment
+        if mesh is not None:   # rank 0's clock names the run
+            run_name = mesh.broadcast_object(run_name)
         save_dir = os.path.join(args.project_dir, "logs", "cx", run_name)
-        os.makedirs(os.path.join(save_dir, "ckpt"), exist_ok=True)
-        os.makedirs(os.path.join(save_dir, "best"), exist_ok=True)
+        if main_rank:
+            os.makedirs(os.path.join(save_dir, "ckpt"), exist_ok=True)
+            os.makedirs(os.path.join(save_dir, "best"), exist_ok=True)
     log_dir = os.path.join(args.project_dir, "runs", run_name)
-    train_writer = ScalarWriter(os.path.join(log_dir, "train"))
-    val_writer = ScalarWriter(os.path.join(log_dir, "val"))
-    config_lib.save_options(options, save_dir)
+    train_writer = scalar_writer(os.path.join(log_dir, "train"), mesh)
+    val_writer = scalar_writer(os.path.join(log_dir, "val"), mesh)
+    if main_rank:
+        config_lib.save_options(options, save_dir)
     print("Saving model to {}".format(save_dir))
 
     # ---- data ----
@@ -293,6 +321,7 @@ def main(argv=None):
                 and options["cx_model"].get("pretrained_emb")):
             init_answer_embedding(cx_model, _load_answer_embedding(
                 options, args, len(trainset["vocab_answers"])))
+    parallel.replicated(cx_model, mesh)
     state = cx_engine.init_cx_state(
         cx_model, lr=options["optim"]["lr"],
         optimizer="adam" if args.cx_model in TRAINED else None)
@@ -326,6 +355,29 @@ def main(argv=None):
         cx_model, features_val, val_arrays, use_q=use_q_cache,
         use_v=use_v_cache, use_z=use_z_cache)
 
+    def test_caches():
+        arrays = vqacx.CXArrays.from_examples(testset["examples_list"],
+                                              f_val.name_to_index)
+        q_test, _, z_test, _ = cx_engine.build_frozen_caches(
+            cx_model, features_val, arrays, use_q=use_q_cache, use_v=False,
+            use_z=use_z_cache)
+        return arrays, q_test, z_test
+
+    tests = None
+    if mesh is not None and mesh.size("model") > 1:
+        # the test caches read whole feature rows: built before the split
+        if args.test:
+            tests = test_caches()
+        shard = lambda t: None if t is None else parallel.shard_rows(t, mesh)
+        features_train, features_val = shard(features_train), \
+            shard(features_val)
+        v_train, v_val = shard(v_train), shard(v_val)
+        print("=> Feature corpus row-sharded over model=%d"
+              % mesh.size("model"))
+    if mesh is not None:
+        print("=> Mesh %s over %d ranks (%s)"
+              % (mesh.axes, mesh.world_size, mesh.backend))
+
     # ---- engines ----
     batch_size = options["optim"]["batch_size"]
     train_step = scan_step = None
@@ -333,15 +385,18 @@ def main(argv=None):
         train_step = cx_engine.make_cx_train_step(
             cx_model, state.optimizer, recall_k=1 if args.pairwise else 5,
             base_seed=args.seed, extra_apply_args=extra_args,
-            use_z_cache=use_z_cache)
-        if args.scan_steps > 1:
+            use_z_cache=use_z_cache, mesh=mesh)
+        if args.scan_steps > 1 and mesh is not None:
+            print("=> --scan_steps is ignored under a mesh")
+        elif args.scan_steps > 1:
             scan_step = cx_engine.make_cx_train_scan(train_step)
             print("=> Scanned trainer: %d steps a call (%d replays of the "
                   "captured step on a card, eager steps on the CPU)"
                   % (args.scan_steps, args.scan_steps))
     eval_step = cx_engine.make_cx_eval_step(cx_model, recall_k=5,
                                             extra_apply_args=extra_args,
-                                            use_z_cache=use_z_cache)
+                                            use_z_cache=use_z_cache,
+                                            mesh=mesh)
 
     def run_eval(st):
         return cx_engine.eval_model(
@@ -382,7 +437,9 @@ def main(argv=None):
         is_best = info[-1]["recall"] > best_recall
         if is_best:
             best_recall = info[-1]["recall"]
-        ckpt_lib.save_cx_checkpoint(state, info, save_dir, is_best=is_best)
+        if main_rank:
+            ckpt_lib.save_cx_checkpoint(state, info, save_dir,
+                                        is_best=is_best)
         print("{}Saved checkpoint to {}".format("* " if is_best else "",
                                                 save_dir))
 
@@ -390,22 +447,22 @@ def main(argv=None):
     if args.test:
         best_epoch = 0
         if epoch is not None and state.optimizer is not None:
+            if mesh is not None:
+                mesh.barrier()   # rank 0 has written the checkpoint
             # the reference's value: load_cx_checkpoint's next epoch
             state, _, best_epoch, _ = ckpt_lib.load_cx_checkpoint(
                 state, save_dir, resume_best=True)
-        test_arrays = vqacx.CXArrays.from_examples(
-            testset["examples_list"], f_val.name_to_index)
-        q_test, _, z_test, _ = cx_engine.build_frozen_caches(
-            cx_model, features_val, test_arrays, use_q=use_q_cache,
-            use_v=False, use_z=use_z_cache)
+        test_arrays, q_test, z_test = tests or test_caches()
         test_results = cx_engine.eval_model(
             eval_step, features_val, test_arrays, batch_size,
             pairwise=args.pairwise, pairwise_eval_step=eval_step,
             rng=np.random.default_rng(123), q_table=q_test, v_table=v_val,
             z_table=z_test)
         test_results["best_epoch"] = best_epoch
-        with open(os.path.join(save_dir, "final_results.txt"), "w") as f:
-            f.write(json.dumps(test_results))
+        if main_rank:
+            with open(os.path.join(save_dir, "final_results.txt"),
+                      "w") as f:
+                f.write(json.dumps(test_results))
         print("FINAL RESULTS ON BEST EPOCH {}".format(best_epoch),
               test_results)
     train_writer.close()

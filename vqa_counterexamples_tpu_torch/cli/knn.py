@@ -15,9 +15,13 @@ and writes:
 
 ``--engine cuda`` (default; JAX's ``pallas`` names it too) is the kernel,
 ``plain`` (or ``xla``) its plain version; both take any k up to the
-number of images.  The device is ``cuda``; with no card visible the CLI
-refuses to run unless ``--device cpu`` is given.
-``--approx``, ``--mesh`` and ``--distributed`` raise
+number of images.  The features may be f32 or bf16 (``cli/extract.py
+--feat-dtype bfloat16``): they are cast to f32 on the device.  The device
+is ``cuda``; with no card visible the CLI refuses to run unless ``--device
+cpu`` is given.  ``--mesh data=P`` splits the corpus rows over P ranks
+(``ops/topk.knn(mesh=)``: each searches its shard with the kernel, the
+candidates merged to the one-rank result), ``--distributed`` runs one
+rank of a torchrun launch; rank 0 writes the files.  ``--approx`` raises
 ``NotImplementedError`` (ROADMAP.md, Queue 1).
 """
 
@@ -28,6 +32,8 @@ import json
 
 import numpy as np
 import torch
+
+from .. import parallel
 
 # the JAX CLI's engine names
 _ENGINE_ALIASES = {"cuda": "cuda", "pallas": "cuda", "plain": "plain",
@@ -54,9 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="also write VQA-format {image_id: [ids]} json")
     parser.add_argument("--split", default="train", choices=["train", "val"])
     parser.add_argument("--mesh", type=str, default=None,
-                        help="shard the corpus over a mesh (not ported)")
-    parser.add_argument("--distributed", action="store_true",
-                        help="multi-host bootstrap (not ported)")
+                        help="split the corpus rows over the ranks of the "
+                             "mesh's data axis, e.g. 'data=2'")
+    parallel.add_distributed_flag(parser)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda; cpu must be asked "
                              "for)")
@@ -64,25 +70,37 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.approx:
+        raise NotImplementedError(
+            "--approx is not ported to the PyTorch package yet (ROADMAP.md, "
+            "Queue 1 #11)")
+    return parallel.run(_run, args, argv, main)
+
+
+def _run(args, mesh):
     from ..data.features import FeatureStore
     from ..data.vqacx import coco_name_to_num
     from ..ops import topk
 
-    args = build_parser().parse_args(argv)
-    for flag in ("approx", "mesh", "distributed"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                "--%s is not ported to the PyTorch package yet (ROADMAP.md, "
-                "Queue 1)" % flag)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is visible: the port runs on the "
-                           "card; pass --device cpu to run on the CPU")
+    if mesh is not None:
+        device = mesh.device
+        print("=> Mesh %s: corpus rows split over %d ranks"
+              % (mesh.axes, mesh.size("data")))
+    else:
+        device = torch.device(args.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is visible: the port runs on "
+                               "the card; pass --device cpu to run on the "
+                               "CPU")
     store = FeatureStore.load(args.path_features, dataset=args.dataset)
     print("Loaded %d features of dim %d" % store.features.shape)
-    dist, idx = topk.knn(store.features, k=args.n_neighbors,
+    dist, idx = topk.knn(store.to_device(device), k=args.n_neighbors,
                          batch_size=args.batch_size,
-                         engine=_ENGINE_ALIASES[args.engine], device=device)
+                         engine=_ENGINE_ALIASES[args.engine], device=device,
+                         mesh=mesh)
+    if mesh is not None and not mesh.is_main:
+        return dist, idx
 
     out = args.out or (args.path_features + "_knn_results.npy")
     np.save(out, {"indices": idx, "distances": dist})

@@ -31,9 +31,16 @@ The device is ``cuda``; with no card visible the CLI refuses to run unless
 and stream through ``VQAArrays.batches``' gather (the next batch
 prefetched by the native store's tickets, or a worker thread where it
 cannot be built; in pinned buffers for a card), as the JAX CLI's do; f32
-or bf16 maps, as ``cli/extract.py`` wrote them.  ``--mesh`` and
-``--distributed`` raise ``NotImplementedError`` (see ROADMAP.md for when
-they come).
+or bf16 maps, as ``cli/extract.py`` wrote them.
+
+``--mesh data=D`` trains on D ranks (``parallel/``: spawned here, one
+process each; ``--distributed`` is one rank of a torchrun launch): every
+rank draws the same batches and takes its rows of each (the att maps are
+gathered for those rows only), the gradients are all-reduced, and the
+val and test passes gather every rank's predictions; ``batch_size`` must
+divide over the mesh, as in JAX's CLI.  Under gloo (``--dist_backend
+gloo``, or on the CPU) the train step runs eagerly.  Rank 0 prints and
+writes the logs, results and checkpoints.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ import pickle
 
 import numpy as np
 import torch
+
+from .. import parallel
 
 
 def str2bool(v):
@@ -80,18 +89,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--mesh", type=str, default=None,
                         help="data-parallel mesh spec, e.g. 'data=8'")
     parser.add_argument("--seed", type=int, default=42)
-    parser.add_argument("--distributed", action="store_true",
-                        help="multi-host bootstrap")
+    parallel.add_distributed_flag(parser)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda; cpu must be asked "
                              "for)")
     return parser
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        "%s is not ported to the PyTorch package yet (ROADMAP.md, %s)"
-        % (what, item))
 
 
 def _synthetic_vqa(n, options, seed):
@@ -111,6 +113,11 @@ def _synthetic_vqa(n, options, seed):
 
 
 def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return parallel.run(_run, args, argv, main)
+
+
+def _run(args, mesh):
     from ..core import checkpoint as ckpt_lib
     from ..core import config as config_lib
     from ..core.experiment import Experiment
@@ -119,23 +126,33 @@ def main(argv=None):
     from ..engines import vqa_engine
     from ..models import factory
 
-    args = build_parser().parse_args(argv)
-    for flag in ("mesh", "distributed"):
-        if getattr(args, flag):
-            _not_ported("--" + flag, "Queue 1 #12")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is visible: the port runs on the "
-                           "card; pass --device cpu to run on the CPU")
+    if mesh is not None:
+        device = mesh.device
+    else:
+        device = torch.device(args.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is visible: the port runs on "
+                               "the card; pass --device cpu to run on the "
+                               "CPU")
+    main_rank = mesh is None or mesh.is_main
     options = config_lib.resolve_options({}, args.path_opt, {
         "logs": {"dir_logs": args.dir_logs},
         "optim": {"lr": args.learning_rate, "batch_size": args.batch_size,
                   "epochs": args.epochs},
     })
     dir_logs = options["logs"]["dir_logs"]
-    os.makedirs(dir_logs, exist_ok=True)
-    config_lib.save_options(options, dir_logs)
     batch_size = options["optim"]["batch_size"]
+    part = None
+    if mesh is not None:
+        if batch_size % mesh.world_size:
+            raise ValueError("batch_size %d must divide over the %d-rank "
+                             "mesh" % (batch_size, mesh.world_size))
+        part = (mesh.index("data"), mesh.size("data"))
+        print("=> Mesh %s over %d ranks (%s)"
+              % (mesh.axes, mesh.world_size, mesh.backend))
+    if main_rank:
+        os.makedirs(dir_logs, exist_ok=True)
+        config_lib.save_options(options, dir_logs)
     dir_vqa = options["vqa"].get("dir")
 
     # ---- data ----
@@ -197,6 +214,7 @@ def main(argv=None):
             load_skipthoughts_npz(model.seq2vec, st_npz)
             print("=> seq2vec initialized from %s" % st_npz)
     model.to(device)
+    parallel.replicated(model, mesh)
     state = vqa_engine.init_vqa_state(model, lr=options["optim"]["lr"])
     print("Built {} on {}".format(options["model"]["arch"], device))
 
@@ -221,27 +239,29 @@ def main(argv=None):
         best_acc1 = float(info.get("best_acc1", 0.0))
 
     train_step = vqa_engine.make_vqa_train_step(model, state.optimizer,
-                                                base_seed=args.seed)
-    eval_step = vqa_engine.make_vqa_eval_step(model)
+                                                base_seed=args.seed,
+                                                mesh=mesh)
+    eval_step = vqa_engine.make_vqa_eval_step(model, mesh=mesh)
 
     def val_loader():
         return val_arrays.batches(batch_size, shuffle=False,
                                   drop_remainder=True,
                                   device_features=val_device_features,
-                                  device=device)
+                                  device=device, part=part)
 
     def run_test_pass(epoch):
         """OpenEnded submission rows for test2015 + the test-dev subset
         (no ground truth; reference engine.test)."""
-        predict = vqa_engine.make_vqa_predict_step(model)
+        predict = vqa_engine.make_vqa_predict_step(model, mesh=mesh)
         loader = test_arrays.batches(batch_size, shuffle=False,
                                      device_features=test_device_features,
-                                     device=device)
+                                     device=device, part=part)
         rows = vqa_engine.test_pass(predict, loader, vocab_answers)
         qids = test_arrays.is_qid_testdev or set()
         testdev_rows = [r for r in rows if r["question_id"] in qids]
-        _save_results(rows, epoch, dir_logs, "test2015")
-        _save_results(testdev_rows, epoch, dir_logs, "test-dev2015")
+        if main_rank:
+            _save_results(rows, epoch, dir_logs, "test2015")
+            _save_results(testdev_rows, epoch, dir_logs, "test-dev2015")
         print("Epoch %d test: %d rows (%d test-dev)"
               % (epoch, len(rows), len(testdev_rows)))
         return rows, testdev_rows
@@ -253,7 +273,8 @@ def main(argv=None):
                                         aid_to_ans=vocab_answers,
                                         collect_results=True)
         print("Evaluate:", res)
-        _save_results(rows, 0, dir_logs, "val", dir_vqa=dir_vqa)
+        if main_rank:
+            _save_results(rows, 0, dir_logs, "val", dir_vqa=dir_vqa)
         return res
 
     # ---- epochs ----
@@ -262,18 +283,19 @@ def main(argv=None):
         loader = train_arrays.batches(batch_size, shuffle=True, rng=rng,
                                       drop_remainder=True,
                                       device_features=device_features,
-                                      device=device)
+                                      device=device, part=part)
         state = vqa_engine.train_epoch(train_step, state, loader, exp, epoch,
                                        print_freq=args.print_freq)
         if test_arrays is not None:
             # trainval: no val metrics; checkpoint every epoch and emit
             # submission rows (reference train.py:241-262)
             run_test_pass(epoch)
-            exp.to_json(os.path.join(dir_logs, "logger.json"))
-            ckpt_lib.save_vqa_checkpoint(
-                {"epoch": epoch, "best_acc1": best_acc1}, state, dir_logs,
-                save_model=args.save_model,
-                save_all_from=args.save_all_from, is_best=False)
+            if main_rank:
+                exp.to_json(os.path.join(dir_logs, "logger.json"))
+                ckpt_lib.save_vqa_checkpoint(
+                    {"epoch": epoch, "best_acc1": best_acc1}, state,
+                    dir_logs, save_model=args.save_model,
+                    save_all_from=args.save_all_from, is_best=False)
             continue
         res, rows = vqa_engine.validate(eval_step, val_loader(), exp, epoch,
                                         aid_to_ans=vocab_answers,
@@ -284,13 +306,14 @@ def main(argv=None):
         exp.get_meter("val", "best_epoch").update(
             epoch if is_best else exp.get_meter("val", "best_epoch").value())
         exp.get_meter("val", "best_acc1").update(best_acc1)
-        exp.to_json(os.path.join(dir_logs, "logger.json"))
-        ckpt_lib.save_vqa_checkpoint(
-            {"epoch": epoch, "best_acc1": best_acc1, "acc1": res["acc1"],
-             "acc5": res["acc5"]}, state, dir_logs,
-            save_model=args.save_model, save_all_from=args.save_all_from,
-            is_best=is_best)
-        _save_results(rows, epoch, dir_logs, "val", dir_vqa=dir_vqa)
+        if main_rank:
+            exp.to_json(os.path.join(dir_logs, "logger.json"))
+            ckpt_lib.save_vqa_checkpoint(
+                {"epoch": epoch, "best_acc1": best_acc1, "acc1": res["acc1"],
+                 "acc5": res["acc5"]}, state, dir_logs,
+                save_model=args.save_model,
+                save_all_from=args.save_all_from, is_best=is_best)
+            _save_results(rows, epoch, dir_logs, "val", dir_vqa=dir_vqa)
     return state
 
 

@@ -83,3 +83,21 @@ class ScalarWriter:
 
     def close(self):
         self._fh.close()
+
+
+class NullWriter:
+    """A :class:`ScalarWriter` that writes nothing (the ranks other than 0
+    of a data-parallel run)."""
+
+    def add_scalar(self, tag: str, value, step: int):
+        pass
+
+    def close(self):
+        pass
+
+
+def scalar_writer(log_dir: str, mesh=None):
+    """A :class:`ScalarWriter` on rank 0 (or with no mesh), else a
+    :class:`NullWriter`."""
+    return ScalarWriter(log_dir) if mesh is None or mesh.is_main \
+        else NullWriter()

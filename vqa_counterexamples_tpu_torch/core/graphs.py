@@ -24,6 +24,16 @@ generators are snapshotted before it and restored bit for bit before the
 capture, so the first replay is the first step.  A capture that fails
 raises with its CUDA error; there is no eager fallback on a card.
 
+Under a mesh (``parallel/``) a step's body runs collectives (the
+gradients' all-reduce).  NCCL's collectives are captured in the graph: the
+eager warm-up creates the communicator before the capture.  Gloo's cannot
+be captured: a step under a gloo mesh runs eagerly (``capture=True`` is
+refused there), and :attr:`GraphedStep.eager_reason` says why.  A meshed
+step captures in thread-local mode, since NCCL's threads query events
+meanwhile; a step with no mesh keeps the global mode, and in a process
+that has had an NCCL group one such capture was seen invalidated (on an
+H100): give such a process's steps its mesh.
+
 A graph holds the addresses of the parameters and of the optimizer's
 state.  Before each replay the step compares them with those it captured
 and captures again where one moved (``Optimizer.load_state_dict``
@@ -206,16 +216,28 @@ class GraphedStep:
     addresses checked before each replay); None for a step that trains
     nothing.  ``capture``: None captures on a CUDA device and runs eagerly
     elsewhere.  ``counters``: the launch counters of the kernels the body
-    runs (``ops/cuda.launch_counters``)."""
+    runs (``ops/cuda.launch_counters``).  ``mesh``: the ``parallel.Mesh``
+    whose collectives the body runs, or None."""
 
     def __init__(self, body, device, *, generators=None, optimizer=None,
-                 capture=None, counters=()):
+                 capture=None, counters=(), mesh=None):
         self.body = body
         self.device = torch.device(device)
         self.generators = generators
         self.optimizer = optimizer
-        self.capture = (self.device.type == "cuda" if capture is None
-                        else bool(capture))
+        gloo = mesh is not None and mesh.backend == "gloo"
+        if gloo and capture:
+            raise ValueError("a step under a gloo mesh cannot be captured: "
+                             "gloo's collectives run on the host (build it "
+                             "with capture=False, or use NCCL)")
+        self.capture = (self.device.type == "cuda" and not gloo
+                        if capture is None else bool(capture))
+        self.eager_reason = ("gloo's collectives cannot be captured"
+                             if gloo and self.device.type == "cuda" else None)
+        # NCCL's watchdog thread queries events while a capture runs: a
+        # meshed step's capture checks only this thread's calls
+        self._capture_kw = ({} if mesh is None
+                            else {"capture_error_mode": "thread_local"})
         if self.capture and self.device.type != "cuda":
             raise ValueError("a CUDA graph needs a CUDA device, got %s"
                              % self.device)
@@ -288,7 +310,7 @@ class GraphedStep:
         graph = torch.cuda.CUDAGraph()
         for gen in (self.generators.values() if self.generators else ()):
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, stream=stream):
+        with torch.cuda.graph(graph, stream=stream, **self._capture_kw):
             out = self.body(static.tensors, *tables)
             names = tuple(out)
             packed = torch.stack([out[n].float() for n in names])

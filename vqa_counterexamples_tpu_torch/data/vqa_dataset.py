@@ -23,6 +23,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..parallel.sharding import corpus_rows
 from .features import FeatureStore
 
 # host threads that copy one batch's att-map rows into a pinned buffer
@@ -75,7 +76,7 @@ class VQAArrays:
                 rng: np.random.Generator | None = None,
                 drop_remainder: bool = False,
                 device_features: torch.Tensor | None = None,
-                device=None) -> Iterator[dict]:
+                device=None, part: tuple | None = None) -> Iterator[dict]:
         """Yield {visual, question, answer, question_id} batches (numpy,
         but ``visual`` a tensor when it is gathered or copied to a device).
 
@@ -88,7 +89,13 @@ class VQAArrays:
         consuming stream waits for, and a buffer refilled only after its
         copy has finished.  Answers are sampled in
         batch order on the calling thread, so the ``rng`` draws are the
-        same on every path."""
+        same on every path.
+
+        ``part=(i, n)``: only the i-th of n row ranges of each batch
+        (``parallel.corpus_rows``' split: a data-parallel rank's rows);
+        the answers are still sampled for the whole batch, so the draws
+        are those of the whole, and the batch's ``rows`` entry holds
+        (first row, batch size)."""
         rng = rng or np.random.default_rng()
         order = np.arange(self.size)
         if shuffle:
@@ -97,12 +104,26 @@ class VQAArrays:
         if drop_remainder:
             starts = [s for s in starts if s + batch_size <= self.size]
 
+        def span(s):
+            """Rows [lo, hi) of the batch at ``s`` that this pass yields
+            and the batch's size."""
+            size = min(batch_size, self.size - s)
+            if part is None:
+                return 0, size, size
+            lo, hi = corpus_rows(size, part[1])[part[0]]
+            return lo, hi, size
+
         def assemble(s, visual):
             idx = order[s:s + batch_size]
-            return {"question": self.question_wids[idx],
-                    "answer": self.sample_answers(idx, rng),
-                    "question_id": self.question_ids[idx],
-                    "visual": visual}
+            answers = self.sample_answers(idx, rng)
+            lo, hi, size = span(s)
+            out = {"question": self.question_wids[idx][lo:hi],
+                   "answer": answers[lo:hi],
+                   "question_id": self.question_ids[idx][lo:hi],
+                   "visual": visual}
+            if part is not None:
+                out["rows"] = (lo, size)
+            return out
 
         if device_features is not None:
             # the pass's row order goes to the device once: a batch's rows
@@ -112,12 +133,14 @@ class VQAArrays:
             rows_dev = torch.from_numpy(
                 self.image_rows[order].astype(np.int64)).to(dev)
             for s in starts:
+                lo, hi, _ = span(s)
                 yield assemble(s, device_features.index_select(
-                    0, rows_dev[s:s + batch_size]))
+                    0, rows_dev[s + lo:s + hi]))
             return
         if not starts:
             return
-        rows = [self.image_rows[order[s:s + batch_size]] for s in starts]
+        rows = [self.image_rows[order[s + span(s)[0]:s + span(s)[1]]]
+                for s in starts]
         if device is not None and torch.device(device).type == "cuda":
             yield from self._pinned_batches(starts, rows, assemble,
                                             torch.device(device))

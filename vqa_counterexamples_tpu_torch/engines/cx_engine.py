@@ -25,6 +25,20 @@ index arrays and ``n_valid`` are copied into the step's own buffers and
 the graph is replayed.  ``make_cx_train_scan`` runs S steps a call (S
 replays), as JAX's ``lax.scan`` trainer runs S steps a dispatch.  On the
 CPU, or with ``capture=False``, the same step bodies run eagerly.
+
+Under a mesh (``parallel/``; the steps' ``mesh=``) every rank builds the
+same global batch and a step takes its rows (``parallel.shard_batch``):
+the loss is the rank's masked sum over the *global* ``n_valid``, the
+padded tail masked by global row, the dropout and lesion draws made at the
+global batch's shape (``core/rng.global_batch``), and one all-reduce over
+the data group sums the gradients and the metrics before Adam steps, so
+every rank steps the same numbers.  With ``model=M > 1`` the feature
+matrix and the v table come row-sharded (``parallel.RowShard``): a step
+gathers its batch's rows by global index (``parallel.sharded_gather``)
+into a compact table, and the vfeat kernels read that table with the
+indices renumbered.  An eval pass all-reduces its per-batch sums once, at
+the end.  Under NCCL the steps stay captured (the all-reduce inside the
+graph); under gloo they run eagerly and say so.
 """
 
 from __future__ import annotations
@@ -41,6 +55,9 @@ from ..core import rng as rng_lib
 from ..data import vqacx
 from ..ops.cuda import launch_counters
 from ..ops.metrics import nll, recall_at_k
+from ..parallel import RowShard, sharded_gather
+from ..parallel.sharding import (all_reduce_grads, batch_split,
+                                 report_eager, shard_batch)
 
 
 def init_cx_params(model: torch.nn.Module, seed: int = 42
@@ -248,9 +265,24 @@ def _pass_table(model, use_z_cache: bool) -> bool:
 
 
 def _model_inputs(model, features, batch, pass_table, q_table, v_table,
-                  z_table):
+                  z_table, mesh=None):
     """(image_features, kwargs) for the model: the table form or the
-    materialized gather, plus the cache rows."""
+    materialized gather, plus the cache rows.  Over a row-sharded corpus
+    (``model`` > 1) the batch's rows are gathered first, into a compact
+    table that the table form reads by renumbered indices."""
+    if mesh is not None and mesh.size("model") > 1:
+        idx, start = batch["image_idxs"], batch["row_start"]
+        kw = cache_kwargs(batch, q_table, None, z_table)
+        if v_table is not None:
+            kw["v_proj"] = sharded_gather(v_table, idx, mesh, "model", start)
+        table = sharded_gather(features, idx.reshape(-1), mesh, "model",
+                               start)
+        if pass_table:
+            kw.update(features_table=table, image_idxs=torch.arange(
+                table.shape[0], dtype=idx.dtype,
+                device=idx.device).view(idx.shape))
+            return None, kw
+        return table.view(tuple(idx.shape) + tuple(table.shape[1:])), kw
     kw = cache_kwargs(batch, q_table, v_table, z_table)
     if pass_table:
         kw.update(features_table=features, image_idxs=batch["image_idxs"])
@@ -258,16 +290,34 @@ def _model_inputs(model, features, batch, pass_table, q_table, v_table,
     return features[batch["image_idxs"].long()], kw
 
 
-def _valid_mask(comp, n_valid):
-    """1.0 for the first ``n_valid`` rows, 0.0 for the padded tail."""
-    return (torch.arange(comp.shape[0], device=comp.device)
-            < n_valid).float()
+def _valid_mask(comp, n_valid, row0: int = 0):
+    """1.0 for the first ``n_valid`` rows, 0.0 for the padded tail;
+    ``row0``: the global index of the first of these rows."""
+    rows = torch.arange(comp.shape[0], device=comp.device)
+    if row0:
+        rows = rows + row0
+    return (rows < n_valid).float()
+
+
+def mesh_inputs(batch, n_valid, tables, mesh):
+    """A step's inputs and tables under ``mesh``: this rank's rows of the
+    batch and, for row-sharded tables, their rows and the shard's first
+    global row (``row_start``, read on the device)."""
+    inputs = step_inputs(batch if mesh is None else shard_batch(batch, mesh),
+                         n_valid)
+    out = []
+    for t in tables:
+        if isinstance(t, RowShard):
+            inputs["row_start"] = np.int64(t.start)
+            t = t.rows
+        out.append(t)
+    return inputs, tuple(out)
 
 
 def make_cx_train_step(model, optimizer, *, recall_k: int = 5,
                        base_seed: int = 42, extra_apply_args: tuple = (),
                        use_z_cache: bool = False,
-                       capture: bool | None = None):
+                       capture: bool | None = None, mesh=None):
     """Returns ``train_step(state, features, batch, n_valid, q_table=None,
     v_table=None, z_table=None)`` -> ``(state, metrics)``.
 
@@ -290,7 +340,11 @@ def make_cx_train_step(model, optimizer, *, recall_k: int = 5,
     it eagerly on the CPU (``core/graphs``); False runs it eagerly
     anywhere.  Whether the model takes the feature table + row indices
     (the vfeat kernels, which need the z cache) is resolved here, at build
-    time."""
+    time.
+
+    ``mesh``: a ``parallel.Mesh``; the step then takes the global batch
+    and trains on this rank's rows (see the module docstring); the
+    features and v table may be ``parallel.RowShard``s."""
     refuse_caches(model, use_z_cache)
     pass_table = _pass_table(model, use_z_cache)
     gens = rng_lib.StepGenerators(("dropout", "lesion"), _device(model))
@@ -298,40 +352,51 @@ def make_cx_train_step(model, optimizer, *, recall_k: int = 5,
 
     def body(batch, features, q_table, v_table, z_table, *extra_args):
         model.train()
-        image_features, kw = _model_inputs(model, features, batch,
-                                           pass_table, q_table, v_table,
-                                           z_table)
-        scores = model(image_features, batch["question_wids"],
-                       batch["answer_aids"], *extra_args,
-                       dropout_gen=gens["dropout"],
-                       lesion_gen=gens["lesion"], **kw)
         comp = batch["comp_idxs"]
-        mask = _valid_mask(comp, batch["n_valid"])
+        row0, draws = batch_split(mesh, comp.shape[0])
+        with draws:
+            image_features, kw = _model_inputs(model, features, batch,
+                                               pass_table, q_table, v_table,
+                                               z_table, mesh)
+            scores = model(image_features, batch["question_wids"],
+                           batch["answer_aids"], *extra_args,
+                           dropout_gen=gens["dropout"],
+                           lesion_gen=gens["lesion"], **kw)
+        mask = _valid_mask(comp, batch["n_valid"], row0)
         loss = (torch.sum(nll(scores, comp) * mask)
                 / batch["n_valid"].float())
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        optimizer.step()
+        if mesh is None:
+            optimizer.step()
         k = min(recall_k, scores.shape[-1])
-        hits = recall_at_k(scores.detach(), comp, k=k) * mask
-        return {"loss": loss.detach(), "correct": torch.sum(hits)}
+        correct = torch.sum(recall_at_k(scores.detach(), comp, k=k) * mask)
+        loss = loss.detach()
+        if mesh is not None:
+            loss, correct = all_reduce_grads(optimizer, mesh, (loss, correct))
+            optimizer.step()
+        return {"loss": loss, "correct": correct}
 
     run = graphs.GraphedStep(body, _device(model), generators=gens,
                              optimizer=optimizer, capture=capture,
-                             counters=launch_counters().values())
+                             counters=launch_counters().values(), mesh=mesh)
+    if mesh is not None:
+        report_eager(run, "the CX train step", mesh)
 
     def train_step(state: CXTrainState, features, batch, n_valid,
                    q_table=None, v_table=None, z_table=None):
         refuse_caches(model, any(t is not None
                                  for t in (q_table, v_table, z_table)))
-        metrics = run(step_inputs(batch, n_valid),
-                      (features, q_table, v_table, z_table) + extra,
-                      seed=base_seed, step=state.step)
+        inputs, tables = mesh_inputs(batch, n_valid, (features, q_table,
+                                                      v_table, z_table), mesh)
+        metrics = run(inputs, tables + extra, seed=base_seed,
+                      step=state.step)
         state.step += 1
         metrics["n"] = float(n_valid)
         return state, metrics
 
     train_step.graphed = run
+    train_step.mesh = mesh
     return train_step
 
 
@@ -365,7 +430,7 @@ def make_cx_train_scan(train_step):
 def make_cx_eval_step(model, *, recall_k: int = 5, base_seed: int = 123,
                       extra_apply_args: tuple = (),
                       use_z_cache: bool = False,
-                      capture: bool | None = None):
+                      capture: bool | None = None, mesh=None):
     """Returns ``eval_step(features, batch, n_valid, step, q_table=None,
     v_table=None, z_table=None)`` -> summed CE loss and recall@K / @1 hit
     counts over the first ``n_valid`` rows, as 0-d device tensors.  The
@@ -376,7 +441,8 @@ def make_cx_eval_step(model, *, recall_k: int = 5, base_seed: int = 123,
     ``extra_apply_args`` and ``capture`` as in :func:`make_cx_train_step`:
     a graph per batch layout and table set.  Whether the model takes the
     feature table + row indices (the candidate image-feature kernel, which
-    needs the z cache) is resolved here, at build time."""
+    needs the z cache) is resolved here, at build time.  Under ``mesh``
+    the sums are this rank's rows' (``eval_model`` adds the ranks')."""
     refuse_caches(model, use_z_cache)
     pass_table = _pass_table(model, use_z_cache)
     gens = rng_lib.StepGenerators(("lesion",), _device(model))
@@ -385,14 +451,16 @@ def make_cx_eval_step(model, *, recall_k: int = 5, base_seed: int = 123,
     @torch.no_grad()
     def body(batch, features, q_table, v_table, z_table, *extra_args):
         model.eval()
-        image_features, kw = _model_inputs(model, features, batch,
-                                           pass_table, q_table, v_table,
-                                           z_table)
-        scores = model(image_features, batch["question_wids"],
-                       batch["answer_aids"], *extra_args,
-                       lesion_gen=gens["lesion"], **kw)
         comp = batch["comp_idxs"]
-        mask = _valid_mask(comp, batch["n_valid"])
+        row0, draws = batch_split(mesh, comp.shape[0])
+        with draws:
+            image_features, kw = _model_inputs(model, features, batch,
+                                               pass_table, q_table, v_table,
+                                               z_table, mesh)
+            scores = model(image_features, batch["question_wids"],
+                           batch["answer_aids"], *extra_args,
+                           lesion_gen=gens["lesion"], **kw)
+        mask = _valid_mask(comp, batch["n_valid"], row0)
         k = min(recall_k, scores.shape[-1])
         return {"loss_sum": torch.sum(nll(scores, comp) * mask),
                 "correct": torch.sum(recall_at_k(scores, comp, k=k) * mask),
@@ -400,24 +468,28 @@ def make_cx_eval_step(model, *, recall_k: int = 5, base_seed: int = 123,
 
     run = graphs.GraphedStep(body, _device(model), generators=gens,
                              capture=capture,
-                             counters=launch_counters().values())
+                             counters=launch_counters().values(), mesh=mesh)
+    if mesh is not None:
+        report_eager(run, "the CX eval step", mesh)
 
     def eval_step(features, batch, n_valid, step, q_table=None,
                   v_table=None, z_table=None):
         refuse_caches(model, any(t is not None
                                  for t in (q_table, v_table, z_table)))
-        return run(step_inputs(batch, n_valid),
-                   (features, q_table, v_table, z_table) + extra,
-                   seed=base_seed, step=step)
+        inputs, tables = mesh_inputs(batch, n_valid, (features, q_table,
+                                                      v_table, z_table), mesh)
+        return run(inputs, tables + extra, seed=base_seed, step=step)
 
     eval_step.graphed = run
+    eval_step.mesh = mesh
     return eval_step
 
 
-def _eval_sums(eval_step, features, arrays, batch_size, tables) -> tuple:
+def eval_sums(eval_step, features, arrays, batch_size, tables) -> tuple:
     """Every batch through ``eval_step`` -> (f32 per-batch sums of
     loss_sum / correct / correct1 (n_batches, 3) on the host, n_total).
-    The sums stay on the device until one synchronisation at the end."""
+    The sums stay on the device until one synchronisation at the end; under
+    a mesh the ranks' sums are added there, in one all-reduce."""
     keys = ("loss_sum", "correct", "correct1")
     sums = []
     n_total = 0
@@ -427,7 +499,11 @@ def _eval_sums(eval_step, features, arrays, batch_size, tables) -> tuple:
                         step, **tables)
         sums.append(torch.stack([out[k].float() for k in keys]))
         n_total += n_valid
-    return torch.stack(sums).cpu().numpy(), n_total
+    rows = torch.stack(sums)
+    mesh = getattr(eval_step, "mesh", None)
+    if mesh is not None:
+        mesh.all_reduce(rows, "data")
+    return rows.cpu().numpy(), n_total
 
 
 def eval_model(eval_step, features, arrays: vqacx.CXArrays,
@@ -440,7 +516,7 @@ def eval_model(eval_step, features, arrays: vqacx.CXArrays,
     ``arrays.pairwise_view(rng)`` (``rng`` defaults to
     ``default_rng(123)``), both divided by the main pass's example count
     (JAX ``cx_engine.py:792-807``)."""
-    rows, n_total = _eval_sums(eval_step, features, arrays, batch_size,
+    rows, n_total = eval_sums(eval_step, features, arrays, batch_size,
                                dict(q_table=q_table, v_table=v_table,
                                     z_table=z_table))
     # f32 sums in batch order, as the JAX engine adds its batches' sums
@@ -451,7 +527,7 @@ def eval_model(eval_step, features, arrays: vqacx.CXArrays,
         if pairwise_eval_step is None:
             raise ValueError("pairwise eval needs pairwise_eval_step")
         view = arrays.pairwise_view(rng or np.random.default_rng(123))
-        prows, _ = _eval_sums(pairwise_eval_step, features, view,
+        prows, _ = eval_sums(pairwise_eval_step, features, view,
                               batch_size, {})
         # float64 sums of the per-batch values, as JAX's ``float(...) +=``
         results["loss_pairwise"] = (sum(float(x) for x in prows[:, 0])
@@ -482,7 +558,8 @@ def train_epoch(train_step, state: CXTrainState, features,
     over ``train_step``; full groups of ``scan_len`` batches go to it in
     one call, a short final group runs as single steps, as the JAX engine
     groups them.  The hooks then fire once per group, at the group's last
-    batch, with its last step's metrics."""
+    batch, with its last step's metrics.  Under a mesh (a step built with
+    ``mesh=``) the scan is ignored, as the JAX engine ignores it."""
     rng = rng or np.random.default_rng()
     if pairwise and z_table is not None:
         raise ValueError("z_table rows are per fixed candidate list; "
@@ -493,7 +570,8 @@ def train_epoch(train_step, state: CXTrainState, features,
     eval_results = None
     t0 = time.time()
     n_seen = 0
-    use_scan = scan_step is not None and scan_len > 1
+    use_scan = (scan_step is not None and scan_len > 1
+                and getattr(train_step, "mesh", None) is None)
     pending = []   # (batch, n_valid) held for the next scan call
 
     def fire_hooks(b, metrics, n_valid):

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import rng as rng_lib
 from ..core.policy import cast_in, compute_dtype
 from ..ops import scorer as scorer_ops
 from ..ops.cuda.vfeat_kernel import vfeat_scores
@@ -60,7 +61,8 @@ def _uniform(gen: torch.Generator | None, shape) -> torch.Tensor:
     if gen is None:
         raise ValueError("a lesioned model_spec draws placeholders: pass "
                          "lesion_gen")
-    return torch.rand(tuple(shape), generator=gen, device=gen.device)
+    return rng_lib.global_draw(shape, lambda s: torch.rand(
+        s, generator=gen, device=gen.device))
 
 
 def _at_answer(x: torch.Tensor, answer_aids: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,10 @@ Each ``csrc/<name>.cu`` is a self-contained translation unit with a plain C
 interface (no PyTorch headers, so a build takes seconds).  At first use it
 is compiled for ``sm_90a`` into ``vqa_counterexamples_tpu_torch/_build/``
 under a name keyed by the hash of its sources and flags, so an edited
-source rebuilds and an unchanged one is reused.  The ``-Xptxas -v`` report
-(registers, shared memory, spills per kernel) is kept beside the library
-as ``lib<name>_<hash>.log``.
+source rebuilds and an unchanged one is reused; a file lock per library
+lets one process build it while the others (a run's ranks) wait.  The
+``-Xptxas -v`` report (registers, shared memory, spills per kernel) is
+kept beside the library as ``lib<name>_<hash>.log``.
 
 Nothing here runs at import time: the CPU tests import every module, on
 hosts that may have no ``nvcc``.
@@ -16,6 +17,7 @@ hosts that may have no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -55,16 +57,22 @@ def build(name: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(".so.tmp%d" % os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC_DIR / ("%s.cu" % name))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed for %s.cu (rc %d):\n%s"
-                           % (name, proc.returncode, proc.stderr[-4000:]))
-    os.replace(tmp, out)
+    # one build per library: the ranks of a run start together
+    with open(BUILD_DIR / ("%s.lock" % name), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():       # another process built it while we waited
+            return out
+        tmp = out.with_suffix(".so.tmp%d" % os.getpid())
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / ("%s.cu" % name))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        out.with_suffix(".log").write_text(
+            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed for %s.cu (rc %d):\n%s"
+                               % (name, proc.returncode,
+                                  proc.stderr[-4000:]))
+        os.replace(tmp, out)
     return out
 
 

@@ -70,9 +70,9 @@ def variational_masks(generator: torch.Generator, dropout: float,
     input mask is drawn first, then the state mask, from ``generator``."""
     lead = (3,) if per_gate else ()
     keep_x, scale_x = rng_lib.keep_mask(lead + (batch, dim_in),
-                                        1.0 - dropout, generator)
+                                        1.0 - dropout, generator, len(lead))
     keep_h, scale_h = rng_lib.keep_mask(lead + (batch, dim_h),
-                                        1.0 - dropout, generator)
+                                        1.0 - dropout, generator, len(lead))
     return keep_x.float() * scale_x, keep_h.float() * scale_h
 
 
