@@ -211,6 +211,34 @@ ends the run with a nonzero exit and no result line.
    160 synthetic images, B 80: the ``.npy``, ``.att.npy`` and ``.txt``
    byte-equal to a one-rank run's.  Ranks that are processes start in
    ``spawn`` mode and import this script as their main module.
+16. The JAX package's checkpoint files, viz, ``--approx`` and the
+   ablation grid: (a) with a one-rank NCCL group alive in this process,
+   phase 3's epoch of captured CX steps with no mesh against eager ones
+   (bit-equal, equal evals and launch counts) and a served bucket's
+   ``GraphedCall`` against eager (bit-equal, the GRU and MUTAN once);
+   (b) ``cli.counterexamples --synthetic 2048 --z_cache -b 768`` trains 2
+   epochs, then ``--resume`` runs epoch 3 from the msgpack ``ckpt/``:
+   the state it loads bit-equal to the state saved after epoch 2 (every
+   parameter, Adam's count and moments, the step), epoch 3 captured, the
+   launch counts of both runs exact; (c) ``cli.train`` on MutanNoAtt (B
+   512) resumed from its msgpack triple, the loaded state bit-equal to
+   the saved one and epoch 2's launches exact; MutanAtt trained by
+   ``cli.train`` and served from its triple (``create_server
+   --dir_logs``), a bucket's top-5 and maps bit-equal to an engine given
+   the trained weights in memory; (d) a reference-named CX state_dict
+   (the encoder in the genuine ``BayesianGRUCell``'s per-gate names)
+   through ``cli.port_checkpoint --kind cx`` and ``counterexamples
+   --init_params``: the CLI starts from exactly those weights, and a
+   model loaded from the file scores the val set as the weights loaded
+   directly; (e) ``viz/grids.rank_for_viz`` on 200 val examples (vfeat
+   and mixture once each) against the eval step's sums on the same
+   examples, then the render of two examples' grids, or the
+   ``ImportError`` naming matplotlib where the host has none; (f) the
+   kNN ``--approx`` route at 82,783 x 2048, k 25 (no kernel: the plain
+   scores, 41,472 bins of 2) against the kernel's exact route: recall of
+   at least 0.99, the seconds of both; (g) the 19-config ablation grid
+   (``scripts/run_ablations``) at 1 epoch and 512 examples, four CLIs at
+   once: rc 0 and a finite val loss each.
 
 Phase 1 also holds the folded MUTAN kernels (forward and backward, each
 with a bit-equal rerun) at MutanAtt's attention shape, the kNN kernel at
@@ -1597,9 +1625,10 @@ def phase_train_cli(dev):
     launches = read_counters()
     log("  files %s; ckpt_info %s; %d val rows; %d steps; launches %s"
         % (files, info, len(rows), state.step, launches))
-    want_files = ["best_info.json", "best_model.pt", "best_optim.pt",
-                  "ckpt_info.json", "ckpt_model.pt", "ckpt_optim.pt",
-                  "logger.json", "options.yaml"]
+    want_files = ["best_info.json", "best_model.msgpack",
+                  "best_optim.msgpack", "ckpt_info.json",
+                  "ckpt_model.msgpack", "ckpt_optim.msgpack", "logger.json",
+                  "options.yaml"]
     if files != want_files:
         raise AssertionError("run files %s, expected %s" % (files,
                                                             want_files))
@@ -1763,11 +1792,12 @@ def phase_att_cli(dev):
     launches = read_counters()
     log("  files %s; ckpt_info %s; %d val rows; %d steps; launches %s"
         % (files, info, len(rows), state.step, launches))
-    want_files = ["ckpt_info.json", "ckpt_model.pt", "ckpt_optim.pt",
-                  "logger.json", "options.yaml"]
+    want_files = ["ckpt_info.json", "ckpt_model.msgpack",
+                  "ckpt_optim.msgpack", "logger.json", "options.yaml"]
     if info["acc1"] > 0:   # a best epoch only when val acc@1 beat 0
-        want_files = sorted(want_files + ["best_info.json", "best_model.pt",
-                                          "best_optim.pt"])
+        want_files = sorted(want_files + ["best_info.json",
+                                          "best_model.msgpack",
+                                          "best_optim.msgpack"])
     if files != want_files:
         raise AssertionError("run files %s, expected %s" % (files,
                                                             want_files))
@@ -2409,7 +2439,9 @@ def phase_realdata(dev, card):
     from vqa_counterexamples_tpu_torch.cli import (
         build_answer_embedding, build_vqacx, counterexamples, knn,
         port_skipthoughts, preprocess, train)
+    from vqa_counterexamples_tpu_torch.core import msgpack_tree
     from vqa_counterexamples_tpu_torch.engines import cx_engine
+    from vqa_counterexamples_tpu_torch.models import from_jax
 
     log("== phase 12: the real-data pipeline at full width")
     torch.cuda.reset_peak_memory_stats()
@@ -2508,11 +2540,12 @@ def phase_realdata(dev, card):
                 or not np.isfinite(info["acc1"])):
             raise AssertionError("pretraining: %d steps, %s, %s"
                                  % (state.step, info, scores))
-        if not os.path.isfile(os.path.join(vqa_logs, "best_model.pt")):
+        if not os.path.isfile(os.path.join(vqa_logs,
+                                           "best_model.msgpack")):
             # a best checkpoint needs a val acc@1 above 0: save the last
             import shutil
 
-            for name in ("info.json", "model.pt", "optim.pt"):
+            for name in ("info.json", "model.msgpack", "optim.msgpack"):
                 shutil.copyfile(os.path.join(vqa_logs, "ckpt_" + name),
                                 os.path.join(vqa_logs, "best_" + name))
             log("  (val acc@1 0: ckpt_* copied to best_*)")
@@ -2609,8 +2642,8 @@ def phase_realdata(dev, card):
                 or not 0.0 <= res["recall_1"] <= res["recall"] <= 1.0):
             raise AssertionError("counterexamples: %s, %d cache builds"
                                  % (res, cb.builds))
-        best = torch.load(os.path.join(vqa_logs, "best_model.pt"),
-                          map_location="cpu", weights_only=True)
+        best = from_jax.vqa_state_dict_from_jax(msgpack_tree.load(
+            os.path.join(vqa_logs, "best_model.msgpack")))
         start = seen["start"]
         differ = [k for k, v in best.items()
                   if not torch.equal(start["vqa_model." + k].cpu(), v)]
@@ -3175,7 +3208,7 @@ def train_cli_run(config, n, batch_size, dev, kernels):
     log("  cli.train %s: %s, %d steps, files %s, %d %s rows; launches %s"
         % (os.path.basename(config), type(state.model).__name__, state.step,
            files, len(rows), split, launches))
-    if (not {"ckpt_info.json", "ckpt_model.pt", "ckpt_optim.pt",
+    if (not {"ckpt_info.json", "ckpt_model.msgpack", "ckpt_optim.msgpack",
              "logger.json"} <= set(files)
             or state.step != n // batch_size or not rows
             or min(launches[k] for k in kernels) <= 0):
@@ -4038,6 +4071,568 @@ def phase_parallel(dev, card, refs):
                                      seconds))
 
 
+# ---------------------------------------------------------------- phase 16
+
+def tree_bits_equal(what, got, want):
+    """Two checkpoint trees (numpy / None leaves, nested dicts): the same
+    keys and every leaf bit-equal."""
+    from vqa_counterexamples_tpu_torch.core.checkpoint import check_tree
+
+    check_tree(got, want, what)
+    differ = []
+
+    def walk(a, b, path):
+        if isinstance(b, dict):
+            for k in b:
+                walk(a[k], b[k], "%s/%s" % (path, k))
+        elif b is not None:
+            a, b = np.asarray(a), np.asarray(b)
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                differ.append(path)
+
+    walk(got, want, "")
+    n = [0]
+
+    def count(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                count(v)
+        elif t is not None:
+            n[0] += 1
+
+    count(want)
+    log("  %s: %d leaves, %s" % (what, n[0], "bit-equal" if not differ
+                                else "DIFFERENT: %s" % differ[:8]))
+    if differ:
+        raise AssertionError("%s: not bit-equal" % what)
+
+
+@contextlib.contextmanager
+def spied(module, name, after):
+    """``module.name`` wrapped: ``after(result, *args, **kwargs)`` runs
+    after each call."""
+    orig = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        after(out, *args, **kwargs)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def want_counts(**counts):
+    return {k: counts.get(k, 0) for k in SOURCES}
+
+
+def require_launches(what, want):
+    got = read_counters()
+    log("  %s: launches %s" % (what, got))
+    if got != want:
+        raise AssertionError("%s: launch counts %s, expected %s"
+                             % (what, got, want))
+
+
+def phase_repair(dev, card):
+    """16a: with an NCCL group alive, captures with no mesh (the CX step
+    at the flagship width and a serving bucket) against eager."""
+    from vqa_counterexamples_tpu_torch import parallel
+    from vqa_counterexamples_tpu_torch.core import graphs
+    from vqa_counterexamples_tpu_torch.data import synthetic
+    from vqa_counterexamples_tpu_torch.serve import demo_server
+
+    log("== phase 16a: captures with no mesh in a process with an NCCL "
+        "group")
+    t = time.perf_counter()
+    with torchrun_env(), parallel.mesh_from_env({"data": 1}, dev) as mesh:
+        if mesh.backend != "nccl" or graphs.capture_kwargs() != {
+                "capture_error_mode": "thread_local"}:
+            raise AssertionError("no NCCL group, or global capture mode")
+        cap = cx_epoch(dev, None)
+        eag = cx_epoch(dev, None, capture=False)
+        if not cap["step"].graphed.capture or eag["step"].graphed.capture:
+            raise AssertionError("the steps' capture modes are wrong")
+        hold_equal("CX train with no mesh beside an NCCL group, captured "
+                   "vs eager",
+                   (cap["rows"], cap["model"], cap["state"].optimizer),
+                   (eag["rows"], eag["model"], eag["state"].optimizer))
+        if cap["eval"] != eag["eval"] or cap["counts"] != eag["counts"]:
+            raise AssertionError("eval %s / launches %s vs eager %s / %s"
+                                 % (cap["eval"], cap["counts"], eag["eval"],
+                                    eag["counts"]))
+        del cap, eag
+        torch.cuda.empty_cache()
+        server = demo_server.create_server(["--path_opt", NOATT_CONFIG,
+                                            "--port", "0"])
+        try:
+            engine = server.engine
+            options = config_options(NOATT_CONFIG)
+            eager = demo_server.DemoEngine(
+                options, engine.vqa_model, engine.cnn,
+                *synthetic.synthetic_vocab(2000, options["vqa"]["nans"]),
+                False, capture=False)
+            rng = np.random.default_rng(SEED)
+            images = rng.integers(0, 256, (2, 448, 448, 3), dtype=np.uint8)
+            wids = rng.integers(1, 2001, (2, 26)).astype(np.int32)
+            reset_counters()
+            got = engine.predict_prepared(images, wids)
+            counts = read_counters()
+            want = eager.predict_prepared(images, wids)
+            if engine.n_graphs != 2 or not all(
+                    np.array_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("the served bucket differs from eager")
+            if counts != want_counts(gru=1, mutan=1):
+                raise AssertionError("served bucket launches %s" % counts)
+        finally:
+            server.server_close()
+    log("  serving bucket 2 (GraphedCall) beside the NCCL group: captured "
+        "bit-equal to eager, launches %s; 16a %.1f s (%s)"
+        % (counts, time.perf_counter() - t, card))
+    torch.cuda.empty_cache()
+
+
+def config_options(path):
+    from vqa_counterexamples_tpu_torch.core import config as config_lib
+
+    return config_lib.resolve_options({}, path, {})
+
+
+def cx_cli_model(seed):
+    """The CX CLI's model and data for ``--synthetic 2048`` at the default
+    YAML (the flagship widths over the CLI's 100 answers)."""
+    from types import SimpleNamespace
+
+    from vqa_counterexamples_tpu_torch.cli import counterexamples
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+    from vqa_counterexamples_tpu_torch.models import factory
+
+    data = counterexamples.load_synthetic_data(SimpleNamespace(seed=SEED),
+                                               2048)
+    trainset = data[0]
+    model = factory.cx_from_options(
+        "NeuralModel", config_options(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "configs", "cx",
+            "counterexamples_default.yaml")), trainset["vocab_words"],
+        trainset["vocab_answers"], knn_size=24)
+    return cx_engine.init_cx_params(model, seed=seed), data
+
+
+def phase_cx_resume(dev, card):
+    """16b: the CX flagship CLI trains 2 epochs, then ``--resume`` runs
+    epoch 3 from the msgpack ``ckpt/``: the loaded state bit-equal to the
+    state saved, epoch 3 captured with exact launch counts."""
+    from vqa_counterexamples_tpu_torch.cli import counterexamples
+    from vqa_counterexamples_tpu_torch.core import checkpoint
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+    log("== phase 16b: the CX flagship CLI resumed from its msgpack "
+        "checkpoint")
+    saved, loaded, steps = [], [], []
+    argv = ["--cx_model", "NeuralModel", "--synthetic", "2048", "--z_cache",
+            "-b", "768", "--seed", str(SEED), "--device", str(dev),
+            "--comment", "resume"]
+    with tempfile.TemporaryDirectory() as tmp, \
+            spied(checkpoint, "save_cx_checkpoint",
+                  lambda _, state, *a, **k: saved.append(
+                      checkpoint.cx_state_tree(state))), \
+            spied(checkpoint, "load_cx_checkpoint",
+                  lambda out, *a, **k: loaded.append(
+                      checkpoint.cx_state_tree(out[0]))), \
+            spied(cx_engine, "make_cx_train_step",
+                  lambda step, *a, **k: steps.append(step)):
+        t = time.perf_counter()
+        reset_counters()
+        counterexamples.main(argv + ["--epochs", "2", "--project_dir", tmp])
+        require_launches("2 epochs (3 steps and 1 val batch each)",
+                         want_counts(gru=2, vfeat=8, vfeat_bwd=6, mixture=8))
+        (run,) = os.listdir(os.path.join(tmp, "logs", "cx"))
+        files = sorted(os.listdir(os.path.join(tmp, "logs", "cx", run,
+                                               "ckpt")))
+        first_s = time.perf_counter() - t
+        t = time.perf_counter()
+        reset_counters()
+        info = counterexamples.main(argv + ["--epochs", "3", "--resume",
+                                            run, "--project_dir", tmp])
+        require_launches("--resume, epoch 3", want_counts(
+            gru=2, vfeat=4, vfeat_bwd=3, mixture=4))
+        size = os.path.getsize(os.path.join(tmp, "logs", "cx", run, "ckpt",
+                                            "model.ckpt"))
+    if files != ["info.ckpt", "model.ckpt"] or len(info) != 3:
+        raise AssertionError("run files %s, %d epochs" % (files, len(info)))
+    if len(saved) != 3 or len(loaded) != 1 or len(steps) != 2:
+        raise AssertionError("%d saves, %d loads, %d train steps"
+                             % (len(saved), len(loaded), len(steps)))
+    if steps[1].graphed.capture != (dev.type == "cuda") or (
+            dev.type == "cuda" and steps[1].graphed.n_graphs < 1):
+        raise AssertionError("epoch 3 did not run captured")
+    tree_bits_equal("CX state loaded by --resume vs the state saved after "
+                    "epoch 2 (params, Adam count / mu / nu, step)",
+                    loaded[0], saved[1])
+    if int(saved[1]["step"]) != 6 or int(
+            saved[1]["opt_state"]["0"]["count"]) != 6:
+        raise AssertionError("saved step %s" % saved[1]["step"])
+    if not all(np.isfinite(e["loss"]) for e in info):
+        raise AssertionError("non-finite val loss %s" % info)
+    log("  epochs 1-2 %.1f s, epoch 3 resumed %.1f s (caches, capture, "
+        "steps, eval, %.1f MB checkpoint); val %s (%s)"
+        % (first_s, time.perf_counter() - t, size / 1e6, info[-1], card))
+
+
+def vqa_state_trees(state):
+    from vqa_counterexamples_tpu_torch.models import to_jax
+
+    return {"model": to_jax.vqa_params(state.model),
+            "optim": to_jax.adam_state(state.model, state.optimizer,
+                                       to_jax.vqa_params),
+            "step": np.asarray(state.step, np.int32)}
+
+
+def write_vocab(root, words, answers):
+    import pickle
+
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "wid_to_word.pickle"), "wb") as f:
+        pickle.dump({i + 1: w for i, w in enumerate(words)}, f)
+    with open(os.path.join(root, "aid_to_ans.pickle"), "wb") as f:
+        pickle.dump(list(answers), f)
+
+
+def phase_vqa_resume(dev, card):
+    """16c: MutanNoAtt (B 512) resumed from its msgpack triple (the loaded
+    state bit-equal to the saved one); MutanAtt trained by ``cli.train``
+    and served from its triple, answers bit-equal to an engine given the
+    same weights in memory."""
+    from vqa_counterexamples_tpu_torch.cli import train
+    from vqa_counterexamples_tpu_torch.core import checkpoint
+    from vqa_counterexamples_tpu_torch.data import synthetic
+    from vqa_counterexamples_tpu_torch.serve import demo_server
+
+    log("== phase 16c: the VQA triple: MutanNoAtt resumed, MutanAtt served")
+    saved, loaded = [], []
+    argv = ["--path_opt", NOATT_CONFIG, "--synthetic", "2048", "-b", "512",
+            "--seed", str(SEED), "--device", str(dev)]
+    with tempfile.TemporaryDirectory() as tmp, \
+            spied(checkpoint, "save_vqa_checkpoint",
+                  lambda _, info, state, *a, **k: saved.append(
+                      vqa_state_trees(state))), \
+            spied(checkpoint, "load_vqa_checkpoint",
+                  lambda _, state, *a, **k: loaded.append(
+                      vqa_state_trees(state))):
+        t = time.perf_counter()
+        train.main(argv + ["--epochs", "1", "--dir_logs", tmp])
+        reset_counters()
+        state = train.main(argv + ["--epochs", "2", "--resume", "ckpt",
+                                   "--dir_logs", tmp])
+        # 4 train steps (per-gate GRU, its backward, MUTAN each) and 4 val
+        # batches (the GRU forward and MUTAN each)
+        require_launches("MutanNoAtt --resume ckpt, epoch 2", want_counts(
+            gru=4, gru_pg=4, gru_bwd=4, mutan=8))
+        files = sorted(n for n in os.listdir(tmp) if n.startswith("ckpt_"))
+    if files != ["ckpt_info.json", "ckpt_model.msgpack",
+                 "ckpt_optim.msgpack"] or state.step != 8:
+        raise AssertionError("files %s, step %d" % (files, state.step))
+    tree_bits_equal("MutanNoAtt state loaded by --resume vs the state saved "
+                    "after epoch 1 (params, Adam, step)", loaded[0],
+                    saved[0])
+    log("  MutanNoAtt: 2 CLI runs in %.1f s (%s)"
+        % (time.perf_counter() - t, card))
+
+    t = time.perf_counter()
+    options = config_options(ATT_CONFIG)
+    with tempfile.TemporaryDirectory() as tmp:
+        state = train.main(["--path_opt", ATT_CONFIG, "--synthetic", "1024",
+                            "--epochs", "1", "-b", "128", "--seed",
+                            str(SEED), "--device", str(dev), "--dir_logs",
+                            os.path.join(tmp, "run")])
+        _, _, words, answers = synthetic.make_synthetic_vqa(
+            1024, min(options["vqa"]["nans"], 50),
+            options["vqa"]["maxlength"], dim_v=options["model"]["dim_v"],
+            spatial=True, seed=SEED)
+        write_vocab(os.path.join(tmp, "vocab"), words, answers)
+        weights = {k: v.detach().clone()
+                   for k, v in state.model.state_dict().items()}
+        del state
+        torch.cuda.empty_cache()
+        served = demo_server.create_server([
+            "--path_opt", ATT_CONFIG, "--port", "0", "--vocab_path",
+            os.path.join(tmp, "vocab"), "--dir_logs",
+            os.path.join(tmp, "run")])
+        ref = demo_server.create_server([
+            "--path_opt", ATT_CONFIG, "--port", "0", "--vocab_path",
+            os.path.join(tmp, "vocab")])
+        try:
+            ref.engine.set_params(weights)
+            rng = np.random.default_rng(SEED + 3)
+            images = rng.integers(0, 256, (2, 448, 448, 3), dtype=np.uint8)
+            wids = rng.integers(1, len(words) + 1, (2, 26)).astype(np.int32)
+            reset_counters()
+            got = served.engine.predict_prepared(images, wids)
+            require_launches("MutanAtt served from the triple, bucket 2",
+                             want_counts(gru=1, mutan=1, attmutan=1))
+            want = ref.engine.predict_prepared(images, wids)
+        finally:
+            served.server_close()
+            ref.server_close()
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("the served top-5 differ from the engine "
+                             "holding the trained weights")
+    log("  MutanAtt: cli.train's triple served, top-5 ids / values and "
+        "maps of 2 items bit-equal to the engine holding the trained "
+        "weights; %.1f s (%s)" % (time.perf_counter() - t, card))
+    del served, ref
+    torch.cuda.empty_cache()
+
+
+def reference_names(state_dict):
+    """A CX ``state_dict`` of this port with the question encoder in the
+    reference's genuine ``BayesianGRUCell`` names (six per-gate Linears,
+    the recurrent ones without bias)."""
+    out = {}
+    for key, value in state_dict.items():
+        if ".seq2vec.gru_cell." not in key:
+            out[key] = value
+            continue
+        head, leaf = key.split(".seq2vec.gru_cell.")
+        cell = head + ".seq2vec.rnn.gru_cell.weight_"
+        side = leaf.split("_")[1]
+        gates = ("ir", "ii", "in") if side == "ih" else ("hr", "hi", "hn")
+        for gate, part in zip(gates, value.chunk(3, 0)):
+            if leaf.startswith("weight"):
+                out[cell + gate + ".weight"] = part.clone()
+            elif side == "ih":
+                out[cell + gate + ".bias"] = part.clone()
+            elif part.abs().max() != 0:
+                raise AssertionError("the reference's cell has no bias_hh")
+    return out
+
+
+def phase_port_init(dev, card):
+    """16d: ``port_checkpoint --kind cx`` on a reference-named state_dict,
+    then ``counterexamples --init_params``: the CLI starts from those
+    weights; a model loaded from the file scores as the same weights
+    loaded directly.  Returns that model and the CLI's val data."""
+    from vqa_counterexamples_tpu_torch.cli import (counterexamples,
+                                                   port_checkpoint)
+    from vqa_counterexamples_tpu_torch.core import checkpoint, msgpack_tree
+    from vqa_counterexamples_tpu_torch.data import vqacx
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+
+    log("== phase 16d: port_checkpoint -> --init_params")
+    t = time.perf_counter()
+    source, data = cx_cli_model(SEED + 7)
+    with torch.no_grad():
+        source.vqa_model.seq2vec.gru_cell.bias_hh.zero_()
+    ref_sd = reference_names(source.state_dict())
+    started = []
+    with tempfile.TemporaryDirectory() as tmp, \
+            spied(checkpoint, "load_cx_params",
+                  lambda _, model, *a, **k: started.append(
+                      {n: p.detach().cpu().clone()
+                       for n, p in model.named_parameters()})):
+        torch.save(ref_sd, os.path.join(tmp, "model.ckpt"))
+        params = os.path.join(tmp, "params.msgpack")
+        port_checkpoint.main(["--src", os.path.join(tmp, "model.ckpt"),
+                              "--kind", "cx", "--out", params])
+        tree = msgpack_tree.load(params)
+        reset_counters()
+        counterexamples.main([
+            "--cx_model", "NeuralModel", "--synthetic", "2048", "--z_cache",
+            "--epochs", "0", "--test", "-b", "768", "--seed", str(SEED),
+            "--device", str(dev), "--project_dir", tmp, "--init_params",
+            params])
+        # --epochs 0: the val and test caches (the GRU once each) and one
+        # test batch of 512
+        require_launches("--epochs 0 --test --init_params", want_counts(
+            gru=2, vfeat=1, mixture=1))
+        (run,) = os.listdir(os.path.join(tmp, "logs", "cx"))
+        with open(os.path.join(tmp, "logs", "cx", run,
+                               "final_results.txt")) as f:
+            res = json.loads(f.read())
+    (start,) = started
+    differ = [n for n, p in source.named_parameters()
+              if not torch.equal(start[n], p.detach())]
+    if differ:
+        raise AssertionError("--init_params started from other weights: %s"
+                             % differ[:5])
+    from_file, _ = cx_cli_model(SEED)
+    checkpoint.load_cx_params(from_file, tree)
+    direct = source.to(dev)
+    from_file.to(dev)
+    _, valset, _, _, f_val = data
+    arrays = vqacx.CXArrays.from_examples(valset["examples_list"],
+                                          f_val.name_to_index)
+    feats = f_val.to_device(dev)
+    scores = []
+    for model in (from_file, direct):
+        q, _, z, _ = cx_engine.build_frozen_caches(model, feats, arrays)
+        step = cx_engine.make_cx_eval_step(model, use_z_cache=True,
+                                           capture=False)
+        scores.append(cx_engine.eval_model(step, feats, arrays, 768,
+                                           q_table=q, z_table=z))
+    if scores[0] != scores[1] or not np.isfinite(res["loss"]):
+        raise AssertionError("scores from the ported file %s, from the "
+                             "weights loaded directly %s" % tuple(scores))
+    log("  the CLI started from the ported weights (%d tensors bit-equal); "
+        "val eval from the file %s == loaded directly; final_results %s; "
+        "%.1f s (%s)" % (len(start), scores[0], res,
+                         time.perf_counter() - t, card))
+    return from_file, arrays, feats, valset
+
+
+def phase_viz(dev, card, model, arrays, feats, valset):
+    """16e: ``rank_for_viz`` on the card against the eval step's sums on
+    the same 200 examples; the render (or matplotlib's absence)."""
+    from vqa_counterexamples_tpu_torch.data import vqacx
+    from vqa_counterexamples_tpu_torch.data.image_fixtures import (
+        FIXTURE_DIR, SHAPES)
+    from vqa_counterexamples_tpu_torch.engines import cx_engine
+    from vqa_counterexamples_tpu_torch.ops.metrics import nll, recall_at_k
+    from vqa_counterexamples_tpu_torch.viz import grids
+
+    log("== phase 16e: rank_for_viz and the grids")
+    t = time.perf_counter()
+    n = 200
+    sub = vqacx.CXArrays(*(a[:n] for a in arrays))
+    q, _, z, _ = cx_engine.build_frozen_caches(model, feats, sub)
+    if not model.wants_table_features():
+        raise AssertionError("the vfeat kernel's gate is off")
+    reset_counters()
+    ranking = grids.rank_for_viz(model, feats, sub, n, q_table=q, z_table=z)
+    require_launches("rank_for_viz of %d examples" % n,
+                     want_counts(vfeat=1, mixture=1))
+    rows, _ = cx_engine.eval_sums(cx_engine.make_cx_eval_step(
+        model, use_z_cache=True), feats, sub, n, dict(q_table=q, z_table=z))
+    scores = torch.from_numpy(ranking["scores"]).to(dev)
+    comp = torch.from_numpy(sub.comp_idxs).to(dev).long()
+    mine = [torch.sum(nll(scores, comp)).item(),
+            torch.sum(recall_at_k(scores, comp, k=5)).item(),
+            torch.sum(recall_at_k(scores, comp, k=1)).item()]
+    log("  rank_for_viz's scores: loss sum %.6f, recall@5 %d, recall@1 %d; "
+        "the eval step's: %.6f, %d, %d"
+        % (mine[0], mine[1], mine[2], *rows[0]))
+    if (mine[1:] != [float(x) for x in rows[0][1:]]
+            or abs(mine[0] - rows[0][0]) > 1e-5 * abs(rows[0][0])):
+        raise AssertionError("rank_for_viz's scores disagree with the eval "
+                             "step's")
+    if (ranking["order"].shape != (n, 24)
+            or ranking["top_aids"].shape != (n, 5, 3)
+            or not np.all(np.diff(-np.take_along_axis(
+                ranking["scores"], ranking["order"], 1), axis=1) >= 0)):
+        raise AssertionError("bad ranking shapes or order")
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "raw")
+        os.makedirs(raw)
+        few = dict(valset, examples_list=valset["examples_list"][:2])
+        for ex in few["examples_list"]:
+            for name in [ex["image_name"], ex["comp"]["image_name"],
+                         *ex["knns"]]:
+                if not os.path.exists(os.path.join(raw, name)):
+                    os.symlink(os.path.join(FIXTURE_DIR, SHAPES[0][0]),
+                               os.path.join(raw, name))
+        two = {k: (v[:2] if v is not None else None)
+               for k, v in ranking.items()}
+        try:
+            import matplotlib  # noqa: F401
+            has_mpl = True
+        except ImportError:
+            has_mpl = False
+        try:
+            grids.visualize_results(few, two, raw, tmp)
+            written = sorted(f for f in os.listdir(tmp)
+                             if f.endswith(".jpg"))
+            if not has_mpl or written != ["viz_knns_0.jpg", "viz_knns_1.jpg",
+                                          "viz_qa0.jpg", "viz_qa1.jpg"]:
+                raise AssertionError("the render wrote %s" % written)
+            what = "both grids of 2 examples written"
+        except ImportError as exc:
+            if has_mpl or "matplotlib" not in str(exc):
+                raise
+            what = "no matplotlib on this host: the render raised %r" % (
+                str(exc)[:80],)
+    log("  %s; 16e %.1f s (%s)" % (what, time.perf_counter() - t, card))
+
+
+def phase_approx(dev, card, n=82783):
+    """16f: ``--approx``'s route (the plain scores, the TPU's bins) at
+    COCO-train scale against the kernel's exact route."""
+    from vqa_counterexamples_tpu_torch.ops import topk
+
+    log("== phase 16f: kNN --approx at %d x 2048, k 25" % n)
+    feats = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (n, 2048), dtype=np.float32)).to(dev)
+    out, secs = {}, {}
+    for name, kw in (("kernel", dict(engine="cuda")),
+                     ("approx", dict(engine="plain", approx=True)),
+                     ("approx again", dict(engine="plain", approx=True))):
+        torch.cuda.synchronize()
+        reset_counters()
+        t = time.perf_counter()
+        out[name] = topk.knn(feats, k=25, device=dev, **kw)
+        secs[name] = time.perf_counter() - t
+        require_launches("kNN %s route" % name, want_counts(
+            knn=-(-n // 1024) if name == "kernel" else 0))
+    dist, idx = out["approx"]
+    if any(a.tobytes() != b.tobytes()
+           for a, b in zip(out["approx"], out["approx again"])):
+        raise AssertionError("the approx route is not deterministic")
+    exact = out["kernel"][1]
+    hits = (idx[:, :, None] == exact[:, None, :]).any(2).sum(1)
+    recall = hits.sum() / exact.size
+    bins = topk.approx_reduction_size(n, 25)
+    log("  recall against the kernel's exact result %.6f over %d queries "
+        "(%d bins of %d); seconds: approx %.3f / %.3f, kernel %.3f (%s)"
+        % (recall, n, bins[0], 1 << bins[1], secs["approx"],
+           secs["approx again"], secs["kernel"], card))
+    if recall < 0.99 or not (dist[:, 1:] >= dist[:, :-1]).all():
+        raise AssertionError("approx recall %.4f" % recall)
+    del feats
+    torch.cuda.empty_cache()
+
+
+def phase_ablations(dev, card):
+    """16g: the 19-config grid through the CLI, 1 epoch on 512 examples,
+    four CLIs at once: rc 0 and a finite val loss each."""
+    from vqa_counterexamples_tpu_torch.scripts import run_ablations
+
+    log("== phase 16g: the CX ablation grid (19 configs, 1 epoch, 512 "
+        "examples)")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(io.StringIO()):
+        rows = run_ablations.main(["--epochs", "1", "--synthetic", "512",
+                                   "--jobs", "4", "--device", str(dev),
+                                   "--timeout", "600", "--project_dir",
+                                   tmp])
+    for row in rows:
+        log("  %s" % json.dumps(row))
+    bad = [r["config"] for r in rows if not run_ablations.ok(r)]
+    if len(rows) != 19 or bad:
+        raise AssertionError("ablation grid: %d rows, failed %s"
+                             % (len(rows), bad))
+    log("  19 configs rc 0 with finite losses in %.1f s (%s)"
+        % (time.perf_counter() - t, card))
+
+
+def phase_bridge(dev, card):
+    """Phase 16: the checkpoint bridge, viz, --approx and the grid."""
+    t = time.perf_counter()
+    phase_repair(dev, card)
+    phase_cx_resume(dev, card)
+    phase_vqa_resume(dev, card)
+    model, arrays, feats, valset = phase_port_init(dev, card)
+    phase_viz(dev, card, model, arrays, feats, valset)
+    del model, feats
+    torch.cuda.empty_cache()
+    phase_approx(dev, card)
+    phase_ablations(dev, card)
+    log("  phase 16: %.1f s; %s" % (time.perf_counter() - t,
+                                    memory_line(card)))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -4064,6 +4659,7 @@ def main():
     phase_serve(dev, card)
     phase_mlb(dev, card)
     phase_parallel(dev, card, refs)
+    phase_bridge(dev, card)
     log("total %.1f s" % (time.perf_counter() - t0))
     # launches: each kernel's path; the CX training path (phase 3) runs
     # gru, vfeat, vfeat_bwd and mixture, MutanNoAtt pretraining (phase 5)

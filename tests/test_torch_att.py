@@ -686,7 +686,7 @@ def test_train_cli_mutan_att(tmp_path, monkeypatch):
     assert state.step == 4
     assert type(state.model).__name__ == "MutanAtt"
     names = sorted(os.listdir(logs))
-    for suffix in ("info.json", "model.pt", "optim.pt"):
+    for suffix in ("info.json", "model.msgpack", "optim.msgpack"):
         assert "ckpt_" + suffix in names
     logged = json.loads((logs / "logger.json").read_text())["logged"]
     assert set(logged["val"]["acc1"]) == {"1"}

@@ -1211,6 +1211,57 @@ def test_captured_serving_buckets_equal_eager(dev, monkeypatch, attention):
     assert captured.n_graphs == 4
 
 
+def test_unmeshed_captures_after_an_nccl_group_equal_eager(dev,
+                                                          monkeypatch):
+    """In one process: a one-rank NCCL group (torchrun's environment
+    faked) trains a meshed captured step; then, with the group alive and
+    again after it is destroyed, a captured CX train step with no mesh and
+    a serving bucket's ``GraphedCall`` each give their eager results bit
+    for bit (the capture is thread-local while the group exists)."""
+    import copy
+    import socket
+
+    from vqa_counterexamples_tpu_torch import parallel
+    from vqa_counterexamples_tpu_torch.core import graphs
+
+    monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+                 "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(k, v)
+
+    def unmeshed():
+        model, arrays, tables = _tiny_cx(dev)
+        eager_model = copy.deepcopy(model)
+        s_cap, m_cap, step, n_cap = _cx_run(model, arrays, tables, None)
+        s_eag, m_eag, _, n_eag = _cx_run(eager_model, arrays, tables, False)
+        assert step.graphed.capture and step.graphed.n_graphs == 1
+        assert m_cap == m_eag and n_cap == n_eag
+        _assert_same_training(model, s_cap.optimizer, eager_model,
+                              s_eag.optimizer)
+        captured = _serving_engine(dev, None)
+        eager = _serving_engine(dev, False)
+        images, wids = _serving_inputs(3, seed=5)
+        got = captured.predict_prepared(images, wids)
+        assert captured.n_graphs == 1
+        for a, b in zip(got, eager.predict_prepared(images, wids)):
+            assert np.array_equal(a, b)
+
+    with parallel.mesh_from_env({"data": 1}, dev) as mesh:
+        assert mesh.backend == "nccl"
+        model, arrays, tables = _tiny_cx(dev, seed=6)
+        _, _, step, _ = _cx_run(model, arrays, tables, None, mesh=mesh)
+        assert step.graphed.capture
+        assert graphs.capture_kwargs() == {
+            "capture_error_mode": "thread_local"}
+        unmeshed()
+    assert graphs.capture_kwargs() == {}
+    unmeshed()
+
+
 def test_captured_serving_from_many_threads(dev, monkeypatch):
     """Sixteen threads predicting at once on two buckets get what a lone
     caller gets, bit for bit (fill, replay and copy-out under the bucket's

@@ -134,13 +134,25 @@ def test_port_import_leaves_jax_out():
             "import vqa_counterexamples_tpu_torch.data.native_decoder\n"
             "import vqa_counterexamples_tpu_torch.data.image_fixtures\n"
             "import vqa_counterexamples_tpu_torch.core.graphs\n"
+            "import vqa_counterexamples_tpu_torch.core.msgpack_tree as mt\n"
+            "import vqa_counterexamples_tpu_torch.models.to_jax\n"
+            "import vqa_counterexamples_tpu_torch.models.from_reference\n"
+            "import vqa_counterexamples_tpu_torch.cli.port_checkpoint\n"
+            "import vqa_counterexamples_tpu_torch.cli.visu\n"
+            "import vqa_counterexamples_tpu_torch.viz.curves\n"
+            "import vqa_counterexamples_tpu_torch.viz.grids\n"
+            "import vqa_counterexamples_tpu_torch.utils\n"
+            "import vqa_counterexamples_tpu_torch.scripts.run_ablations as r\n"
+            "mt.unpack(mt.pack({'a': [1, 2.5, None, 'x']}))\n"
+            "r.build_parser()\n"
             "c.build_parser()\n"
             "t.build_parser()\n"
             "k.build_parser()\n"
             "e.build_parser()\n"
             "d.build_parser()\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'vqa_counterexamples_tpu'))\n"
+            "('jax', 'flax', 'optax', 'msgpack', "
+            "'vqa_counterexamples_tpu'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ)

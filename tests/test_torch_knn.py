@@ -181,16 +181,23 @@ def test_knn_windows_match_jax_chunking():
 
 
 def test_knn_refuses_what_is_not_ported(monkeypatch):
-    """``approx`` is still refused; a corpus sharded over a mesh runs now
-    (two gloo ranks: the one-rank result bit for bit), and refuses shards
-    of fewer than k rows, as JAX's does."""
+    """``approx`` runs on the plain route (at 20 rows nothing is reduced:
+    the exact result) and raises ``ValueError`` naming ``--engine plain``
+    on the kernel's route and under a mesh, where JAX ignores it; a corpus
+    sharded over a mesh runs (two gloo ranks: the one-rank result bit for
+    bit), and refuses shards of fewer than k rows, as JAX's does."""
     from vqa_counterexamples_tpu_torch import parallel
 
     import torch_parallel_ranks
 
     corpus = _corpus(20, 4, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_topk.knn(corpus, k=3, approx=True)
+    with pytest.raises(ValueError, match="--engine plain"):
+        port_topk.knn(corpus, k=3, approx=True, device="cpu")
+    exact = port_topk.knn(corpus, k=3, engine="plain", device="cpu")
+    approx = port_topk.knn(corpus, k=3, engine="plain", approx=True,
+                           device="cpu")
+    for a, b in zip(approx, exact):
+        assert a.tobytes() == b.tobytes()
     monkeypatch.setenv("VQACX_DIST_TIMEOUT", "120")
     ref = port_topk.knn(corpus, k=3, device="cpu")
     got = parallel.spawn(torch_parallel_ranks.knn_run,
@@ -325,9 +332,18 @@ def test_knn_cli_device_rule_and_unported_flags(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         port_knn_cli.main(["--path_features", prefix])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --approx: the plain route's files at 30 rows (nothing reduced), and
+    # a ValueError naming --engine plain on the kernel's route
+    with pytest.raises(ValueError, match="--engine plain"):
         port_knn_cli.main(["--path_features", prefix, "--device", "cpu",
                            "--approx"])
+    files = []
+    for extra in ([], ["--approx"]):
+        out = str(tmp_path / ("approx.npy" if extra else "exact.npy"))
+        port_knn_cli.main(["--path_features", prefix, "--device", "cpu",
+                           "--engine", "plain", "--out", out] + extra)
+        files.append(open(out, "rb").read())
+    assert files[0] == files[1]
     # --mesh and --distributed run now: the .npy and the json byte for
     # byte the one-rank run's
     monkeypatch.setenv("VQACX_DIST_TIMEOUT", "120")
@@ -351,3 +367,75 @@ def test_knn_cli_device_rule_and_unported_flags(tmp_path, monkeypatch):
         outs[name] = [(tmp_path / (name + s)).read_bytes()
                       for s in (".npy", ".json")]
     assert outs["mesh"] == outs["one"] == outs["distributed"]
+
+
+# ------------------------------------------------------------------ approx
+
+def test_approx_reduction_size_matches_jaxlib():
+    """``approx_reduction_size`` is XLA's
+    ``ApproxTopKReductionOutputSize`` (rank 2, aggregate_to_topk False)
+    on a grid of sizes, k and recall targets."""
+    from jax._src.lib import _jax
+
+    rng = np.random.default_rng(0)
+    sizes = [1, 128, 129, 1000, 1025, 32768, 47975, 47976, 65536, 82783,
+             *rng.integers(1, 3_000_000, 25).tolist(),
+             *range(120, 2200, 37)]
+    for n in sizes:
+        for k in (1, 2, 5, 25, 100, 1000):
+            for recall in (0.5, 0.9, 0.95, 0.99, 0.999):
+                want = _jax.approx_top_k_reduction_output_size(
+                    n, 2, k, recall, False)
+                assert port_topk.approx_reduction_size(
+                    n, k, recall) == tuple(want), (n, k, recall)
+    assert port_topk.approx_reduction_size(82783, 25) == (41472, 1)
+    assert port_topk.approx_reduction_size(65536, 25) == (32768, 1)
+    assert port_topk.approx_reduction_size(32768, 25) == (32768, 0)
+
+
+@pytest.fixture(scope="module")
+def gaussian():
+    """512 queries of a Gaussian corpus of 65,536 x 64 (the formula halves
+    it to 32,768 bins at k 25), exact and approximate."""
+    rng = np.random.default_rng(1)
+    corpus = torch.from_numpy(rng.normal(size=(65536, 64)).astype(
+        np.float32))
+    queries = corpus[:512]
+    exact = knn_kernel.knn_chunk_plain(queries, corpus, 25)
+    approx = port_topk.approx_chunk(queries, corpus, 25)
+    return corpus, queries, exact, approx
+
+
+def test_approx_recall_against_exact(gaussian):
+    _, _, (_, exact), (dist, idx) = gaussian
+    hits = [len(set(a) & set(b)) for a, b in zip(idx.numpy(),
+                                                  exact.numpy())]
+    assert np.mean(hits) / 25 >= 0.99
+    assert bool((dist[:, 1:] >= dist[:, :-1]).all())
+    assert bool((idx[:, 0] == torch.arange(512)).all())   # self first
+
+
+def test_approx_distances_are_the_plain_routes(gaussian):
+    """The distances of the winners are the plain route's f32 distances of
+    those indices, bit for bit (the f32 rescoring)."""
+    corpus, queries, _, (dist, idx) = gaussian
+    neg = knn_kernel.neg_sqdist_plain(queries, corpus)
+    want = torch.sqrt(torch.clamp(-torch.gather(neg, 1, idx.long()),
+                                  min=0.0))
+    assert dist.numpy().tobytes() == want.numpy().tobytes()
+
+
+def test_approx_bins_fold_columns_modulo_the_bin_count():
+    """The bin layout: at N 300, k 2 and recall 0.5 (256 bins of two, by
+    the formula) the winners are the best of columns b and b + 256; a
+    planted pair sharing a bin loses its second, which the exact route
+    keeps."""
+    assert port_topk.approx_reduction_size(300, 2, 0.5) == (256, 1)
+    corpus = torch.full((300, 2), 50.0)
+    for row, d in ((5, 0.1), (5 + 256, 0.2), (100, 0.3)):
+        corpus[row] = torch.tensor([d, 0.0])
+    query = torch.zeros(1, 2)
+    _, exact = knn_kernel.knn_chunk_plain(query, corpus, 2)
+    _, approx = port_topk.approx_chunk(query, corpus, 2, recall_target=0.5)
+    assert exact.tolist() == [[5, 261]]
+    assert approx.tolist() == [[5, 100]]

@@ -796,7 +796,7 @@ def test_train_cli_mlb_configs(tmp_path, monkeypatch, name, arch, glimpses):
     if glimpses:
         assert len(state.model.list_linear_v_fusion) == glimpses
     logs = tmp_path / "logs"
-    assert (logs / "ckpt_model.pt").exists()
+    assert (logs / "ckpt_model.msgpack").exists()
     split = "test2015" if opt["vqa"]["trainsplit"] == "trainval" else "val"
     rows = json.loads((logs / "results" / split /
                        "vqa_OpenEnded_mscoco_epoch_1.json").read_text())

@@ -13,8 +13,8 @@ build_answer_embedding -> build_vqacx -> counterexamples ``--test``, and
 stages (preprocess, port_skipthoughts, knn, build_vqacx) run on a copy of
 the same fixture, and their outputs must be byte-equal; the
 answer-embedding table is held against JAX's ``build_table`` over the
-port's trained encoder (moved across by ``models/port_torch``) at rtol
-1e-4.
+port's trained encoder (its checkpoint read by JAX's ``load_pytree``) at
+rtol 1e-4.
 """
 
 import glob
@@ -38,15 +38,17 @@ from vqa_counterexamples_tpu.cli import build_vqacx as jax_build_vqacx
 from vqa_counterexamples_tpu.cli import knn as jax_knn
 from vqa_counterexamples_tpu.cli import port_skipthoughts as jax_st
 from vqa_counterexamples_tpu.cli import preprocess as jax_preprocess
+from vqa_counterexamples_tpu.core import checkpoint as jax_ckpt
 from vqa_counterexamples_tpu.models import factory as jax_model_factory
-from vqa_counterexamples_tpu.models import port_torch
 from vqa_counterexamples_tpu_torch.cli import (build_answer_embedding,
                                                build_vqacx, contrastive,
                                                counterexamples, knn,
                                                port_skipthoughts, preprocess,
                                                train)
+from vqa_counterexamples_tpu_torch.core import msgpack_tree
 from vqa_counterexamples_tpu_torch.data.features import FeatureStore
 from vqa_counterexamples_tpu_torch.engines import cx_engine
+from vqa_counterexamples_tpu_torch.models import from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
@@ -257,20 +259,17 @@ def test_pretraining_ran_on_real_data(runs):
         with open(path) as f:
             scores = json.load(f)
         assert scores["n"] > 0 and 0.0 <= scores["overall"] <= 100.0
-    assert os.path.isfile(os.path.join(P.dir_logs_vqa, "best_model.pt"))
+    assert os.path.isfile(os.path.join(P.dir_logs_vqa, "best_model.msgpack"))
 
 
 def test_answer_embedding_matches_jax(runs):
     """The table over the port's trained encoder against JAX's
-    ``build_table`` over the same weights (``port_torch``) at f32."""
+    ``build_table`` over the same weights (the port's ``best_model.msgpack``
+    read by JAX's ``load_pytree``) at f32."""
     P = runs.P
     table = runs.table
     assert table.shape == (P.nans, P.dim_q)
     assert (np.abs(table).sum(1) > 0).mean() > 0.5
-    sd = torch.load(os.path.join(P.dir_logs_vqa, "best_model.pt"),
-                    weights_only=True)
-    params, arch = port_torch.port_vqa_state_dict(sd)
-    assert arch == "MutanNoAtt"
     with open(runs.vqa_yaml) as f:
         options = yaml.safe_load(f)
     with open(os.path.join(P.processed, "wid_to_word.pickle"), "rb") as f:
@@ -280,6 +279,13 @@ def test_answer_embedding_matches_jax(runs):
         answers = pickle.load(f)
     jmodel = jax_model_factory.factory_vqa(options["model"], tuple(words),
                                            tuple(answers))
+    template = jmodel.init(
+        {"params": jax.random.key(0), "dropout": jax.random.key(1)},
+        jnp.zeros((1, options["model"]["fusion"]["dim_v"])),
+        jnp.zeros((1, 26), jnp.int32), deterministic=True)["params"]
+    params = jax_ckpt.load_pytree(
+        template, os.path.join(P.dir_logs_vqa, "best_model.msgpack"))
+    assert "fusion_module" in params      # MutanNoAtt
 
     @jax.jit
     def encode(wids):
@@ -325,8 +331,8 @@ def test_counterexamples_on_real_data(runs):
     assert np.isfinite(res["loss"])
     assert 0.0 <= res["recall_1"] <= res["recall"] <= 1.0
     start = runs.seen["NeuralModel"]
-    best = torch.load(os.path.join(P.dir_logs_vqa, "best_model.pt"),
-                      weights_only=True)
+    best = from_jax.vqa_state_dict_from_jax(msgpack_tree.load(
+        os.path.join(P.dir_logs_vqa, "best_model.msgpack")))
     for key, value in best.items():
         assert torch.equal(start["vqa_model." + key], value), key
     with open(os.path.join(P.cx_data, "answer_embedding.pickle"), "rb") as f:

@@ -1084,7 +1084,7 @@ def test_train_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
     assert state.step == 2 * 4
     names = sorted(os.listdir(logs))
     for prefix in ("ckpt", "best"):
-        for suffix in ("info.json", "model.pt", "optim.pt"):
+        for suffix in ("info.json", "model.msgpack", "optim.msgpack"):
             assert "%s_%s" % (prefix, suffix) in names
     info = json.loads((logs / "ckpt_info.json").read_text())
     assert info["epoch"] == 2 and set(info) == {"epoch", "best_acc1", "acc1",
@@ -1181,9 +1181,9 @@ def test_vqa_checkpoint_save_all_from_and_prefix(tmp_path, world):
         port_ckpt.save_vqa_checkpoint({"epoch": epoch}, state, d,
                                       save_all_from=2)
     names = sorted(os.listdir(d))
-    assert "ckpt_model_epoch,4.pt" in names
-    assert "ckpt_model_epoch,2.pt" not in names
-    assert "ckpt_model_epoch,3.pt" not in names
+    assert "ckpt_model_epoch,4.msgpack" in names
+    assert "ckpt_model_epoch,2.msgpack" not in names
+    assert "ckpt_model_epoch,3.msgpack" not in names
     fresh = port_engine.init_vqa_state(copy.deepcopy(world.pmodel), lr=LR)
     info = port_ckpt.load_vqa_checkpoint(fresh, os.path.join(d, "best"))
     assert info == {"epoch": 1, "best_acc1": 5.0} and fresh.step == 0

@@ -10,8 +10,8 @@ of its own, and the outputs must agree: the interim JSON files and the
 pickles byte for byte, the ``adapted_uniskip.npz`` arrays bit for bit,
 the ``VQAArrays`` / ``CXArrays`` fields bit for bit, the OpenEnded
 scores exactly, and the answer-embedding table (JAX's ``build_table``
-with the same encoder weights, moved across by ``models/from_jax``) at
-rtol 1e-4 in f32.
+with the same encoder weights, read by the port from the JAX package's
+checkpoint) at rtol 1e-4 in f32.
 """
 
 import json
@@ -35,6 +35,7 @@ from vqa_counterexamples_tpu.cli import counterexamples as jax_cx_cli
 from vqa_counterexamples_tpu.cli import eval_res as jax_eval_res
 from vqa_counterexamples_tpu.cli import port_skipthoughts as jax_st
 from vqa_counterexamples_tpu.cli import preprocess as jax_preprocess
+from vqa_counterexamples_tpu.core import checkpoint as jax_ckpt
 from vqa_counterexamples_tpu.core import config as jax_config
 from vqa_counterexamples_tpu.data import factory as jax_factory
 from vqa_counterexamples_tpu.data import interim as jax_interim
@@ -60,7 +61,6 @@ from vqa_counterexamples_tpu_torch.data.features import FeatureStore
 from vqa_counterexamples_tpu_torch.engines import openended
 from vqa_counterexamples_tpu_torch.models import cx as port_cx
 from vqa_counterexamples_tpu_torch.models import factory as port_factory
-from vqa_counterexamples_tpu_torch.models import from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -670,10 +670,10 @@ def _encoder_options(maxlength=26):
 def test_build_answer_embedding_matches_jax(tmp_path, monkeypatch):
     """300 answers over a 40-word vocab, some with out-of-vocab words and
     some of more words than fit: three batches of 128, the last padded.
-    The JAX model's initial weights go to the port through
-    ``models/from_jax`` and into a ``best_model.pt``; the port's CLI
-    loads it and its table must match JAX's ``build_table`` of the same
-    encoder at rtol 1e-4."""
+    The JAX model's initial weights go into the JAX package's checkpoint
+    triple (its ``save_vqa_checkpoint``); the port's CLI loads its
+    ``best_model.msgpack`` and its table must match JAX's ``build_table``
+    of the same encoder at rtol 1e-4."""
     monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "float32")
     rng = np.random.default_rng(0)
     words = ["w%d" % i for i in range(40)]
@@ -708,8 +708,8 @@ def test_build_answer_embedding_matches_jax(tmp_path, monkeypatch):
     params = dict(params, seq2vec=s2v)
     logs = tmp_path / "logs"
     logs.mkdir()
-    torch.save(from_jax.vqa_state_dict_from_jax(params),
-               logs / "best_model.pt")
+    # the JAX package writes the checkpoint the port's CLI reads
+    jax_ckpt.save_vqa_checkpoint({"epoch": 1}, params, None, str(logs))
 
     table = bae.main(["--path_opt", str(path_opt), "--path_processed",
                       str(proc), "--dir_logs", str(logs), "--device", "cpu",

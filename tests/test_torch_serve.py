@@ -128,14 +128,14 @@ def test_next_bucket_powers_of_two():
 def test_list_checkpoints_registry(tmp_path):
     run_a = tmp_path / "run_a"          # best files (prefix scheme)
     run_a.mkdir()
-    (run_a / "best_model.pt").write_bytes(b"")
+    (run_a / "best_model.msgpack").write_bytes(b"")
     (run_a / "best_info.json").write_text(json.dumps({"epoch": 7}))
     run_b = tmp_path / "run_b"          # ckpt files only
     run_b.mkdir()
-    (run_b / "ckpt_model.pt").write_bytes(b"")
-    run_c = tmp_path / "run_c"          # the JAX package's files: not ours
+    (run_b / "ckpt_model.msgpack").write_bytes(b"")
+    run_c = tmp_path / "run_c"          # no model file: not a checkpoint
     run_c.mkdir()
-    (run_c / "best_model.msgpack").write_bytes(b"")
+    (run_c / "best_model.pt").write_bytes(b"")
     (tmp_path / "empty_dir").mkdir()
     (tmp_path / "stray.txt").write_text("x")
     got = list_checkpoints(str(tmp_path))

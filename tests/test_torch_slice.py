@@ -158,19 +158,19 @@ def test_port_cli_scores_synthetic(tmp_path, monkeypatch, dtype):
 def test_port_cli_refuses_training(tmp_path, monkeypatch, flag, tag):
     """Training runs now (tests/test_torch_train.py), the scanned trainer
     too (``--scan_steps``, tests/test_torch_scan.py), pairwise training and
-    the zoo as well (tests/test_torch_zoo.py); ``--viz`` and
-    ``--init_params`` are what the port still refuses, citing their
-    ROADMAP tags, before it trains anything or makes a run dir.
-    ``--mesh`` (#12) runs now (NeuralModel, which does not train on
-    pairwise triples, without ``--pairwise``): two gloo ranks, the scan
-    ignored as JAX's CLI ignores it under a mesh, the same evals as one
-    rank's scanned run (to the sum order)."""
+    the zoo as well (tests/test_torch_zoo.py), and the flags the port once
+    refused run on a scanned run (without ``--pairwise``: NeuralModel does
+    not train on pairwise triples).  ``--mesh`` (#12): two gloo ranks, the
+    scan ignored as JAX's CLI ignores it under a mesh, the same evals as
+    one rank's scanned run (to the sum order).  ``--viz`` (#13): the best checkpoint ranked and, with no raw
+    image directory, no grid drawn.  ``--init_params`` (the msgpack
+    bridge): the params of a run's checkpoint start a second run, whose
+    first eval is the first run's best one."""
     argv = ["--cx_model", "NeuralModel", "--synthetic", "64", "--epochs",
-            "1", "--scan_steps", "4", "--pairwise", "--device", "cpu",
-            "--path_opt", _tiny_cli_options(tmp_path)]
+            "1", "--scan_steps", "4", "--device", "cpu", "--path_opt",
+            _tiny_cli_options(tmp_path)]
     if "--mesh" in flag:
         monkeypatch.setenv("VQACX_DIST_TIMEOUT", "120")
-        argv.remove("--pairwise")
         one = port_cli.main(argv + ["--project_dir", str(tmp_path / "one")])
         ranked = port_cli.main(argv + ["--project_dir",
                                        str(tmp_path / "mesh")] + flag)
@@ -183,7 +183,25 @@ def test_port_cli_refuses_training(tmp_path, monkeypatch, flag, tag):
         assert os.path.exists(tmp_path / "mesh" / "logs" / "cx" / run /
                               "ckpt" / "model.ckpt")
         return
-    with pytest.raises(NotImplementedError,
-                       match=re.escape("(ROADMAP.md, %s)" % tag)):
-        port_cli.main(argv + ["--project_dir", str(tmp_path)] + flag)
-    assert not (tmp_path / "logs").exists()
+    first = port_cli.main(argv + ["--project_dir", str(tmp_path / "a")] + (
+        flag if "--viz" in flag else []))
+    (run,) = os.listdir(tmp_path / "a" / "logs" / "cx")
+    if "--viz" in flag:
+        assert os.listdir(tmp_path / "a" / "viz" / "cx" / run) == []
+        return
+    from vqa_counterexamples_tpu_torch.core import msgpack_tree
+
+    params = str(tmp_path / flag[1])
+    msgpack_tree.save(msgpack_tree.load(str(
+        tmp_path / "a" / "logs" / "cx" / run / "best" / "model.ckpt"))[
+            "params"], params)
+    second = port_cli.main(argv + ["--epochs", "0", "--test",
+                                   "--project_dir", str(tmp_path / "b"),
+                                   "--init_params", params])
+    assert second == []
+    (run,) = os.listdir(tmp_path / "b" / "logs" / "cx")
+    res = json.loads((tmp_path / "b" / "logs" / "cx" / run /
+                      "final_results.txt").read_text())
+    # synthetic runs score their val set as the test set
+    for k in ("loss", "recall"):
+        assert res[k] == pytest.approx(first[0][k], rel=1e-6), k

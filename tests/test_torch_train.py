@@ -40,6 +40,7 @@ from vqa_counterexamples_tpu.engines import cx_engine as jax_engine
 from vqa_counterexamples_tpu.ops.pallas.vfeat_kernel import (
     vfeat_scores_pallas)
 from vqa_counterexamples_tpu_torch.cli import counterexamples as port_cli
+from vqa_counterexamples_tpu_torch.core import msgpack_tree
 from vqa_counterexamples_tpu_torch.core import rng as port_rng
 from vqa_counterexamples_tpu_torch.data import vqacx as port_vqacx
 from vqa_counterexamples_tpu_torch.engines import cx_engine as port_engine
@@ -687,13 +688,13 @@ def test_port_cli_resumes(tmp_path, monkeypatch):
     monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "float32")
     port_cli.main(_cli_args(tmp_path, "--epochs", "2", "--z_cache"))
     run, run_dir = _run_dir(tmp_path)
-    step2 = torch.load(run_dir / "ckpt" / "model.ckpt",
-                       weights_only=True)["step"]
+    step2 = int(msgpack_tree.load(str(run_dir / "ckpt" /
+                                      "model.ckpt"))["step"])
     info = port_cli.main(_cli_args(tmp_path, "--epochs", "3", "--z_cache",
                                    "--resume", run))
     assert len(info) == 3
-    payload = torch.load(run_dir / "ckpt" / "model.ckpt", weights_only=True)
-    assert payload["step"] == step2 * 3 // 2
+    payload = msgpack_tree.load(str(run_dir / "ckpt" / "model.ckpt"))
+    assert int(payload["step"]) == step2 * 3 // 2
     assert len(json.loads((run_dir / "ckpt" / "info.ckpt").read_text())) == 3
 
 

@@ -29,6 +29,7 @@ from vqa_counterexamples_tpu.data import synthetic as jax_synthetic
 from vqa_counterexamples_tpu.data import vqacx as jax_vqacx
 from vqa_counterexamples_tpu.engines import cx_engine as jax_engine
 from vqa_counterexamples_tpu_torch.cli import counterexamples as port_cli
+from vqa_counterexamples_tpu_torch.core import msgpack_tree
 from vqa_counterexamples_tpu_torch.core import rng as port_rng
 from vqa_counterexamples_tpu_torch.data import vqacx as port_vqacx
 from vqa_counterexamples_tpu_torch.engines import cx_engine as port_engine
@@ -285,9 +286,13 @@ def test_cli_trainable_vqa(tmp_path, capsys):
     info = port_cli.main(argv)
     assert "=> Train caches built: {}" in capsys.readouterr().out
     run_dir = _run_dir(tmp_path)
-    payload = torch.load(run_dir / "ckpt" / "model.ckpt", weights_only=True)
-    assert any(k.startswith("vqa_model.seq2vec.") for k in payload["model"])
-    assert len(payload["optimizer"]["state"]) == len(payload["model"])
+    payload = msgpack_tree.load(str(run_dir / "ckpt" / "model.ckpt"))
+    adam = payload["opt_state"]["0"]
+    # the backbone trains: its moments ride in the optax state beside the
+    # head's, one count for all (the JAX package's file)
+    assert "seq2vec" in adam["mu"]["vqa_model"]
+    assert set(adam["mu"]) == set(adam["nu"]) == set(payload["params"])
+    assert int(adam["count"]) == int(payload["step"]) > 0
     res = json.loads((run_dir / "final_results.txt").read_text())
     assert len(info) == 1 and np.isfinite(res["loss"])
     assert res["best_epoch"] == 2

@@ -30,6 +30,7 @@ from vqa_counterexamples_tpu.engines import cx_engine as jax_engine
 from vqa_counterexamples_tpu.models import factory as jax_factory
 from vqa_counterexamples_tpu.ops import metrics as jax_metrics
 from vqa_counterexamples_tpu_torch.cli import counterexamples as port_cli
+from vqa_counterexamples_tpu_torch.core import msgpack_tree
 from vqa_counterexamples_tpu_torch.core import rng as port_rng
 from vqa_counterexamples_tpu_torch.data import vqacx as port_vqacx
 from vqa_counterexamples_tpu_torch.engines import cx_engine as port_engine
@@ -449,9 +450,11 @@ def test_cli_resumes_a_model_without_optimizer(tmp_path):
             "--device", "cpu", "--comment", "bb", "--path_opt",
             _tiny_cli_options(tmp_path), "--project_dir", str(tmp_path)]
     first = port_cli.main(argv)
-    payload = torch.load(_run_dir(tmp_path) / "ckpt" / "model.ckpt",
-                         weights_only=True)
-    assert payload["model"] == {} and payload["optimizer"] is None
+    payload = msgpack_tree.load(str(_run_dir(tmp_path) / "ckpt" /
+                                    "model.ckpt"))
+    # the JAX package's state: the frozen backbone's params, no optimizer
+    assert set(payload["params"]) == {"vqa_model"}
+    assert payload["opt_state"] is None and int(payload["step"]) == 0
     info = port_cli.main(argv + ["--resume", _run_dir(tmp_path).name,
                                  "--epochs", "2", "--best"])
     assert len(info) == 2 and info[0] == first[0]

@@ -41,10 +41,18 @@ Without ``--synthetic`` it reads the real VQA-CX data as the JAX CLI does
 NeuralModel's answer embedding, with ``cx_model.pretrained_emb``, the
 table ``answer_embedding.pickle`` in ``vqa.path_trainset`` (written by
 ``cli/build_answer_embedding``).  Missing files raise
-``FileNotFoundError``.  ``--init_params`` and ``--viz`` raise
-``NotImplementedError`` (see ROADMAP.md for when they come).  The device
-is ``cuda``; with no card visible the CLI refuses to run unless ``--device
-cpu`` is given.
+``FileNotFoundError``.  The device is ``cuda``; with no card visible the
+CLI refuses to run unless ``--device cpu`` is given.
+
+Checkpoints are the JAX package's files (``core/checkpoint.py``), so a
+run of either package resumes in the other.  ``--init_params`` reads a
+params msgpack written by either package's ``port_checkpoint --kind cx``
+into the initialized model (keys and shapes checked against it, as JAX's
+``load_pytree`` against its template).  ``--viz`` loads the best
+checkpoint, ranks the first 200 val examples' candidates on the device
+(``viz/grids.rank_for_viz``) and draws both grids of each into
+``viz/cx/<run>`` from the raw images of ``coco.path_val_raw`` (skipped
+when that directory is missing, as in JAX's CLI; matplotlib must import).
 
 ``--mesh data=D[,model=M]`` trains on D x M ranks (``parallel/``: spawned
 here, one process each; ``--distributed`` is one rank of a torchrun
@@ -139,12 +147,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        "%s is not ported to the PyTorch package yet (ROADMAP.md, %s)"
-        % (what, item))
-
-
 def load_real_data(options, args):
     """The augmented sets and the feature stores (JAX
     ``cli/counterexamples.py:114-140``; reference
@@ -192,15 +194,6 @@ def load_synthetic_data(args, n_examples):
     return trainset, valset, valset, store, val_store
 
 
-def check_unported(args) -> None:
-    """Raise for the flags the port does not cover yet, each with its
-    ROADMAP tag, before anything is built."""
-    for flag, item in (("init_params", "Queue 1: the msgpack bridge"),
-                       ("viz", "Queue 1 #13")):
-        if getattr(args, flag, None):
-            _not_ported("--" + flag, item)
-
-
 def resolve_device(name: str) -> torch.device:
     """The run's device: ``cuda`` must be visible, ``cpu`` asked for."""
     device = torch.device(name)
@@ -225,7 +218,6 @@ def check_batch(batch_size: int, mesh) -> None:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_unported(args)
     if args.cx_model == "ContrastiveModel":
         # its forward returns (B, K+1, H) embeddings, which the K-way CE of
         # the CX steps cannot score: JAX's CLI fails on it with a
@@ -326,6 +318,15 @@ def _run(args, mesh):
         cx_model, lr=options["optim"]["lr"],
         optimizer="adam" if args.cx_model in TRAINED else None)
     print("Built {} on {}".format(args.cx_model, device))
+    if args.init_params:
+        # ported params (cli/port_checkpoint --kind cx), checked against
+        # the initialized model's tree, then copied over it
+        from ..core import msgpack_tree
+
+        ckpt_lib.load_cx_params(cx_model,
+                                msgpack_tree.load(args.init_params),
+                                args.init_params)
+        print("Initialized CX params from {}".format(args.init_params))
 
     info = []
     start_epoch = 1
@@ -364,6 +365,8 @@ def _run(args, mesh):
         return arrays, q_test, z_test
 
     tests = None
+    # the ranking of --viz reads whole rows of the val tables
+    viz_tables = (features_val, q_val, v_val, z_val) if args.viz else None
     if mesh is not None and mesh.size("model") > 1:
         # the test caches read whole feature rows: built before the split
         if args.test:
@@ -444,7 +447,7 @@ def _run(args, mesh):
                                                 save_dir))
 
     # ---- final test on the best checkpoint (reference :373-386) ----
-    if args.test:
+    if args.test or args.viz:
         best_epoch = 0
         if epoch is not None and state.optimizer is not None:
             if mesh is not None:
@@ -452,6 +455,7 @@ def _run(args, mesh):
             # the reference's value: load_cx_checkpoint's next epoch
             state, _, best_epoch, _ = ckpt_lib.load_cx_checkpoint(
                 state, save_dir, resume_best=True)
+    if args.test:
         test_arrays, q_test, z_test = tests or test_caches()
         test_results = cx_engine.eval_model(
             eval_step, features_val, test_arrays, batch_size,
@@ -465,6 +469,16 @@ def _run(args, mesh):
                 f.write(json.dumps(test_results))
         print("FINAL RESULTS ON BEST EPOCH {}".format(best_epoch),
               test_results)
+    if args.viz and main_rank:
+        from ..viz import grids
+        viz_dir = os.path.join(args.project_dir, "viz", "cx", run_name)
+        os.makedirs(viz_dir, exist_ok=True)
+        feats, q, v, z = viz_tables
+        ranking = grids.rank_for_viz(
+            cx_model, feats, val_arrays, min(200, val_arrays.size),
+            extra_apply_args=extra_args, q_table=q, v_table=v, z_table=z)
+        grids.visualize_results(valset, ranking,
+                                options["coco"].get("path_val_raw"), viz_dir)
     train_writer.close()
     val_writer.close()
     return info

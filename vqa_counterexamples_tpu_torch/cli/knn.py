@@ -21,8 +21,12 @@ is ``cuda``; with no card visible the CLI refuses to run unless ``--device
 cpu`` is given.  ``--mesh data=P`` splits the corpus rows over P ranks
 (``ops/topk.knn(mesh=)``: each searches its shard with the kernel, the
 candidates merged to the one-rank result), ``--distributed`` runs one
-rank of a torchrun launch; rank 0 writes the files.  ``--approx`` raises
-``NotImplementedError`` (ROADMAP.md, Queue 1).
+rank of a torchrun launch; rank 0 writes the files.  ``--approx`` is the
+TPU's ``approx_max_k`` (recall target 0.999: ``ops/topk.approx_chunk``)
+on ``--engine plain`` alone; with the kernel or a mesh it raises
+``ValueError`` (JAX's CLI ignores it there).  It is carried for parity
+with TPU runs: on an H100 it is both slower and less exact than the
+default kernel route (README, the port's ``--approx``).
 """
 
 from __future__ import annotations
@@ -53,7 +57,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="cuda = the fused distance + top-k kernel; "
                              "plain = one GEMM + topk per chunk")
     parser.add_argument("--approx", action="store_true",
-                        help="approximate top-k (not ported)")
+                        help="approximate top-k (the TPU's approx_max_k, "
+                             "recall target 0.999; --engine plain only). "
+                             "For parity with TPU runs: on an H100 it is "
+                             "slower and less exact than the default "
+                             "--engine cuda")
     parser.add_argument("--out", default=None, type=str,
                         help="output .npy path (default: alongside features)")
     parser.add_argument("--json-out", default=None, type=str,
@@ -71,10 +79,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.approx:
-        raise NotImplementedError(
-            "--approx is not ported to the PyTorch package yet (ROADMAP.md, "
-            "Queue 1 #11)")
+    if args.approx and (_ENGINE_ALIASES[args.engine] != "plain"
+                        or args.mesh or args.distributed):
+        raise ValueError("--approx runs on --engine plain, with no mesh "
+                         "(JAX's CLI ignores it elsewhere)")
     return parallel.run(_run, args, argv, main)
 
 
@@ -98,7 +106,7 @@ def _run(args, mesh):
     dist, idx = topk.knn(store.to_device(device), k=args.n_neighbors,
                          batch_size=args.batch_size,
                          engine=_ENGINE_ALIASES[args.engine], device=device,
-                         mesh=mesh)
+                         mesh=mesh, approx=args.approx)
     if mesh is not None and not mesh.is_main:
         return dist, idx
 

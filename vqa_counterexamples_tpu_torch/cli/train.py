@@ -54,18 +54,7 @@ import numpy as np
 import torch
 
 from .. import parallel
-
-
-def str2bool(v):
-    """CLI boolean parser (reference ``utils.py:49-59``)."""
-    if v is None or isinstance(v, bool):
-        return v
-    if isinstance(v, str):
-        if v.lower() in ("yes", "true", "t", "y", "1"):
-            return True
-        if v.lower() in ("no", "false", "f", "n", "0"):
-            return False
-    raise ValueError("Boolean value expected, got %r" % (v,))
+from ..core.config import str2bool
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import copy
 import os
-from typing import Mapping, MutableMapping
+from typing import Any, Mapping, MutableMapping
 
 import yaml
 
@@ -25,6 +25,30 @@ def update_values(dict_from: Mapping, dict_to: MutableMapping) -> MutableMapping
         elif value is not None:
             dict_to[key] = value
     return dict_to
+
+
+def merge_dict(a: Any, b: Any) -> Any:
+    """Pure merge: values of ``b`` win unless None (reference
+    ``utils.py:14-21``)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        d = dict(a)
+        d.update({k: merge_dict(a.get(k, None), b[k]) for k in b})
+        return d
+    if isinstance(a, list) and isinstance(b, list):
+        return b
+    return a if b is None else b
+
+
+def str2bool(v):
+    """CLI boolean parser (reference ``utils.py:49-59``)."""
+    if v is None or isinstance(v, bool):
+        return v
+    if isinstance(v, str):
+        if v.lower() in ("yes", "true", "t", "y", "1"):
+            return True
+        if v.lower() in ("no", "false", "f", "n", "0"):
+            return False
+    raise ValueError("Boolean value expected, got %r" % (v,))
 
 
 def load_yaml(path: str) -> dict:

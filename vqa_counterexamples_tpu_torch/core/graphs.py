@@ -28,11 +28,11 @@ Under a mesh (``parallel/``) a step's body runs collectives (the
 gradients' all-reduce).  NCCL's collectives are captured in the graph: the
 eager warm-up creates the communicator before the capture.  Gloo's cannot
 be captured: a step under a gloo mesh runs eagerly (``capture=True`` is
-refused there), and :attr:`GraphedStep.eager_reason` says why.  A meshed
-step captures in thread-local mode, since NCCL's threads query events
-meanwhile; a step with no mesh keeps the global mode, and in a process
-that has had an NCCL group one such capture was seen invalidated (on an
-H100): give such a process's steps its mesh.
+refused there), and :attr:`GraphedStep.eager_reason` says why.  While a
+process group exists, every capture (a step's with or without a mesh)
+runs in thread-local mode (:func:`capture_kwargs`): NCCL's watchdog
+thread polls the events of its collectives, and the global mode would
+count those polls against the capture.
 
 A graph holds the addresses of the parameters and of the optimizer's
 state.  Before each replay the step compares them with those it captured
@@ -160,6 +160,18 @@ class StaticInputs:
             self.tensors[name].copy_(inputs[name])
 
 
+def capture_kwargs(meshed: bool = False) -> dict:
+    """``torch.cuda.graph``'s error mode: ``thread_local`` for a meshed
+    step or while a process group exists (NCCL's watchdog thread polls its
+    collectives' events meanwhile, which only this thread's capture must
+    not see), else the default (global)."""
+    import torch.distributed as dist
+
+    if meshed or (dist.is_available() and dist.is_initialized()):
+        return {"capture_error_mode": "thread_local"}
+    return {}
+
+
 def _table_key(t):
     if t is None:
         return None
@@ -234,10 +246,7 @@ class GraphedStep:
                         if capture is None else bool(capture))
         self.eager_reason = ("gloo's collectives cannot be captured"
                              if gloo and self.device.type == "cuda" else None)
-        # NCCL's watchdog thread queries events while a capture runs: a
-        # meshed step's capture checks only this thread's calls
-        self._capture_kw = ({} if mesh is None
-                            else {"capture_error_mode": "thread_local"})
+        self.meshed = mesh is not None
         if self.capture and self.device.type != "cuda":
             raise ValueError("a CUDA graph needs a CUDA device, got %s"
                              % self.device)
@@ -310,7 +319,8 @@ class GraphedStep:
         graph = torch.cuda.CUDAGraph()
         for gen in (self.generators.values() if self.generators else ()):
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, stream=stream, **self._capture_kw):
+        with torch.cuda.graph(graph, stream=stream,
+                              **capture_kwargs(self.meshed)):
             out = self.body(static.tensors, *tables)
             names = tuple(out)
             packed = torch.stack([out[n].float() for n in names])

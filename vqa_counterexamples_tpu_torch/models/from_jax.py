@@ -175,11 +175,14 @@ def cx_state_dict_from_jax(params: dict,
 
 
 def _carry_adam(opt_state, model, optimizer, to_state_dict) -> None:
+    if isinstance(opt_state, dict):     # flax's state dict of the tuple
+        opt_state = [opt_state[k] for k in sorted(opt_state, key=int)]
     adam = next(s for s in (opt_state if isinstance(opt_state, (tuple, list))
-                            else (opt_state,)) if hasattr(s, "mu"))
-    mu = to_state_dict(adam.mu)
-    nu = to_state_dict(adam.nu)
-    step = float(np.asarray(adam.count))
+                            else (opt_state,))
+                if (isinstance(s, dict) and "mu" in s) or hasattr(s, "mu"))
+    mu = to_state_dict(_field(adam, "mu"))
+    nu = to_state_dict(_field(adam, "nu"))
+    step = float(np.asarray(_field(adam, "count")))
     # a capturable Adam keeps its step count beside the parameter
     capturable = optimizer.defaults.get("capturable", False)
     for name, param in model.named_parameters():
@@ -197,9 +200,10 @@ def adam_state_from_jax(opt_state, model: torch.nn.Module,
                         optimizer: torch.optim.Optimizer) -> None:
     """Carry optax's Adam state (``ScaleByAdamState``: ``count``, ``mu``,
     ``nu`` over the trainable subtree, the backbone's ``vqa_model`` too
-    when it trains) into ``optimizer``'s state for ``model``'s trainable
-    parameters (``step``, ``exp_avg``, ``exp_avg_sq``), in place.  Leaves
-    are numpy (or array-like)."""
+    when it trains; or flax's state dict of the ``adam`` tuple, as a
+    checkpoint file holds it) into ``optimizer``'s state for ``model``'s
+    trainable parameters (``step``, ``exp_avg``, ``exp_avg_sq``), in
+    place.  Leaves are numpy (or array-like)."""
     arch = getattr(getattr(model, "vqa_model", None), "seq2vec", None)
     _carry_adam(opt_state, model, optimizer, lambda tree: (
         cx_state_dict_from_jax(tree, getattr(arch, "arch", None))))

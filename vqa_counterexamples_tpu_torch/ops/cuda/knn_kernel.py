@@ -43,13 +43,21 @@ def knn_chunk_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     """Plain version (the JAX ``ops/topk.knn_chunk``): one f32 GEMM, the
     scores in the same expression order, ``torch.topk``, sqrt.  Returns
     (dist (Bq, k) f32 ascending, idx (Bq, k) int32)."""
+    top, idx = torch.topk(neg_sqdist_plain(queries, corpus, corpus_sqnorm),
+                          k, dim=1)
+    return torch.sqrt(torch.clamp(-top, min=0.0)), idx.to(torch.int32)
+
+
+def neg_sqdist_plain(queries: torch.Tensor, corpus: torch.Tensor,
+                     corpus_sqnorm: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """The plain version's scores -(||q - f||^2), (Bq, N) f32: one f32
+    GEMM, ``2 q.f - |q|^2 - |f|^2`` in JAX's expression order."""
     q, c = queries.float(), corpus.float()
     csq = (c * c).sum(1) if corpus_sqnorm is None else corpus_sqnorm
     dots = torch.matmul(q, c.t())
     qsq = (q * q).sum(1, keepdim=True)
-    neg = 2.0 * dots - qsq - csq[None, :]
-    top, idx = torch.topk(neg, k, dim=1)
-    return torch.sqrt(torch.clamp(-top, min=0.0)), idx.to(torch.int32)
+    return 2.0 * dots - qsq - csq[None, :]
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,20 @@ card the fused distance + top-k kernel (``ops/cuda/knn_kernel.py``) by
 default, ``engine="plain"`` its plain version (one f32 GEMM + ``topk``,
 JAX's ``xla`` engine); on the CPU the plain version.  Distances ascend
 euclidean, as sklearn's ``kneighbors`` (so index 0 is the query itself in a
-self-kNN).  ``approx`` (the TPU's ``approx_max_k``) is not ported.
+self-kNN).
+
+``approx=True`` (the plain route only, JAX's ``xla`` engine) is the TPU's
+``lax.approx_max_k(recall_target=0.999)``: the f32 scores of a chunk
+(the plain route's), reduced to ``approx_reduction_size`` bins, then an
+exact top-k over the bins' winners.  Bin ``b`` of ``O`` holds the columns
+``b, b + O, b + 2 O, ...`` (the score row padded with -inf to ``O *
+2**r`` columns and folded as ``(2**r, O)``, the layout of the TPU's
+partial reduce over its 128-lane tiles); a bin keeps its largest score,
+the lowest column among equals.  Where the size is N (below 47,976 rows
+at k 25) nothing is reduced and the result is the exact route's.  The
+distances are the plain route's f32 distances of the winners.  On CPU
+and GPU XLA runs ``approx_max_k`` as the exact top-k: the TPU's
+algorithm is the one carried here.
 
 With a mesh each rank holds one row range of the corpus
 (``parallel.corpus_rows``: shards may be uneven, nothing is padded) and
@@ -25,6 +38,8 @@ distances.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -49,6 +64,47 @@ def windows(n: int, chunk: int):
         yield s, i - s
 
 
+def approx_reduction_size(n: int, k: int, recall_target: float = 0.999):
+    """XLA's ``ApproxTopKReductionOutputSize(n, rank 2, k, recall_target,
+    aggregate_to_topk=False)`` -> (bins, log2 of the reduction): enough
+    bins that a top-k element meets another in its bin with probability
+    ``1 - recall_target`` (``(1 - k) / ln(recall)`` windows, the recall in
+    f32), at least one 128-lane tile, rounded to whole tiles."""
+    tiling = 128
+    if n <= tiling:
+        return n, 0
+    tiles = -(-n // tiling)
+    if k == 1:
+        log2r = (tiles - 1).bit_length()
+    else:
+        windows = int((1.0 - k)
+                      / math.log(float(np.float32(recall_target))))
+        log2r = (n // min(max(windows, tiling), n)).bit_length() - 1
+        if log2r == 0:
+            return n, 0
+        log2r = min(log2r, (n // tiling - 1).bit_length())
+    return -(-tiles // (1 << log2r)) * tiling, log2r
+
+
+def approx_chunk(queries, corpus, k: int, corpus_sqnorm=None,
+                 recall_target: float = 0.999):
+    """The TPU's ``approx_max_k`` over one chunk (the module docstring):
+    (dist (Bq, k) f32 ascending, idx (Bq, k) int32)."""
+    neg = knn_kernel.neg_sqdist_plain(queries, corpus, corpus_sqnorm)
+    n = neg.shape[1]
+    bins, log2r = approx_reduction_size(n, k, recall_target)
+    if bins < n:
+        folded = torch.full((neg.shape[0], bins << log2r), -float("inf"),
+                            device=neg.device)
+        folded[:, :n] = neg
+        best, slab = folded.view(neg.shape[0], 1 << log2r, bins).max(1)
+        top, pos = torch.topk(best, k, dim=1)
+        idx = torch.gather(slab, 1, pos) * bins + pos
+    else:
+        top, idx = torch.topk(neg, k, dim=1)
+    return torch.sqrt(torch.clamp(-top, min=0.0)), idx.to(torch.int32)
+
+
 def knn(features, k: int = 25, queries=None, batch_size: int = 1024,
         engine: str = "cuda", approx: bool = False, mesh=None,
         device=None, mesh_axis: str = "data"):
@@ -62,11 +118,11 @@ def knn(features, k: int = 25, queries=None, batch_size: int = 1024,
     ``mesh``: a ``parallel.Mesh`` whose ``mesh_axis`` ranks split the
     corpus rows (``device`` defaults to the mesh's); every rank returns
     the whole result.  Returns numpy (dist (Nq, k) f32, idx (Nq, k)
-    int32)."""
-    if approx:
-        raise NotImplementedError("approximate top-k (the TPU's "
-                                  "approx_max_k) is not ported (ROADMAP.md, "
-                                  "Queue 1)")
+    int32).  ``approx`` takes the plain route alone (JAX ignores it on its
+    ``pallas`` engine and under a mesh; here those raise)."""
+    if approx and (engine != "plain" or mesh is not None):
+        raise ValueError("approx (the TPU's approx_max_k) runs on the plain "
+                         "route only (--engine plain, no mesh)")
     if device is None and mesh is not None:
         device = mesh.device
     if engine not in ENGINES:
@@ -89,8 +145,8 @@ def knn(features, k: int = 25, queries=None, batch_size: int = 1024,
 
     corpus = to_dev(features)
     qs = corpus if queries is None else to_dev(queries)
-    chunk_fn = (knn_kernel.knn_chunk if engine == "cuda"
-                else knn_kernel.knn_chunk_plain)
+    chunk_fn = (knn_kernel.knn_chunk if engine == "cuda" else approx_chunk
+                if approx else knn_kernel.knn_chunk_plain)
     search = None
     if mesh is not None and mesh.size(mesh_axis) > 1:
         search = _ShardSearch(corpus, k, mesh, mesh_axis, chunk_fn)

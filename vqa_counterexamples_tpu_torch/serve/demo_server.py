@@ -10,8 +10,9 @@ bundled web client (``serve/demo_web``) works unchanged.  Beyond it:
   item in ONE forward (images stacked, padded to a power-of-two bucket) and
   returns ``{"results": [...]}`` in order.
 * ``GET /checkpoints`` + ``POST /checkpoint {"name": ...}``: list / hot-swap
-  VQA checkpoints under ``--ckpt_root`` (this package's ``ckpt_model.pt`` /
-  ``best_model.pt`` layout, ``core/checkpoint.py``) without restarting.
+  VQA checkpoints under ``--ckpt_root`` (the ``ckpt_model.msgpack`` /
+  ``best_model.msgpack`` layout of either package, ``core/checkpoint.py``)
+  without restarting.
 * ``GET /health``, and the web client with ``--serve_web``.
 
 The forward (:meth:`DemoEngine.predict_prepared`) is the JAX server's
@@ -58,8 +59,8 @@ def _next_bucket(n: int, max_batch: int = MAX_BATCH) -> int:
 def list_checkpoints(root: str) -> list[dict]:
     """Scan ``root`` for loadable VQA checkpoints.
 
-    A run directory counts if it holds a ``best_model.pt`` or
-    ``ckpt_model.pt`` (``core/checkpoint.save_vqa_checkpoint``'s layout;
+    A run directory counts if it holds a ``best_model.msgpack`` or
+    ``ckpt_model.msgpack`` (``core/checkpoint.save_vqa_checkpoint``'s layout;
     best_* files live NEXT TO ckpt_*, the reference's prefix scheme).
     Returns ``[{"name", "path", "best", "epoch"}]`` sorted by name;
     ``path`` is a ``load_vqa_model`` prefix (``<run>/best`` for the best
@@ -72,8 +73,8 @@ def list_checkpoints(root: str) -> list[dict]:
         if not os.path.isdir(run_dir):
             continue
         for fname, info_name, is_best in (
-                ("best_model.pt", "best_info.json", True),
-                ("ckpt_model.pt", "ckpt_info.json", False)):
+                ("best_model.msgpack", "best_info.json", True),
+                ("ckpt_model.msgpack", "ckpt_info.json", False)):
             if os.path.isfile(os.path.join(run_dir, fname)):
                 epoch = None
                 info_path = os.path.join(run_dir, info_name)
@@ -178,14 +179,13 @@ class DemoEngine:
 
     def load_checkpoint(self, path: str) -> None:
         """Hot-swap weights from a checkpoint prefix (``<run>`` for its
-        ``ckpt_model.pt``, ``<run>/best`` for ``best_model.pt``)."""
-        from ..core.checkpoint import _vqa_paths
+        ``ckpt_model.msgpack``, ``<run>/best`` for ``best_model.msgpack``)."""
+        from ..core import checkpoint as ckpt_lib
 
-        _, path_model, _ = _vqa_paths(path)
+        _, path_model, _ = ckpt_lib.vqa_paths(path)
         if not os.path.isfile(path_model):
             raise FileNotFoundError("no loadable checkpoint under %s" % path)
-        self.set_params(torch.load(path_model, map_location="cpu",
-                                   weights_only=True))
+        self.set_params(ckpt_lib.read_vqa_params(self.vqa_model, path_model))
 
     def encode_question(self, question: str):
         words = self.tokenize(question)
