@@ -239,6 +239,29 @@ ends the run with a nonzero exit and no result line.
    at least 0.99, the seconds of both; (g) the 19-config ablation grid
    (``scripts/run_ablations``) at 1 epoch and 512 examples, four CLIs at
    once: rc 0 and a finite val loss each.
+17. The replication runbook (``scripts/replicate_reference.py``): first
+   the kernels at the shapes its ``--rehearsal`` gives them (GRU hidden 64
+   at B 16 and B 10, MUTAN 32 / 32 -> 32 at R 2, the CX head over 16 x 24
+   candidates at dz 32 and 10 answers, kNN over 32 and 28 rows, k 25),
+   each against its plain version with a bit-equal rerun; (a) ``python -m
+   vqa_counterexamples_tpu_torch.scripts.replicate_reference --project_dir
+   <tmp> --rehearsal`` as a user runs it (``--device cuda``, every CLI its
+   own process): rc 0 and ``replication complete``, then the same command
+   over the same directory: no CLI runs and the final results are
+   verified again; each stage's seconds; (b) its ``main`` in this process
+   (``run_cli``: each CLI's ``main``, its launches counted) over a fixture
+   in the runbook's layout (``write_fixtures`` with
+   ``learnable_questions``: 32 / 28 COCO-named JPEGs, 128 questions an
+   image, more than 2,000 train answers, a skip-thoughts set at 2400, the
+   fake fbresnet152 ``.pth``) with the full-scale knobs but 32 / 28
+   images, 1 VQA and 1 CX epoch and the rehearsal's thresholds: the stock
+   YAMLs (nans 2000, GRU 2400, MUTAN 360 / R 10, NeuralCX 300),
+   extraction at 448 / B 80 from the ``.pth``; every CLI's launch counts
+   exact (kNN once a split; 3f′, 3b and #4 once a train step, 3f and #4
+   once a val batch; 3f once per 128 covered answers; the CX CLI's 3f
+   once per q-cache build and mixture once per step and eval batch), the
+   ``best`` checkpoint written, each stage's seconds and the peak
+   allocated memory; then the rerun, which runs no CLI.
 
 Phase 1 also holds the folded MUTAN kernels (forward and backward, each
 with a bit-equal rerun) at MutanAtt's attention shape, the kNN kernel at
@@ -317,8 +340,13 @@ TOL = {
     # order
     "attmutan_bwd_rel": 1e-2,
     # kNN distances (tests/test_pallas_knn.py), and the self-distance: f32
-    # cancellation noise of about sqrt(eps |q|^2), some 2e-2 at dim 2048
-    "knn": dict(rtol=1e-4, self_atol=2e-2),
+    # cancellation noise of about sqrt(eps |q|^2), some 2e-2 at dim 2048.
+    # Where the plain version's f32 GEMM sums in another order than at the
+    # builder's shape (a self-kNN over 32 rows), the two self-distances
+    # are each sqrt of their own noise, up to 0.075 and 0.031 of an exact
+    # 1.5e-6: each is then held to zero instead, within self_zero |q| (the
+    # score's noise at most 2^-16 |q|^2; 2^-18 seen at dim 2048)
+    "knn": dict(rtol=1e-4, self_atol=2e-2, self_zero=2.0 ** -8),
     # phase 15, ranks against one rank where only the sum order differs
     # (the gradients' all-reduce, the per-rank GEMMs of half the rows):
     # per-step and eval losses, eval recall, the share of val answers that
@@ -638,6 +666,12 @@ def phase_kernels(dev, card):
     rows.update(pretrain_kernel_rows(dev, gen, randn))
     rows.update(att_knn_kernel_rows(dev, gen, randn))
     rows.update(serve_kernel_rows(dev, gen, randn))
+    log_rows(rows, card)
+    return rows
+
+
+def log_rows(rows, card):
+    """Each row's bound from its work, logged beside its times."""
     for name, row in rows.items():
         row["bound_ms"], row["bound_by"] = bound(*row.pop("work"))
         lib = ("  library %.3f ms" % row["library_ms"]
@@ -645,7 +679,6 @@ def phase_kernels(dev, card):
         log("  %-9s kernel %.3f ms  plain %.3f ms%s  bound %.4f ms (%s)  (%s)"
             % (name, row["ms"], row["plain_ms"], lib, row["bound_ms"],
                row["bound_by"], card))
-    return rows
 
 
 def rel_err(name, got, ref, rel):
@@ -816,16 +849,28 @@ def no_mask_pair_rows(randn, xp, w_hh, b_hh, batch):
     return rows
 
 
-def check_knn(name, dist, idx, ref_dist, ref_idx, self_idx=None):
+def check_knn(name, dist, idx, ref_dist, ref_idx, self_idx=None,
+              qnorm=None):
     """The kernel's (dist, idx) (Bq, k) against the plain version's with one
     more neighbour (Bq, k + 1): distances within the stated tolerance, the
     same neighbour wherever it is further than twice that from both of
     its neighbours in the plain ranking, and rank 0 the query itself when
-    ``self_idx`` is given.  Returns the max abs distance error."""
+    ``self_idx`` is given.  With ``qnorm`` (the queries' |q|), the
+    self-distance of each side is held to zero within ``self_zero`` |q|
+    instead of to the other's.  Returns the max abs distance error."""
     k = dist.shape[1]
     tol = TOL["knn"]["rtol"] * ref_dist.abs()
-    tol[:, 0] += TOL["knn"]["self_atol"]
+    tol[:, 0] += (TOL["knn"]["self_atol"] if qnorm is None
+                  else float("inf"))
+    zero_ok = True
+    if qnorm is not None:
+        worst = max((d[:, 0] / qnorm).max().item() for d in (dist, ref_dist))
+        zero_ok = worst <= TOL["knn"]["self_zero"]
+        log("  %-10s self-distances at most %.3e |q| on both routes (bound "
+            "%g |q|): %s" % (name, worst, TOL["knn"]["self_zero"],
+                             "ok" if zero_ok else "out"))
     err = (dist - ref_dist[:, :k]).abs()
+    held = err if qnorm is None else err[:, 1:]
     gap = ref_dist[:, 1:] - ref_dist[:, :-1]             # (Bq, k)
     prev = torch.cat([torch.full_like(gap[:, :1], float("inf")),
                       gap[:, :-1]], 1)
@@ -836,14 +881,14 @@ def check_knn(name, dist, idx, ref_dist, ref_idx, self_idx=None):
     bad = int((err > tol[:, :k]).sum().item())
     log("  %-10s max_abs %.3e (rtol %g, self-distance atol %g): %s; "
         "neighbours equal at %d of %d clear ranks%s"
-        % (name, err.max().item(), TOL["knn"]["rtol"],
+        % (name, held.max().item(), TOL["knn"]["rtol"],
            TOL["knn"]["self_atol"], "ok" if bad == 0 else "%d out" % bad,
            int((clear & (idx == ref_idx[:, :k])).sum().item()),
            int(clear.sum().item()),
            "" if self_idx is None else ", rank 0 the query: %s" % ok_self))
-    if bad or not bool(same.all()) or not ok_self:
+    if bad or not bool(same.all()) or not ok_self or not zero_ok:
         raise AssertionError("%s disagrees with its plain version" % name)
-    return err.max().item()
+    return held.max().item()
 
 
 def att_knn_kernel_rows(dev, gen, randn):
@@ -4633,6 +4678,313 @@ def phase_bridge(dev, card):
                                     memory_line(card)))
 
 
+REP_QUESTIONS = 128        # questions an image (phase 17b's fixture)
+REP_COMP = 8               # of them shared with the image's pair mate
+REP_POOL = 2400            # answer and question words
+REP_STAGES = ("preprocess,skipthoughts,extract,knn,train,answer_embedding,"
+              "build_vqacx,counterexamples")
+
+
+def learnable_questions(split, n_images, rng):
+    """Phase 17b's VQA2-format records, in the layout of the runbook's
+    ``_rehearsal_questions``: ``REP_QUESTIONS`` questions an image, the
+    first ``REP_COMP`` shared with its pair mate (other answers), then by
+    turns "is there a <word> ?", answered "yes", and "what is the <word>
+    near the <word> ?", answered with a word of a pool of ``REP_POOL``:
+    each train answer a new word (more than 2,000 answers, so nans 2000
+    cuts the tail), each val answer a random one.  The "yes" questions are
+    what an epoch learns (the answer follows from the question's first
+    word, and from the prior): val acc@1 leaves 0 and the runbook's
+    ``best_*`` checkpoint is written."""
+    pool = ["w%04d" % i for i in range(REP_POOL)]
+    fresh = iter(rng.permutation(REP_POOL))
+    questions, annotations, comp_pairs = [], [], []
+
+    def word():
+        return pool[int(rng.integers(REP_POOL))]
+
+    def what():
+        return pool[int(next(fresh))] if split == "train" else word()
+
+    def add(qid, image_id, text, answer):
+        questions.append({"question_id": qid, "image_id": image_id,
+                          "question": text})
+        occurrence = [{"answer": answer}] * 8 + [{"answer": word()}] * 2
+        annotations.append({"question_id": qid,
+                            "multiple_choice_answer": answer,
+                            "answers": occurrence})
+
+    for a in range(1, n_images, 2):
+        for q in range(REP_COMP):
+            text = "what is the %s near the %s ?" % (word(), word())
+            add(a * 1000 + q, a, text, what())
+            add((a + 1) * 1000 + q, a + 1, text, what())
+            comp_pairs.append([a * 1000 + q, (a + 1) * 1000 + q])
+    for i in range(1, n_images + 1):
+        for q in range(REP_COMP, REP_QUESTIONS):
+            if q % 2:
+                add(i * 1000 + q, i, "is there a %s ?" % word(), "yes")
+            else:
+                add(i * 1000 + q, i, "what is the %s near the %s ?"
+                    % (word(), word()), what())
+    return questions, annotations, comp_pairs
+
+
+def rehearsal_kernel_rows(dev, card):
+    """The kernels at the shapes the runbook's ``--rehearsal`` gives them
+    (GRU hidden 64 at the VQA batch 16 and the answer embedding's 10
+    answers, MUTAN 32 / 32 -> 32 at R 2, the CX head over B 16 x K 24
+    candidates at dz 32 and 10 answers, kNN over 32 and 28 rows, k 25),
+    each against its plain version (logged, outside the kernels line)."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import (
+        gru_kernel, knn_kernel, mixture_kernel)
+
+    log("== phase 17: the kernels at the rehearsal's widths")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    T, B, H = 26, 16, 64
+    xp, w_hh = randn(T, B, 3 * H), randn(3 * H, H, scale=H ** -0.5)
+    b_hh = randn(3 * H, scale=0.1, dtype=torch.float32)
+    keep = torch.rand(3, B, H, generator=gen, device=dev) < 0.75
+    mask = (keep * (256.0 / 192)).to(torch.bfloat16)
+    rows = {"gru_pg H64": gru_fwd_row("gru_pg H64", xp, w_hh, b_hh, mask,
+                                      True),
+            "gru H64": gru_fwd_row("gru H64", xp, w_hh, b_hh, None, False),
+            "gru H64 B10": gru_fwd_row("gru H64 B10",
+                                       xp[:, :10].contiguous(), w_hh, b_hh,
+                                       None, False)}
+    s1, h1 = gru_kernel.gru_recurrence(xp, w_hh, b_hh, mask, want_hproj=True)
+    rows["gru_bwd H64"] = gru_bwd_row("gru_bwd H64", randn, xp, w_hh, mask,
+                                      s1, h1)
+    rows["mutan R2"] = mutan_row("mutan R2", randn, B, 32, 32, 2, 32)
+    M, DZ, A = B * 24, 32, 10
+    z, w_cls, b_cls = randn(M, DZ), randn(A, DZ, scale=DZ ** -0.5), randn(A)
+    first = mixture_kernel.classify_softmax(z, w_cls, b_cls)
+    rows["mixture A10"] = dict(
+        max_abs_err=check_close(
+            "mixture A10", first,
+            mixture_kernel.classify_softmax_plain(z, w_cls, b_cls),
+            TOL["mixture"]),
+        ms=time_ms(lambda: mixture_kernel.classify_softmax(z, w_cls, b_cls),
+                   reps=20),
+        plain_ms=time_ms(lambda: mixture_kernel.classify_softmax_plain(
+            z, w_cls, b_cls), reps=20),
+        work=(2 * M * DZ * A, (M * DZ + A * DZ + A + M * A) * 2))
+    check_rerun("mixture A10", first,
+                mixture_kernel.classify_softmax(z, w_cls, b_cls))
+    for n in (32, 28):
+        corpus = torch.randn(n, 2048, generator=gen, device=dev)
+        csq = (corpus * corpus).sum(1)
+        dist, idx = knn_kernel.knn_chunk(corpus, corpus, 25, csq)
+        ref_d, ref_i = knn_kernel.knn_chunk_plain(corpus, corpus, 26, csq)
+        name = "knn N%d" % n
+        rows[name] = dict(
+            max_abs_err=check_knn(name, dist, idx, ref_d, ref_i,
+                                  self_idx=torch.arange(n, device=dev),
+                                  qnorm=csq.sqrt()),
+            ms=time_ms(lambda: knn_kernel.knn_chunk(corpus, corpus, 25,
+                                                    csq)),
+            plain_ms=time_ms(lambda: knn_kernel.knn_chunk_plain(
+                corpus, corpus, 25, csq)),
+            work=(3 * 2 * n * n * 2048 + 3 * n * n,
+                  (2 * n * 2048 + 2 * n) * 4 + n * 25 * 8,
+                  PEAK_TF32_FLOPS))
+        check_rerun(name, idx,
+                    knn_kernel.knn_chunk(corpus, corpus, 25, csq)[1])
+    log_rows(rows, card)
+    log("  the rehearsal's shapes: every kernel agrees (%s)" % card)
+
+
+@contextlib.contextmanager
+def quiet():
+    """Capture stdout; on an exception, write its tail to the real
+    stdout."""
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            yield out
+    except BaseException:
+        sys.__stdout__.write(out.getvalue()[-6000:] + "\n")
+        raise
+
+
+def runbook_seconds(out):
+    """The stage seconds a runbook run prints (``  <stage>: <s> s``)."""
+    import re
+
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^  (\w+): ([0-9.]+) s$", out, re.M)}
+
+
+def phase_rehearsal(dev, card):
+    """Phase 17a: the runbook's ``--rehearsal`` as a user runs it, then
+    again over its directory."""
+    log("== phase 17a: replicate_reference --rehearsal on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m",
+               "vqa_counterexamples_tpu_torch.scripts.replicate_reference",
+               "--project_dir", os.path.join(tmp, "proj"), "--rehearsal"]
+        for run in ("first run", "rerun"):
+            t = time.perf_counter()
+            proc = subprocess.run(
+                cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=900)
+            seconds = time.perf_counter() - t
+            ran = [line for line in proc.stdout.splitlines()
+                   if line.startswith("+ ")]
+            ok = (proc.returncode == 0 and proc.stdout.rstrip().endswith(
+                "replication complete") and (run == "first run") == bool(
+                    ran))
+            log("  %s: rc %d, %d CLIs, %.1f s; stages %s%s (%s)"
+                % (run, proc.returncode, len(ran), seconds,
+                   runbook_seconds(proc.stdout),
+                   "".join("; " + line for line in proc.stdout.splitlines()
+                           if line.startswith("FINAL:")), card))
+            if not ok:
+                log(proc.stdout[-6000:])
+                log(proc.stderr[-6000:])
+                raise AssertionError("replicate_reference --rehearsal: %s "
+                                     "failed" % run)
+
+
+def phase_runbook_full_width(dev, card):
+    """Phase 17b: the runbook's stages at the published widths, in this
+    process, each CLI's launches counted."""
+    import importlib
+    import pickle
+    import threading
+
+    from vqa_counterexamples_tpu_torch.scripts import (
+        replicate_reference as rr)
+
+    log("== phase 17b: the runbook at full width, in-process")
+    torch.cuda.reset_peak_memory_stats()
+    calls = []
+
+    def run_cli(module, args):
+        main = importlib.import_module(
+            "vqa_counterexamples_tpu_torch.cli." + module).main
+        # the threads the CLI starts (the train CLI's eval_res scoring),
+        # not those earlier phases left running (the servers' batchers)
+        before = set(threading.enumerate())
+        reset_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with quiet():
+            main(args)
+            for thread in set(threading.enumerate()) - before:
+                thread.join(timeout=300)
+        torch.cuda.synchronize()
+        calls.append((module, args, time.perf_counter() - t,
+                      read_counters()))
+
+    # the full-scale knobs but 32 / 28 images, 1 epoch each and the
+    # rehearsal's thresholds
+    knob = dict(n_train_images=32, n_val_images=28, vqa_epochs=1,
+                cx_epochs=1, min_vqa_acc=0.0, min_r1=0.0, min_r5=0.0,
+                min_train_examples=3000,
+                max_train_examples=32 * REP_QUESTIONS,
+                min_cx_examples=4, max_cx_examples=1000)
+    with tempfile.TemporaryDirectory() as root:
+        P = rr.knobs(root, **knob)
+        t = time.perf_counter()
+        with quiet():
+            rr.write_fixtures(P, questions=learnable_questions)
+        log("  fixture (32 / 28 images, %d questions each, skip-thoughts "
+            "at %d, the fake fbresnet152): %.1f s"
+            % (REP_QUESTIONS, P.dim_q, time.perf_counter() - t))
+        argv = ["--project_dir", root, "--stages", REP_STAGES]
+        with quiet() as out:
+            P = rr.main(argv, run_cli=run_cli, overrides=knob)
+        text = out.getvalue()
+        if not text.rstrip().endswith("replication complete"):
+            raise AssertionError("the runbook did not complete")
+
+        def count(name):
+            with open(name, "rb") as f:
+                return len(pickle.load(f))
+
+        n_train = count(os.path.join(P.processed, "trainset.pickle"))
+        n_val = count(os.path.join(P.processed, "valset.pickle"))
+        with open(os.path.join(P.processed, "aid_to_ans.pickle"), "rb") as f:
+            answers = pickle.load(f)
+        with open(os.path.join(P.processed, "wid_to_word.pickle"),
+                  "rb") as f:
+            vocab = set(pickle.load(f).values())
+        covered = sum(all(w in vocab for w in a.split()) for a in answers)
+        n_cx = {}
+        for split in ("train", "val"):
+            with open(os.path.join(P.cx_data, "%sset_augmented.pickle"
+                                   % split), "rb") as f:
+                n_cx[split] = len(pickle.load(f)["examples_list"])
+        steps, val_batches = n_train // P.vqa_batch, n_val // P.vqa_batch
+        cx_batch = config_options(os.path.join(
+            root, "cx_replication.yaml"))["optim"]["batch_size"]
+        cx_steps = -(-n_cx["train"] // cx_batch)
+        want = {
+            "knn": {"knn": 1},
+            "train": {"gru_pg": steps, "gru_bwd": steps,
+                      "mutan": steps + val_batches, "gru": val_batches},
+            "build_answer_embedding": {"gru": -(-covered // 128)},
+            # q caches for train, val and the test pass; the fused head
+            # once a train step and an eval batch (val and test)
+            "counterexamples": {"gru": 3, "mixture": cx_steps + 2 * -(
+                -n_cx["val"] // cx_batch)}}
+        bad = []
+        for module, args, seconds, launches in calls:
+            expect = {k: want.get(module, {}).get(k, 0) for k in SOURCES}
+            split = [args[i + 1] for i, a in enumerate(args)
+                     if a in ("--split", "--data_split")]
+            log("  %-22s %6.2f s; launches %s"
+                % (" ".join([module] + split), seconds,
+                   {k: n for k, n in launches.items() if n}))
+            if launches != expect:
+                bad.append((module, launches, expect))
+        with open(os.path.join(P.dir_logs_vqa, "logger.json")) as f:
+            acc = json.load(f)["logged"]["val"]["acc1"]
+        log("  %d answers, %d of %d train questions kept, %d val; %d "
+            "answers covered; %d VQA steps, %d val batches, val acc@1 %s; "
+            "augmented %d train / %d val, %d CX steps; %s"
+            % (len(answers), n_train, 32 * REP_QUESTIONS, n_val, covered,
+               steps, val_batches, acc, n_cx["train"], n_cx["val"],
+               cx_steps, [line for line in text.splitlines()
+                          if line.startswith("FINAL:")]))
+        log("  stage seconds: %s (%s)" % (runbook_seconds(text), card))
+        log("  phase 17b: " + memory_line(card))
+        if bad:
+            raise AssertionError("runbook launch counts (got, expected): %s"
+                                 % bad)
+        launched = {k for _, _, _, c in calls for k, n in c.items() if n}
+        missing = {"gru", "gru_pg", "gru_bwd", "mutan", "knn",
+                   "mixture"} - launched
+        if missing or not os.path.isfile(os.path.join(
+                P.dir_logs_vqa, "best_model.msgpack")):
+            raise AssertionError("runbook: %s never launched, or no "
+                                 "best_model.msgpack" % sorted(missing))
+        # the rerun: every stage skipped, the final results verified again
+        calls.clear()
+        with quiet() as out:
+            rr.main(argv, run_cli=run_cli, overrides=knob)
+        if calls or "FINAL:" not in out.getvalue():
+            raise AssertionError("the runbook's rerun ran %s"
+                                 % [c[0] for c in calls])
+        log("  rerun over the same directory: no CLI ran, the final "
+            "results verified again")
+
+
+def phase_replicate(dev, card):
+    """Phase 17: the replication runbook on the card."""
+    t = time.perf_counter()
+    rehearsal_kernel_rows(dev, card)
+    phase_rehearsal(dev, card)
+    phase_runbook_full_width(dev, card)
+    log("  phase 17: %.1f s (%s)" % (time.perf_counter() - t, card))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -4660,6 +5012,7 @@ def main():
     phase_mlb(dev, card)
     phase_parallel(dev, card, refs)
     phase_bridge(dev, card)
+    phase_replicate(dev, card)
     log("total %.1f s" % (time.perf_counter() - t0))
     # launches: each kernel's path; the CX training path (phase 3) runs
     # gru, vfeat, vfeat_bwd and mixture, MutanNoAtt pretraining (phase 5)

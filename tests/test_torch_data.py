@@ -143,8 +143,12 @@ def test_port_import_leaves_jax_out():
             "import vqa_counterexamples_tpu_torch.viz.grids\n"
             "import vqa_counterexamples_tpu_torch.utils\n"
             "import vqa_counterexamples_tpu_torch.scripts.run_ablations as r\n"
+            "import vqa_counterexamples_tpu_torch.scripts.replicate_reference"
+            " as rr\n"
             "mt.unpack(mt.pack({'a': [1, 2.5, None, 'x']}))\n"
             "r.build_parser()\n"
+            "rr.build_parser()\n"
+            "rr.knobs('proj', rehearsal=True)\n"
             "c.build_parser()\n"
             "t.build_parser()\n"
             "k.build_parser()\n"

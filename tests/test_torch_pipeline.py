@@ -148,6 +148,9 @@ def _cx_yaml(P, vqa_yaml):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    # the threads this fixture's CLIs start, joined below (not those an
+    # earlier test in this process left running, e.g. a server's batcher)
+    before = set(threading.enumerate())
     mp = pytest.MonkeyPatch()
     mp.setenv("VQACX_COMPUTE_DTYPE", "float32")
     # nothing here extracts: the fixture's fbresnet checkpoint is skipped
@@ -196,9 +199,8 @@ def runs(tmp_path_factory):
     c_info = contrastive.main(["--epochs", "1", "--path_opt", cx_yaml,
                                "--project_dir", P.project_dir, "--device",
                                "cpu"])
-    for thread in threading.enumerate():  # the eval_res scoring threads
-        if thread is not threading.current_thread():
-            thread.join(timeout=60)
+    for thread in set(threading.enumerate()) - before:  # eval_res scoring
+        thread.join(timeout=60)
     yield SimpleNamespace(P=P, J=J, state=state, table=table, info=info,
                           c_info=c_info, seen=seen, vqa_yaml=vqa_yaml)
     mp.undo()
