@@ -1,0 +1,13 @@
+"""device: the window's model operations (``perfbench/counts/<config>.py``:
+an eval batch's forward at the shapes the job handed the step, times the
+traced window's batches) over the traced window's wall time, as a share of
+the card's bf16 peak (989 TFLOP/s), in %."""
+
+
+def read(view):
+    if view.window["kind"] != "eval" or not view.trace.steps:
+        return None
+    per_step = sum(view.counts.eval_step_flops(view.config,
+                                               view.shapes).values())
+    return (100.0 * per_step * view.window["steps"] / view.trace.window_s
+            / view.kernels.peaks()["bf16_flops"])
