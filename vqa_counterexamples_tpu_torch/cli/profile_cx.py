@@ -29,7 +29,11 @@ its own copy of the starting state):
   by name;
 - device time by kernel group (the port's CUDA kernels by name, GEMMs,
   Adam, the rest) and by the top kernels;
-- ``torch.cuda.max_memory_allocated`` over the run.
+- the program's spans in the profiled calls (``core/spans``: recorded
+  while a profiler records): by name, calls, total and self ms, and ms a
+  batch;
+- ``torch.cuda.max_memory_allocated`` over the run, and the program's
+  counters (captures, kernel builds and loads, cache builds, launches).
 
 Needs a card: it refuses to run without one.  The JSON report goes to
 ``--out``.
@@ -88,6 +92,8 @@ def profile_calls(fn, calls: int, per_call: int) -> dict:
     numbers per batch (``per_call`` batches a call)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    from ..core import spans
+
     steps = calls * per_call
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -107,6 +113,7 @@ def profile_calls(fn, calls: int, per_call: int) -> dict:
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         prof.step()
+        first = len(spans.records())
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -142,7 +149,10 @@ def profile_calls(fn, calls: int, per_call: int) -> dict:
                                       sorted(host.items())},
             "device_ms_by_group": dict(sorted(by_group.items(),
                                               key=lambda kv: -kv[1])),
-            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+            "top_kernels_ms": [[n[:90], ms] for n, ms in top],
+            "spans": {name: {**row, "ms_per_step": row["total_ms"] / steps}
+                      for name, row in spans.summary(spans.records(),
+                                                     first).items()}}
 
 
 def main(argv=None):
@@ -160,7 +170,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from ..core import config
+    from ..core import config, spans
     from ..data import synthetic, vqacx
     from ..engines import cx_engine
     from ..models import factory
@@ -222,6 +232,7 @@ def main(argv=None):
                                                       args.epochs, per_pass)
     report["max_memory_allocated_mib"] = (torch.cuda.max_memory_allocated()
                                           / 2 ** 20)
+    report["counters"] = spans.counters()
     out = json.dumps(report, indent=1)
     print(out)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -13,15 +13,16 @@ examples, or MutanAtt from ``configs/vqa2/mutan_att_train.yaml`` (14 x 14
 maps of 2048, two glimpses, MUTAN R 5 at both stages) on 1024 examples over
 256 images, their maps gathered on the host (``--examples`` sets another
 count: a pass syncs at its start and end, so short passes weigh on the
-per-step figures).  It also times the host's answer sampling for one
-batch (``host_sample_answers_ms``).  Under the bf16 policy, at
+per-step figures).  Under the bf16 policy, at
 the configuration's batch size (512 / 128), it warms up, then times
 ``--epochs`` passes of ``engines/vqa_engine.train_epoch`` (Adam at 1e-4,
 the reference's dropouts) and of ``validate`` over the same examples on
 the host clock, runs them again under ``torch.profiler``, and reports per
 batch what ``cli/profile_cx.py`` reports (wall, host and drain ms;
 device-busy ms and idle share; kernel launches and the host's launch
-calls; device time by kernel group and the top kernels), for the train
+calls; device time by kernel group and the top kernels; the program's
+spans, among them ``data.batch``, a batch's answer sampling and gather,
+and its counters), for the train
 step the CLI runs (a captured CUDA graph: ``train_step``) and beside it
 for the same step run eagerly from a copy of the starting state
 (``train_step_eager``); the eval batches run eagerly (``eval_batch``).
@@ -37,7 +38,6 @@ import copy
 import json
 import os
 import subprocess
-import time
 
 import numpy as np
 import torch
@@ -90,6 +90,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     from ..core import config as config_lib
+    from ..core import spans
     from ..core.experiment import Experiment
     from ..core.meters import AvgMeter
     from ..data.vqa_dataset import VQAArrays
@@ -113,15 +114,9 @@ def main(argv=None):
         exp.add_meters(tag, {k: AvgMeter() for k in (
             "loss", "acc1", "acc5", "batch_time", "data_time")})
     per_pass = arrays.size // batch_size
-    sample_rng = np.random.default_rng(args.seed)
-    t0 = time.perf_counter()
-    for _ in range(20):
-        arrays.sample_answers(np.arange(batch_size), sample_rng)
     report = {"card": card, "config": os.path.basename(args.path_opt),
               "batch_size": batch_size,
-              "examples": arrays.size, "passes": args.epochs,
-              "host_sample_answers_ms": (time.perf_counter() - t0) / 20
-              * 1e3}
+              "examples": arrays.size, "passes": args.epochs}
     torch.cuda.reset_peak_memory_stats()
     for suffix, capture in (("", None), ("_eager", False)):
         m = copy.deepcopy(model)
@@ -151,6 +146,7 @@ def main(argv=None):
     report["eval_batch"] = profile_calls(eval_pass, args.epochs, per_pass)
     report["max_memory_allocated_mib"] = (torch.cuda.max_memory_allocated()
                                           / 2 ** 20)
+    report["counters"] = spans.counters()
     out = json.dumps(report, indent=1)
     print(out)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -47,6 +47,15 @@ capture, puts the counters back as they were before the warm-up (neither
 the warm-up nor the capture runs a step that is kept) and adds the
 recorded increase at every replay (:class:`LaunchLedger`), so a counter
 still counts the launches that the steps executed.
+
+Under a profiler a step's call is the span ``engine.step`` (``core/spans``)
+with its parts in order: ``engine.stage`` (the inputs' copies),
+``engine.check`` (the addresses), ``engine.capture`` (a first call or a
+recapture, warm-up included), ``engine.reseed``, ``engine.replay`` (with
+the ledger) and ``engine.outputs``; eagerly ``engine.stage``,
+``engine.reseed`` and ``engine.eager`` (the body).  Every capture, of a
+step or of a :class:`GraphedCall`, counts in ``engine.captures`` and its
+host seconds in ``engine.capture_s``.
 """
 
 from __future__ import annotations
@@ -56,6 +65,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from . import spans
 
 # pinned staging buffers a step's inputs rotate through
 _STAGING_SLOTS = 2
@@ -262,27 +273,41 @@ class GraphedStep:
 
     def __call__(self, inputs: dict, tables=(), *, seed: int = 0,
                  step: int = 0) -> dict:
-        layout = input_layout(inputs)
-        static = self._inputs.get(layout)
-        if static is None:
-            static = self._inputs[layout] = StaticInputs(layout, self.device)
-        static.load(inputs)
+        with spans.span("engine.step", step):
+            return self._run(inputs, tables, seed, step)
+
+    def _run(self, inputs, tables, seed, step) -> dict:
+        with spans.span("engine.stage"):
+            layout = input_layout(inputs)
+            static = self._inputs.get(layout)
+            if static is None:
+                static = self._inputs[layout] = StaticInputs(layout,
+                                                             self.device)
+            static.load(inputs)
         if not self.capture:
-            self._reseed(seed, step)
-            return self.body(static.tensors, *tables)
-        if (self._addresses is not None
-                and self._addresses != self._state_addresses()):
-            self._graphs.clear()
+            with spans.span("engine.reseed"):
+                self._reseed(seed, step)
+            with spans.span("engine.eager"):
+                return self.body(static.tensors, *tables)
+        with spans.span("engine.check"):
+            if (self._addresses is not None
+                    and self._addresses != self._state_addresses()):
+                self._graphs.clear()
         key = (layout, tuple(_table_key(t) for t in tables))
         entry = self._graphs.get(key)
         if entry is None:
-            entry = self._graphs[key] = self._capture(static, tables, seed,
-                                                      step)
-            self._addresses = self._state_addresses()
-        self._reseed(seed, step)
-        entry.graph.replay()
-        self.ledger.add(entry.delta)
-        return dict(zip(entry.names, entry.packed.clone().unbind()))
+            with spans.span("engine.capture"), spans.timed(
+                    "engine.capture_s", "engine.captures"):
+                entry = self._graphs[key] = self._capture(static, tables,
+                                                          seed, step)
+                self._addresses = self._state_addresses()
+        with spans.span("engine.reseed"):
+            self._reseed(seed, step)
+        with spans.span("engine.replay"):
+            entry.graph.replay()
+            self.ledger.add(entry.delta)
+        with spans.span("engine.outputs"):
+            return dict(zip(entry.names, entry.packed.clone().unbind()))
 
     def _reseed(self, seed, step) -> None:
         if self.generators is not None:
@@ -412,7 +437,8 @@ class GraphedCall:
                 return self.body(static.tensors)
             entry = self._graphs.get(layout)
             if entry is None:
-                entry = self._graphs[layout] = self._capture(static)
+                with spans.timed("engine.capture_s", "engine.captures"):
+                    entry = self._graphs[layout] = self._capture(static)
             graph, outputs, delta = entry
             graph.replay()
             self.ledger.add(delta)

@@ -23,6 +23,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..core import spans
 from ..parallel.sharding import corpus_rows
 from .features import FeatureStore
 
@@ -95,7 +96,11 @@ class VQAArrays:
         (``parallel.corpus_rows``' split: a data-parallel rank's rows);
         the answers are still sampled for the whole batch, so the draws
         are those of the whole, and the batch's ``rows`` entry holds
-        (first row, batch size)."""
+        (first row, batch size).
+
+        On every path a batch's assembly (its answers, its rows' gather
+        or copy) is the span ``data.batch`` (``core/spans``), closed
+        before the batch is yielded."""
         rng = rng or np.random.default_rng()
         order = np.arange(self.size)
         if shuffle:
@@ -133,9 +138,11 @@ class VQAArrays:
             rows_dev = torch.from_numpy(
                 self.image_rows[order].astype(np.int64)).to(dev)
             for s in starts:
-                lo, hi, _ = span(s)
-                yield assemble(s, device_features.index_select(
-                    0, rows_dev[s + lo:s + hi]))
+                with spans.span("data.batch"):
+                    lo, hi, _ = span(s)
+                    batch = assemble(s, device_features.index_select(
+                        0, rows_dev[s + lo:s + hi]))
+                yield batch
             return
         if not starts:
             return
@@ -237,14 +244,17 @@ def _ahead(n: int, start, make):
     fetch and returns the call that finishes it.  A fetch in flight is
     finished before the generator lets go of it, also when the consumer
     closes the generator early: a native ticket must not outlive the
-    buffer it writes."""
+    buffer it writes.  Each item's wait, next start and make are the span
+    ``data.batch``, closed before the item is handed out."""
     pending = start(0)
     try:
         for i in range(n):
-            fetched, pending = pending(), None
-            if i + 1 < n:
-                pending = start(i + 1)
-            yield make(i, fetched)
+            with spans.span("data.batch"):
+                fetched, pending = pending(), None
+                if i + 1 < n:
+                    pending = start(i + 1)
+                batch = make(i, fetched)
+            yield batch
     finally:
         if pending is not None:
             pending()

@@ -52,6 +52,7 @@ import torch
 
 from ..core import graphs
 from ..core import rng as rng_lib
+from ..core import spans
 from ..data import vqacx
 from ..ops.cuda import launch_counters
 from ..ops.metrics import nll, recall_at_k
@@ -193,7 +194,9 @@ def build_frozen_caches(model, features: torch.Tensor,
     The z build needs q and the per-image v projection, so v is built
     whenever z is; with the z cache on, ``v_table`` is then dropped (z
     subsumes v in the step).  Returns ``(q_table, v_table, z_table,
-    stage_s)`` with each stage's synchronised wall seconds.
+    stage_s)`` with each stage's synchronised wall seconds, which also add
+    to the counters ``cx.cache_build_s.q`` / ``.v`` / ``.z``
+    (``core/spans``).
     """
     if use_z and not use_q:
         raise ValueError("the z cache is built from the q cache")
@@ -202,21 +205,21 @@ def build_frozen_caches(model, features: torch.Tensor,
     stage_s = {}
     q_table = v_table = z_table = None
     if use_q:
-        t = time.perf_counter()
-        q_table = precompute_q_emb(model, arrays.question_wids)
-        _sync(device)
-        stage_s["q"] = time.perf_counter() - t
+        with spans.timed("cx.cache_build_s.q") as t:
+            q_table = precompute_q_emb(model, arrays.question_wids)
+            _sync(device)
+        stage_s["q"] = t.seconds
     if use_v or use_z:
-        t = time.perf_counter()
-        v_table = precompute_v_proj(model, features)
-        _sync(device)
-        stage_s["v"] = time.perf_counter() - t
+        with spans.timed("cx.cache_build_s.v") as t:
+            v_table = precompute_v_proj(model, features)
+            _sync(device)
+        stage_s["v"] = t.seconds
     if use_z:
-        t = time.perf_counter()
-        z_table = precompute_z_emb(model, arrays.image_idxs, q_table,
-                                   v_table)
-        _sync(device)
-        stage_s["z"] = time.perf_counter() - t
+        with spans.timed("cx.cache_build_s.z") as t:
+            z_table = precompute_z_emb(model, arrays.image_idxs, q_table,
+                                       v_table)
+            _sync(device)
+        stage_s["z"] = t.seconds
         v_table = None  # z subsumes v in the step
     return q_table, v_table, z_table, stage_s
 
@@ -559,7 +562,8 @@ def train_epoch(train_step, state: CXTrainState, features,
     one call, a short final group runs as single steps, as the JAX engine
     groups them.  The hooks then fire once per group, at the group's last
     batch, with its last step's metrics.  Under a mesh (a step built with
-    ``mesh=``) the scan is ignored, as the JAX engine ignores it."""
+    ``mesh=``) the scan is ignored, as the JAX engine ignores it.  Each
+    batch's draw and gather is the span ``data.batch`` (``core/spans``)."""
     rng = rng or np.random.default_rng()
     if pairwise and z_table is not None:
         raise ValueError("z_table rows are per fixed candidate list; "
@@ -585,10 +589,12 @@ def train_epoch(train_step, state: CXTrainState, features,
             eval_results = eval_fn(state)
 
     tables = dict(q_table=q_table, v_table=v_table, z_table=z_table)
-    for b, (idx, n_valid) in enumerate(
-            vqacx.batch_indices(arrays.size, batch_size, shuffle=True,
-                                rng=rng), start=1):
-        batch = vqacx.gather_batch(arrays, idx)
+    draws = vqacx.batch_indices(arrays.size, batch_size, shuffle=True,
+                                rng=rng)
+    for b in range(1, n_batches + 1):
+        with spans.span("data.batch"):
+            idx, n_valid = next(draws)
+            batch = vqacx.gather_batch(arrays, idx)
         n_seen += n_valid
         if not use_scan:
             state, metrics = train_step(state, features, batch, n_valid,

@@ -34,6 +34,7 @@ import torch
 
 from ..core import graphs
 from ..core import rng as rng_lib
+from ..core import spans
 from ..ops.cuda import launch_counters
 from ..ops.metrics import accuracy_topk, cross_entropy_mean, cross_entropy_sum
 from ..parallel.sharding import (all_reduce_grads, batch_split, gather_rows,
@@ -149,21 +150,23 @@ def make_vqa_eval_step(model, *, mesh=None):
     """Returns ``eval_step(batch)`` -> loss, acc1, acc5 and the argmax
     answer ids ``pred``, as device tensors (eval mode, no dropout).  Under
     ``mesh`` the metrics are this rank's share of the batch's means
-    (:func:`validate` adds the ranks') and ``pred`` its rows'."""
+    (:func:`validate` adds the ranks') and ``pred`` its rows'.  A call is
+    the span ``engine.step`` (``core/spans``)."""
     @torch.no_grad()
     def eval_step(batch: dict):
-        b = batch_to_device(batch, _device(model))
-        model.eval()
-        output = model(b["visual"], b["question"])
-        acc1, acc5 = accuracy_topk(output, b["answer"], (1, 5))
-        out = {"loss": cross_entropy_mean(output, b["answer"]),
-               "acc1": acc1, "acc5": acc5,
-               "pred": torch.argmax(output, dim=-1)}
-        if mesh is not None:
-            share = output.shape[0] / batch["rows"][1]
-            for k in _KEYS:
-                out[k] = out[k] * share
-        return out
+        with spans.span("engine.step"):
+            b = batch_to_device(batch, _device(model))
+            model.eval()
+            output = model(b["visual"], b["question"])
+            acc1, acc5 = accuracy_topk(output, b["answer"], (1, 5))
+            out = {"loss": cross_entropy_mean(output, b["answer"]),
+                   "acc1": acc1, "acc5": acc5,
+                   "pred": torch.argmax(output, dim=-1)}
+            if mesh is not None:
+                share = output.shape[0] / batch["rows"][1]
+                for k in _KEYS:
+                    out[k] = out[k] * share
+            return out
 
     eval_step.mesh = mesh
     return eval_step
@@ -233,16 +236,18 @@ def train_epoch(train_step, state, loader, experiment, epoch: int,
     from the end of the previous batch to the end of this one, the read
     that waits for the card included, so an epoch's ``batch_time`` values
     sum to its wall time (less the prints).  A batch that ends on no read
-    is timed when the next one starts, or after the epoch's last read."""
+    is timed when the next one starts, or after the epoch's last read.
+    A read is the span ``engine.meters_read`` (``core/spans``)."""
     meters = experiment.reset_meters("train")
     pending = []   # (metrics, batch size) not yet read from the device
 
     def flush():
         if pending:
-            values = _read([m for m, _ in pending])
-            for (_, n), row in zip(pending, values):
-                for k, v in zip(_KEYS, row):
-                    meters[k].update(float(v), n=n)
+            with spans.span("engine.meters_read"):
+                values = _read([m for m, _ in pending])
+                for (_, n), row in zip(pending, values):
+                    for k, v in zip(_KEYS, row):
+                        meters[k].update(float(v), n=n)
             pending.clear()
 
     end = time.time()
@@ -281,7 +286,9 @@ def validate(eval_step, loader, experiment, epoch: int, aid_to_ans=None,
     """Validation pass (reference ``engine.py:65-114``); with
     ``collect_results`` also the OpenEnded rows [{question_id, answer}].
     One read from the device, at the end; under a mesh the ranks' metrics
-    are added there, in one all-reduce, and the rows gathered per batch."""
+    are added there, in one all-reduce, and the rows gathered per batch.
+    The read and the rows are the span ``engine.pass_end``
+    (``core/spans``)."""
     meters = experiment.reset_meters("val")
     mesh = getattr(eval_step, "mesh", None)
     outs, sizes, qids = [], [], []
@@ -296,15 +303,16 @@ def validate(eval_step, loader, experiment, epoch: int, aid_to_ans=None,
         qids.append(qid)
     results = []
     if outs:
-        values = _read(outs, mesh)
-        for n, row in zip(sizes, values):
-            for k, v in zip(_KEYS, row):
-                meters[k].update(float(v), n=n)
-        if collect_results and aid_to_ans is not None:
-            preds = torch.cat([o["pred"] for o in outs]).cpu().numpy()
-            for qid, aid in zip(_host_ids(qids), preds):
-                results.append({"question_id": int(qid),
-                                "answer": aid_to_ans[int(aid)]})
+        with spans.span("engine.pass_end"):
+            values = _read(outs, mesh)
+            for n, row in zip(sizes, values):
+                for k, v in zip(_KEYS, row):
+                    meters[k].update(float(v), n=n)
+            if collect_results and aid_to_ans is not None:
+                preds = torch.cat([o["pred"] for o in outs]).cpu().numpy()
+                for qid, aid in zip(_host_ids(qids), preds):
+                    results.append({"question_id": int(qid),
+                                    "answer": aid_to_ans[int(aid)]})
     experiment.log_meters("val", n=epoch)
     out = {"acc1": meters["acc1"].value(), "acc5": meters["acc5"].value(),
            "loss": meters["loss"].value()}

@@ -8,7 +8,9 @@ under a name keyed by the hash of its sources and flags, so an edited
 source rebuilds and an unchanged one is reused; a file lock per library
 lets one process build it while the others (a run's ranks) wait.  The
 ``-Xptxas -v`` report (registers, shared memory, spills per kernel) is
-kept beside the library as ``lib<name>_<hash>.log``.
+kept beside the library as ``lib<name>_<hash>.log``.  Counters
+(``core/spans``): ``kernels.builds`` and ``kernels.build_s`` (nvcc runs and
+their seconds), ``kernels.loads`` (libraries loaded).
 
 Nothing here runs at import time: the CPU tests import every module, on
 hosts that may have no ``nvcc``.
@@ -24,6 +26,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from ...core import spans
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -65,7 +69,8 @@ def build(name: str) -> Path:
         tmp = out.with_suffix(".so.tmp%d" % os.getpid())
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC_DIR / ("%s.cu" % name))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with spans.timed("kernels.build_s", "kernels.builds"):
+            proc = subprocess.run(cmd, capture_output=True, text=True)
         out.with_suffix(".log").write_text(
             " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
@@ -81,6 +86,7 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library ``name``; its
     ``vqacx_error_string`` entry point is bound for error reporting."""
     lib = ctypes.CDLL(str(build(name)))
+    spans.count("kernels.loads")
     lib.vqacx_error_string.argtypes = [ctypes.c_int]
     lib.vqacx_error_string.restype = ctypes.c_char_p
     return lib
