@@ -4,7 +4,7 @@
 
 Run from the root of a checkout.  It imports only the port
 (``vqa_counterexamples_tpu_torch``), never JAX, and runs under the bf16
-policy, where the port's ten CUDA kernels are on the paths.  Any failure
+policy, where the port's CUDA kernels are on the paths.  Any failure
 ends the run with a nonzero exit and no result line.
 
 1. Kernels vs plain: builds every kernel library from ``csrc/`` (nvcc,
@@ -18,7 +18,13 @@ ends the run with a nonzero exit and no result line.
    (``torch.softmax(F.linear(z, w, b), dim=1)``), and the vfeat forward
    and backward beside cuBLAS on their two bf16 products, operands
    gathered beforehand (``torch.mm``); neither is called by the port
-   (``library_ms``).
+   (``library_ms``).  The GRU input projection's three kernels
+   (forward, dX, dW with db; ``csrc/xproj.cu``) at T 26, D 620, 3H 7,200 for MutanNoAtt's
+   train (B 512, per-gate masks) and val batches, the q cache's B 2,048,
+   MutanAtt's B 128 and the server's B 32 and B 1, each beside its plain
+   version (the composition it replaced) and one ``torch.mm`` of its
+   shape on bf16 operands; on every later phase's path their launch
+   counters are held to the GRU's (``read_counters``).
 2. Scoring at the flagship width (bench.py's configuration: dim_v 2048,
    K 24, BayesianUniSkip 620 -> 2400, MUTAN R 10 at 360, 2000 answers,
    NeuralCX 300 x 2, B 768; synthetic 2048 examples over 1024 images, random
@@ -359,7 +365,13 @@ TOL = {
     "mesh": dict(loss_rel=5e-3, recall_rel=2e-2, adam_lr_steps=6.0,
                  answers=0.98, split_rel=1e-6),
 }
-# each kernel wrapper (``ops/cuda.launch_counters``) by name: its source
+# the input projection's kernel wrappers (``csrc/xproj.cu``);
+# ops/rnn.gru_scan runs the forward once a GRU pass and dX and dW once a
+# GRU backward (every encoder here trains its embedding), so
+# read_counters holds them to the GRU's counters
+XPROJ = ("xproj", "xproj_dx", "xproj_dw")
+# each other CUDA kernel wrapper (``ops/cuda.launch_counters``) by name:
+# its source
 SOURCES = {"gru": "gru", "gru_pg": "gru", "gru_bwd": "gru", "vfeat": "vfeat",
            "vfeat_bwd": "vfeat", "mixture": "mixture", "mutan": "mutan",
            "attmutan": "attmutan", "attmutan_bwd": "attmutan", "knn": "knn"}
@@ -375,6 +387,10 @@ REPLACES = {
     "attmutan_bwd":
         "vqa_counterexamples_tpu/ops/pallas/attmutan_kernel.py:180",
     "knn": "vqa_counterexamples_tpu/ops/pallas/knn_kernel.py:91",
+    "xproj": "none: vqa_counterexamples_tpu/ops/rnn.py's projection is an "
+             "XLA dot",
+    "xproj_dx": "none: the XLA dot's VJP",
+    "xproj_dw": "none: the XLA dot's VJP",
 }
 # H100 SXM5 published peaks (NVIDIA data sheet): dense bf16 and TF32 tensor
 # cores, HBM3 bandwidth
@@ -499,7 +515,10 @@ TRACED = {"gru": ("gru_fwd_step_kernel<1,", "T"),
           "mutan": ("::mutan_fwd_kernel<", 1),
           "attmutan": ("attmutan_fwd_kernel<", 1),
           "attmutan_bwd": ("attmutan_bwd_dx_kernel<", 1),
-          "knn": ("knn_merge_kernel", 1)}
+          "knn": ("knn_merge_kernel", 1),
+          "xproj": ("xproj_gemm_fwd_kernel", 1),
+          "xproj_dx": ("xproj_gemm_dx_kernel", 1),
+          "xproj_dw": ("xproj_gemm_dw_kernel", 1)}
 
 
 def step_profile(label, run_pass, passes, per_pass, card, seq_len=0):
@@ -519,9 +538,9 @@ def step_profile(label, run_pass, passes, per_pass, card, seq_len=0):
     per_call = {k: seq_len if per == "T" else per
                 for k, (_, per) in TRACED.items()}
     for attempt in (1, 2):
-        before = read_counters()
+        before = read_all_counters()
         r = profile_calls(run_pass, passes, per_pass)
-        counted = {k: n - before[k] for k, n in read_counters().items()}
+        counted = {k: n - before[k] for k, n in read_all_counters().items()}
         seen = {k: sum(n for name, n in r["kernel_launches"].items()
                        if pattern in name)
                 for k, (pattern, _) in TRACED.items()}
@@ -556,7 +575,7 @@ def build_all():
     once."""
     from vqa_counterexamples_tpu_torch.ops.cuda import build
 
-    names = sorted(set(SOURCES.values()))
+    names = sorted(set(SOURCES.values()) | {"xproj"})
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(build.build, names)))
@@ -666,6 +685,7 @@ def phase_kernels(dev, card):
     rows.update(pretrain_kernel_rows(dev, gen, randn))
     rows.update(att_knn_kernel_rows(dev, gen, randn))
     rows.update(serve_kernel_rows(dev, gen, randn))
+    rows.update(xproj_kernel_rows(dev))
     log_rows(rows, card)
     return rows
 
@@ -1019,6 +1039,140 @@ def attmutan_row(name, randn, B, K=196, DH=310, R=5, M=510):
               + B * K * M * 2))
 
 
+def xproj_within(name, got, ref, steps, slack, share):
+    """The input projection's kernels against their plain versions: the
+    same exact bf16 products summed in another order, so an entry may
+    move by one bf16 step of each rounding (``steps``) and an f32 sum by a
+    few f32 steps of its terms' magnitudes (``slack``); nothing beyond,
+    and at most ``share`` of the entries at all.  Returns the max abs
+    error."""
+    diff = (got.float() - ref.float()).abs()
+    out = (diff > steps + slack).sum().item()
+    off = (diff > 0).float().mean().item()
+    log("  %-16s max_abs %.3e, %.4f%% of the entries differ (share %g), "
+        "%d beyond a bf16 step and the f32 sum order: %s"
+        % (name, diff.max().item(), 100 * off, share, out,
+           "ok" if out == 0 and off <= share else "out"))
+    if out or off > share:
+        raise AssertionError("%s disagrees with its plain version" % name)
+    return diff.max().item()
+
+
+def xproj_kernel_rows(dev):
+    """Phase 1's rows for the GRU input projection's kernels at T 26,
+    D 620, 3H 7,200: MutanNoAtt's train batch (B 512, per-gate masks; rows
+    ``xproj``, ``xproj_dx``, ``xproj_dw``), and logged outside the kernels
+    line its val batch (B 512, no mask), the q cache's B 2,048, MutanAtt's
+    B 128 (per-gate) and the demo server's B 32 and B 1 (no mask).  Each
+    kernel against its plain version (``xproj_within``; the forward's
+    packed bf16(x * m) bit-equal), a bit-equal rerun, its ms (the
+    forward's with its pack pass), the plain version's (the composition
+    the kernels replace), the library's (one ``torch.mm`` of the same
+    shape on bf16 operands formed beforehand, f32 out where this torch
+    has ``out_dtype``) and its bound."""
+    from vqa_counterexamples_tpu_torch.ops.cuda import xproj_kernel as xk
+
+    rows = {}
+    T, D, H3 = 26, 620, 7200
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    w = torch.randn(H3, D, generator=gen, device=dev) * H3 ** -0.5
+    b = torch.randn(H3, generator=gen, device=dev) * 0.02
+    w16 = w.to(torch.bfloat16)
+    w16f = w16.float()
+
+    def mm32(a, c):
+        try:
+            return torch.mm(a, c, out_dtype=torch.float32)
+        except TypeError:       # a torch without out_dtype: bf16 out
+            return torch.mm(a, c)
+
+    for B, kind, tag in ((512, "per_gate", ""), (512, "none", "_b512nm"),
+                         (2048, "none", "_b2048"), (128, "per_gate", "_b128"),
+                         (32, "none", "_b32"), (1, "none", "_b1")):
+        M = T * B
+        x = torch.randn(B, T, D, generator=gen, device=dev) * 0.02
+        gates = 3 if kind == "per_gate" else 1
+        mask = None if kind == "none" else (torch.rand(
+            3, B, D, generator=gen, device=dev) > 0.25).float() / 0.75
+        dout = (torch.randn(T, B, H3, generator=gen, device=dev)
+                * 1e-3).to(torch.bfloat16)
+        out, xm, wp = xk._fwd(x, mask, w, b)
+        xm_ref = xk.x_proj_operand_plain(x, mask)
+        if not torch.equal(xm, xm_ref):
+            raise AssertionError("xproj%s: bf16(x * m) differs" % tag)
+        cols = H3 // gates
+        xf, dg = xm_ref.float(), dout.reshape(M, H3).float()
+        mag = torch.cat([xf[g].abs() @ w16f[g * cols:(g + 1) * cols].abs()
+                         .t() for g in range(gates)], 1) + b.abs()
+        ref = xk.x_proj_plain(x, mask, w, b).reshape(M, H3)
+        err = xproj_within("xproj%s" % tag, out.reshape(M, H3), ref,
+                           2.0 ** -7 * ref.float().abs(), 2.0 ** -20 * mag,
+                           0.01)
+        again = xk._fwd(x, mask, w, b)[0]
+        if not torch.equal(again, out):
+            raise AssertionError("xproj%s: a rerun differs" % tag)
+        a16 = x.reshape(M, D).to(torch.bfloat16)
+        work = 2 * M * D * H3
+        rows["xproj%s" % tag] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: xk._fwd(x, mask, w, b), 10),
+            plain_ms=time_ms(lambda: xk.x_proj_plain(x, mask, w, b)),
+            library_ms=time_ms(lambda: mm32(a16, w16.t()), 10),
+            work=(work, M * D * 4 + gates * B * D * 4 * (mask is not None)
+                  + H3 * D * 4 + H3 * 4 + M * H3 * 2))
+        del out, again, ref, mag
+        dx = xk._dx(dout, mask, wp)
+        dx_ref = xk.x_proj_dx_plain(dout, mask, w)
+        masks = xk._gate_masks(mask, T)
+        steps = slack = 0
+        for g in range(gates):
+            part, wg = dg[:, g * cols:(g + 1) * cols], w16f[
+                g * cols:(g + 1) * cols]
+            m = 1.0 if masks[g] is None else masks[g]
+            steps = steps + 2.0 ** -7 * (part @ wg).abs() * m
+            slack = slack + 2.0 ** -20 * (part.abs() @ wg.abs()) * m
+        to_bt = lambda t: t.reshape(T, B, D).transpose(0, 1)
+        err = xproj_within("xproj_dx%s" % tag, dx, dx_ref,
+                           to_bt(steps) + 1e-5 * dx_ref.abs(), to_bt(slack),
+                           0.02)
+        if not torch.equal(xk._dx(dout, mask, wp), dx):
+            raise AssertionError("xproj_dx%s: a rerun differs" % tag)
+        g16 = dout.reshape(M, H3)
+        rows["xproj_dx%s" % tag] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: xk._dx(dout, mask, wp), 10),
+            plain_ms=time_ms(lambda: xk.x_proj_dx_plain(dout, mask, w)),
+            library_ms=time_ms(lambda: mm32(g16, w16), 10),
+            work=(work, M * H3 * 2 + H3 * D * 2
+                  + gates * B * D * 4 * (mask is not None) + M * D * 4))
+        del dx, dx_ref, steps, slack
+        dw, db = xk._dw(dout, xm, True)
+        dw_ref, db_ref = xk.x_proj_dw_plain(dout, xm_ref)
+        dw_mag = torch.cat([dg[:, g * cols:(g + 1) * cols].abs().t()
+                            @ xf[g].abs() for g in range(gates)])
+        err = max(xproj_within("xproj_dw%s" % tag, dw, dw_ref,
+                               2.0 ** -7 * dw_ref.abs(), 2.0 ** -20 * dw_mag,
+                               0.05),
+                  # db: an f32 sum over every row in another order, most
+                  # entries off in their last bits: the bound alone
+                  xproj_within("xproj_db%s" % tag, db, db_ref,
+                               1e-5 * db_ref.abs(),
+                               2.0 ** -20 * dg.abs().sum(0), 1.0))
+        again = xk._dw(dout, xm, True)
+        if not (torch.equal(again[0], dw) and torch.equal(again[1], db)):
+            raise AssertionError("xproj_dw%s: a rerun differs" % tag)
+        x16 = xm_ref[0]
+        rows["xproj_dw%s" % tag] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: xk._dw(dout, xm, True), 10),
+            plain_ms=time_ms(lambda: xk.x_proj_dw_plain(dout, xm_ref)),
+            library_ms=time_ms(lambda: mm32(g16.t(), x16), 10),
+            work=(work, M * H3 * 2 + gates * M * D * 2 + H3 * D * 4
+                  + H3 * 4))
+        del x, mask, dout, xm, wp, xm_ref, xf, dg, dw, db, again
+    return rows
+
+
 def serve_kernel_rows(dev, gen, randn):
     """Phase 1's rows at the demo server's batch sizes, its smallest and
     largest buckets (B 1 and B 32; logged, outside the kernels line): the
@@ -1045,9 +1199,10 @@ def counters():
     from vqa_counterexamples_tpu_torch.ops.cuda import launch_counters
 
     wrappers = launch_counters()
-    if set(wrappers) != set(SOURCES):
+    if set(wrappers) != set(SOURCES) | set(XPROJ):
         raise AssertionError("kernel wrappers %s, expected %s"
-                             % (sorted(wrappers), sorted(SOURCES)))
+                             % (sorted(wrappers),
+                                sorted(set(SOURCES) | set(XPROJ))))
     return wrappers
 
 
@@ -1056,8 +1211,26 @@ def reset_counters():
         fn.launches = 0
 
 
-def read_counters():
+def read_all_counters():
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def read_counters(everything=False):
+    """Every wrapper's count, after holding the input projection's to the
+    GRU's: one forward a GRU forward, one dX and one dW a GRU backward
+    (since the last reset_counters).  The phases compare the other
+    wrappers' counts (SOURCES) with their own expectations, which the
+    projection's follow from; ``everything`` adds the projection's."""
+    got = read_all_counters()
+    want = {"xproj": got["gru"] + got["gru_pg"], "xproj_dx": got["gru_bwd"],
+            "xproj_dw": got["gru_bwd"]}
+    if any(got[k] != n for k, n in want.items()):
+        raise AssertionError("the input projection's launches %s, expected "
+                             "%s from the GRU's %s"
+                             % ({k: got[k] for k in XPROJ}, want,
+                                {k: got[k] for k in ("gru", "gru_pg",
+                                                     "gru_bwd")}))
+    return got if everything else {k: got[k] for k in SOURCES}
 
 
 class plain_kernels:
@@ -1069,9 +1242,10 @@ class plain_kernels:
         from vqa_counterexamples_tpu_torch.ops import rnn, scorer
         from vqa_counterexamples_tpu_torch.ops.cuda import (
             attmutan_kernel, gru_kernel, mixture_kernel, mutan_kernel,
-            vfeat_kernel)
+            vfeat_kernel, xproj_kernel)
 
-        self.swaps = [(attmutan_kernel, "folded_mutan",
+        self.swaps = [(xproj_kernel, "x_proj", xproj_kernel.x_proj_plain),
+                      (attmutan_kernel, "folded_mutan",
                        attmutan_kernel.folded_mutan_plain),
                       (attmutan_kernel, "folded_mutan_bwd",
                        attmutan_kernel.folded_mutan_bwd_plain),
@@ -1497,7 +1671,7 @@ def phase_pretrain(dev, card):
                                            epoch))
         log("  epoch %d: val %s" % (epoch, val_res[-1]))
     torch.cuda.synchronize()
-    launches = read_counters()
+    launches = read_counters(everything=True)
     steps = state.step
     val_batches = epochs * (val.size // batch_size)
     log("  %d train steps, %d val batches; launches on the pretraining "
@@ -1505,7 +1679,8 @@ def phase_pretrain(dev, card):
     want = {"gru": val_batches, "gru_pg": steps, "gru_bwd": steps,
             "vfeat": 0, "vfeat_bwd": 0, "mixture": 0,
             "mutan": steps + val_batches, "attmutan": 0, "attmutan_bwd": 0,
-            "knn": 0}
+            "knn": 0, "xproj": steps + val_batches, "xproj_dx": steps,
+            "xproj_dw": steps}
     if launches != want:
         raise AssertionError("launch counts %s, expected %s"
                              % (launches, want))
@@ -5022,16 +5197,19 @@ def main():
                 mutan=launches_pre, attmutan=launches_att,
                 attmutan_bwd=launches_att, knn=launches_knn)
     on_path = {k: path.get(k, launches)[k] for k in SOURCES}
+    # the input projection's, counted on MutanNoAtt pretraining's path
+    on_path.update({k: launches_pre[k] for k in XPROJ})
     # library_ms: the one PyTorch call that computes the same function,
     # where there is one (mixture's linear + softmax), the vfeat rows'
-    # cuBLAS products on pre-gathered operands (their yardstick), else null
+    # cuBLAS products on pre-gathered operands (their yardstick), the
+    # input projection's one torch.mm of its shape, else null
     kernels = [dict(name=name, route="cuda",
                     source="vqa_counterexamples_tpu_torch/csrc/%s.cu"
-                    % SOURCES[name], replaces=REPLACES[name],
-                    launches=on_path[name],
+                    % SOURCES.get(name, "xproj"),
+                    replaces=REPLACES[name], launches=on_path[name],
                     library_ms=rows[name].pop("library_ms", None),
                     **rows[name])
-               for name in SOURCES]
+               for name in list(SOURCES) + list(XPROJ)]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from vqa_counterexamples_tpu_torch.ops.cuda import (
-    gru_kernel, mixture_kernel, mutan_kernel, vfeat_kernel)
+    gru_kernel, mixture_kernel, mutan_kernel, vfeat_kernel, xproj_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -1456,3 +1456,183 @@ def test_pinned_native_batches_match_host_path(dev, tmp_path, dtype):
     assert store.outstanding == 1
     gen.close()
     assert store.outstanding == 0
+
+
+# ------------------------------------------- the GRU's input projection
+#
+# The three kernels (``csrc/xproj.cu``, ``ops/cuda/xproj_kernel.py``)
+# against their plain versions.  The kernels sum the same exact bf16 products in another
+# order than cuBLAS's f32 SGEMM, so an entry may differ where that f32 sum
+# lands near a rounding boundary: each bf16 rounding may move by one bf16
+# step (2^-7 of the value at most), and an f32 sum by a few f32 steps of
+# the sum of its terms' magnitudes (2^-20 of it here), which outweighs one
+# bf16 step only where the terms cancel.  Outside those bounds nothing may
+# differ, and only a small share of entries may differ at all.
+
+BF16_STEP, F32_SLACK = 2.0 ** -7, 2.0 ** -20
+
+
+def _xproj_inputs(dev, batch, seq_len, dim_in, dim_h, mask_kind, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(batch, seq_len, dim_in, generator=gen, device=dev) * .02
+    w = (torch.randn(3 * dim_h, dim_in, generator=gen, device=dev)
+         * (3 * dim_h) ** -0.5)
+    b = torch.randn(3 * dim_h, generator=gen, device=dev) * 0.02
+    lead = {"none": None, "shared": (), "per_gate": (3,)}[mask_kind]
+    mask = None if lead is None else (torch.rand(
+        lead + (batch, dim_in), generator=gen, device=dev) > 0.25
+        ).float() * (1 / 0.75)
+    dout = (torch.randn(seq_len, batch, 3 * dim_h, generator=gen,
+                        device=dev) * 1e-3).to(torch.bfloat16)
+    return x, w, b, mask, dout
+
+
+def _within(name, got, ref, steps, slack, share):
+    """|got - ref| <= steps + slack everywhere; at most ``share`` of the
+    entries differ at all."""
+    diff = (got.float() - ref.float()).abs()
+    out = (diff > steps + slack).sum().item()
+    off = (diff > 0).float().mean().item()
+    assert out == 0 and off <= share, (name, out, off, diff.max().item())
+
+
+@pytest.mark.parametrize("batch,seq_len,dim_in,dim_h,mask_kind", [
+    (3, 4, 20, 12, "per_gate"), (5, 7, 36, 40, "shared"),
+    (70, 3, 100, 24, "none"), (70, 3, 100, 24, "per_gate"),
+    (512, 26, 620, 2400, "per_gate"), (512, 26, 620, 2400, "none"),
+    (2048, 26, 620, 2400, "none"), (128, 26, 620, 2400, "per_gate"),
+    (1, 26, 620, 2400, "none"), (32, 26, 620, 2400, "none")])
+def test_xproj_kernels_match_plain(dev, batch, seq_len, dim_in, dim_h,
+                                   mask_kind):
+    """The forward, dX and dW / db kernels against the plain versions at
+    small ragged shapes and at the paths' shapes (MutanNoAtt's train and
+    val batches, the q cache's B 2,048, MutanAtt's B 128, the server's B 1
+    and B 32); the forward's bf16(x * m) bit-equal to the plain operand;
+    reruns bit-equal; the autograd Function giving the kernels' bits, one
+    launch of each counted."""
+    x, w, b, mask, dout = _xproj_inputs(dev, batch, seq_len, dim_in, dim_h,
+                                        mask_kind)
+    before = [f.launches for f in (xproj_kernel.x_proj,
+                                   xproj_kernel.x_proj_dx,
+                                   xproj_kernel.x_proj_dw)]
+    out, xm, wp = xproj_kernel._fwd(x, mask, w, b)
+    assert torch.equal(wp, w.to(torch.bfloat16))
+    dx = xproj_kernel.x_proj_dx(dout, mask, wp)
+    dw, db = xproj_kernel.x_proj_dw(dout, xm)
+    xm_ref = xproj_kernel.x_proj_operand_plain(x, mask)
+    assert torch.equal(xm, xm_ref)
+    assert torch.equal(xproj_kernel._fwd(x, mask, w, b)[0], out)
+    rows, gates = batch * seq_len, xm.shape[0]
+    xf, w16 = xm_ref.float(), w.to(torch.bfloat16).float()
+    dg = dout.reshape(rows, 3 * dim_h).float()
+    cols = 3 * dim_h // gates
+    # the forward: |x m| |W| summed, per output entry
+    mag = torch.cat([xf[g].abs() @ w16[g * cols:(g + 1) * cols].abs().t()
+                     for g in range(gates)], 1) + b.abs()
+    ref = xproj_kernel.x_proj_plain(x, mask, w, b)
+    _within("out", out, ref, BF16_STEP * ref.float().abs(),
+            F32_SLACK * mag.reshape(ref.shape), 0.01)
+    # dX: each gate's rounded product, masked
+    masks = xproj_kernel._gate_masks(mask, seq_len)
+    dg_cols = 3 * dim_h // gates
+    steps = slack = 0
+    for g in range(gates):
+        part = dg[:, g * dg_cols:(g + 1) * dg_cols]
+        wg = w16[g * dg_cols:(g + 1) * dg_cols]
+        m = 1.0 if masks[g] is None else masks[g]
+        steps = steps + BF16_STEP * (part @ wg).abs() * m
+        slack = slack + F32_SLACK * (part.abs() @ wg.abs()) * m
+    dx_ref = xproj_kernel.x_proj_dx_plain(dout, mask, w)
+    to_bt = lambda t: t.reshape(seq_len, batch, -1).transpose(0, 1)
+    _within("dx", dx, dx_ref, to_bt(steps) + 1e-5 * dx_ref.abs(),
+            to_bt(slack), 0.02)
+    dw_ref, db_ref = xproj_kernel.x_proj_dw_plain(dout, xm_ref)
+    dw_mag = torch.cat([dg[:, g * cols:(g + 1) * cols].abs().t()
+                        @ xf[g].abs() for g in range(gates)])
+    _within("dW", dw, dw_ref, BF16_STEP * dw_ref.abs(), F32_SLACK * dw_mag,
+            0.05)
+    # db is an f32 sum over every row, in another order: most of its
+    # entries differ in their last bits, so only the bound holds it
+    _within("db", db, db_ref, 1e-5 * db_ref.abs(),
+            F32_SLACK * dg.abs().sum(0), 1.0)
+    again = (xproj_kernel.x_proj_dx(dout, mask, wp),
+             xproj_kernel.x_proj_dw(dout, xm))
+    assert torch.equal(again[0], dx) and torch.equal(again[1][0], dw)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    got = xproj_kernel.x_proj(*leaves[:1], mask, *leaves[1:])
+    got.backward(dout)
+    torch.cuda.synchronize()
+    assert torch.equal(got, out)
+    for leaf, want in zip(leaves, (dx, dw, db)):
+        assert torch.equal(leaf.grad, want)
+    after = [f.launches for f in (xproj_kernel.x_proj,
+                                  xproj_kernel.x_proj_dx,
+                                  xproj_kernel.x_proj_dw)]
+    assert [a - c for a, c in zip(after, before)] == [3, 3, 3]
+
+
+def test_xproj_under_no_grad_launches_the_forward_alone(dev):
+    """Evaluation (grad off) launches the forward and writes no operand
+    for dW; an operand that requires grad with grad mode on goes through
+    the Function, whose backward launches dX only when x needs it."""
+    x, w, b, mask, dout = _xproj_inputs(dev, 8, 5, 24, 16, "per_gate")
+    counters = (xproj_kernel.x_proj, xproj_kernel.x_proj_dx,
+                xproj_kernel.x_proj_dw)
+    before = [f.launches for f in counters]
+    with torch.no_grad():
+        out = xproj_kernel.x_proj(x, mask, w.requires_grad_(True), b)
+    assert not out.requires_grad
+    out = xproj_kernel.x_proj(x, mask, w, b)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, before)] == [2, 0, 1]
+    assert w.grad is not None and w.grad.dtype == torch.float32
+
+
+def test_captured_mutan_noatt_step_at_full_width_equals_eager(dev,
+                                                              monkeypatch):
+    """MutanNoAtt at ``mutan_noatt_train.yaml``'s widths (BayesianUniSkip
+    620 -> 2400 with per-gate masks, MUTAN R 10 at 360, dim_v 2048), B 64:
+    the captured train step (its graph holding the projection's forward,
+    dX and dW kernels) against the eager step from one starting state,
+    dropout on: losses, every parameter and Adam moment bit-equal, the
+    projection's kernels counted once a step each."""
+    import copy
+    import os
+
+    from vqa_counterexamples_tpu_torch.core import config as config_lib
+    from vqa_counterexamples_tpu_torch.data import synthetic
+    from vqa_counterexamples_tpu_torch.data.vqa_dataset import VQAArrays
+    from vqa_counterexamples_tpu_torch.engines import vqa_engine
+    from vqa_counterexamples_tpu_torch.models import factory
+
+    monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    opt = config_lib.load_options_file(os.path.join(
+        repo, "configs", "vqa2", "mutan_noatt_train.yaml"))["model"]
+    examples, store, words, answers = synthetic.make_synthetic_vqa(
+        160, 50, 26, dim_v=opt["fusion"]["dim_v"], seed=3)
+    model = factory.factory_vqa(opt, words, answers)
+    vqa_engine.init_vqa_params(model, seed=5)
+    model = model.to(dev)
+    arrays = VQAArrays(examples, store, samplingans=True)
+    feats = store.to_device(dev)
+    runs = []
+    for capture, m in ((None, model), (False, copy.deepcopy(model))):
+        state = vqa_engine.init_vqa_state(m, lr=1e-3)
+        step = vqa_engine.make_vqa_train_step(m, state.optimizer,
+                                              base_seed=11, capture=capture)
+        before = xproj_kernel.x_proj_dw.launches
+        rng = np.random.default_rng(4)
+        metrics = []
+        for batch in arrays.batches(64, rng=rng, device_features=feats,
+                                    device=dev):
+            state, out = step(state, batch)
+            metrics.append([float(out[k]) for k in ("loss", "acc1")])
+        torch.cuda.synchronize()
+        runs.append((m, state, metrics,
+                     xproj_kernel.x_proj_dw.launches - before))
+    (m_cap, s_cap, met_cap, n_cap), (m_eag, s_eag, met_eag, n_eag) = runs
+    assert s_cap.step == s_eag.step == 3 and n_cap == n_eag == 3
+    assert met_cap == met_eag and np.isfinite(met_cap).all()
+    _assert_same_training(m_cap, s_cap.optimizer, m_eag, s_eag.optimizer)

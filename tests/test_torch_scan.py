@@ -419,11 +419,11 @@ def test_static_inputs_keep_their_buffers():
 
 def test_steps_count_every_kernel_wrappers_launches(world):
     """The engines' steps keep the launch counts of the kernel wrappers
-    that ``ops/cuda.launch_counters`` names: all ten, each an int."""
+    that ``ops/cuda.launch_counters`` names: all thirteen, each an int."""
     wrappers = launch_counters()
     assert sorted(wrappers) == sorted([
         "gru", "gru_pg", "gru_bwd", "vfeat", "vfeat_bwd", "mixture", "mutan",
-        "attmutan", "attmutan_bwd", "knn"])
+        "attmutan", "attmutan_bwd", "knn", "xproj", "xproj_dx", "xproj_dw"])
     assert all(type(w.launches) is int for w in wrappers.values())
     model = copy.deepcopy(world.pmodel)
     state = port_engine.init_cx_state(model, lr=LR)

@@ -6,7 +6,7 @@ def launch_counters() -> dict:
     """Every kernel wrapper by name, each counting the launches of its
     kernel in ``.launches``."""
     from . import (attmutan_kernel, gru_kernel, knn_kernel, mixture_kernel,
-                   mutan_kernel, vfeat_kernel)
+                   mutan_kernel, vfeat_kernel, xproj_kernel)
 
     return {"gru": gru_kernel.gru_recurrence,
             "gru_pg": gru_kernel.gru_recurrence_pg,
@@ -17,4 +17,7 @@ def launch_counters() -> dict:
             "mutan": mutan_kernel.tucker_fusion,
             "attmutan": attmutan_kernel.folded_mutan,
             "attmutan_bwd": attmutan_kernel.folded_mutan_bwd,
-            "knn": knn_kernel.knn_chunk}
+            "knn": knn_kernel.knn_chunk,
+            "xproj": xproj_kernel.x_proj,
+            "xproj_dx": xproj_kernel.x_proj_dx,
+            "xproj_dw": xproj_kernel.x_proj_dw}

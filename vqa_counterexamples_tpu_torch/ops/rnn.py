@@ -2,7 +2,9 @@
 variational dropout in training, and the LSTM.
 
 The input projection for all timesteps is computed time-major outside the
-recurrence; the recurrence then runs over the (T, B, 3H) stack.  Gate
+recurrence (``ops/cuda/xproj_kernel.py``: policy-dtype operands, f32
+accumulation and bias, one rounding; on the tensor cores under the bf16
+policy); the recurrence then runs over the (T, B, 3H) stack.  Gate
 convention (torch.nn.GRU and skip-thoughts)::
 
     r = sigmoid(W_ir x + b_ir + W_hr h + b_hr)
@@ -37,7 +39,7 @@ import torch
 
 from ..core import rng as rng_lib
 from ..core.policy import cast_in, compute_dtype, dot_f32
-from .cuda import gru_kernel
+from .cuda import gru_kernel, xproj_kernel
 from .cuda.gru_kernel import gru_recurrence
 
 
@@ -74,26 +76,6 @@ def variational_masks(generator: torch.Generator, dropout: float,
     keep_h, scale_h = rng_lib.keep_mask(lead + (batch, dim_h),
                                         1.0 - dropout, generator, len(lead))
     return keep_x.float() * scale_x, keep_h.float() * scale_h
-
-
-def _x_proj(weight_ih, bias_ih, xt, mask_x, cdt):
-    """Time-major input projections (T, B, 3H), gate-major columns, in the
-    compute dtype: policy-dtype operands, f32 accumulation and bias, one
-    rounding.  A (3, B, D) mask gives each gate its own masked input."""
-    seq_len, batch, dim_in = xt.shape
-    h3 = weight_ih.shape[0]
-    dim_h = h3 // 3
-    flat = xt.reshape(seq_len * batch, dim_in)
-    if mask_x is None or mask_x.dim() == 2:
-        if mask_x is not None:
-            flat = flat * mask_x.repeat(seq_len, 1)
-        proj = dot_f32(flat, weight_ih.t()) + bias_ih
-    else:
-        proj = torch.cat([
-            dot_f32(flat * mask_x[g].repeat(seq_len, 1),
-                    weight_ih[g * dim_h:(g + 1) * dim_h].t())
-            + bias_ih[g * dim_h:(g + 1) * dim_h] for g in range(3)], dim=-1)
-    return proj.reshape(seq_len, batch, h3).to(cdt)
 
 
 def _gru_loop_f32(x_proj: torch.Tensor, weight_hh: torch.Tensor,
@@ -134,9 +116,8 @@ def gru_scan(weight_ih: torch.Tensor, bias_ih: torch.Tensor,
     """Run the GRU over (B, T, D) -> all hidden states, time-major
     (T, B, H); h_0 = 0.  ``mask_x`` / ``mask_h``: variational dropout masks
     (see :func:`variational_masks`), None for none."""
-    xt = x.transpose(0, 1)
     if compute_dtype() == torch.bfloat16:
-        x_proj = _x_proj(weight_ih, bias_ih, xt, mask_x, torch.bfloat16)
+        x_proj = xproj_kernel.x_proj(x, mask_x, weight_ih, bias_ih)
         w_hh = weight_hh.to(torch.bfloat16).contiguous()
         b_hh = bias_hh.float().contiguous()
         # the kernel's recurrent mask is bf16: the 0.25 scale 256/192
@@ -148,7 +129,8 @@ def gru_scan(weight_ih: torch.Tensor, bias_ih: torch.Tensor,
             return gru_kernel.gru_recurrence_train(x_proj, w_hh, b_hh, mask)
         states, _ = gru_recurrence(x_proj, w_hh, b_hh, mask)
         return states
-    x_proj = _x_proj(weight_ih, bias_ih, xt, mask_x, torch.float32)
+    x_proj = xproj_kernel.x_proj_plain(x, mask_x, weight_ih, bias_ih,
+                                       torch.float32)
     return _gru_loop_f32(x_proj, weight_hh, bias_hh, mask_h)
 
 
