@@ -314,14 +314,17 @@ def test_gru_fwd_every_tile_gives_the_same_bits(dev, mask_kind):
 
 
 @pytest.mark.parametrize("mask_kind", ["none", "shared", "per_gate"])
-@pytest.mark.parametrize("seq,batch,dim_h", [(3, 5, 20), (4, 70, 72),
-                                             (3, 65, 100), (26, 128, 2400)])
+@pytest.mark.parametrize("seq,batch,dim_h", [
+    (3, 5, 20), (4, 70, 72), (3, 65, 100), (3, 70, 176), (26, 128, 2400),
+    (26, 512, 2400), (26, 64, 2400), (26, 768, 2400)])
 def test_gru_bwd_kernel_matches_plain(dev, seq, batch, dim_h, mask_kind):
     """The reverse sweep against its plain version: dxp, dW, db within 2e-2
     of each tensor's largest entry (bf16 cotangents from f32 carries
     summed in another order), and bit-equal on a rerun; at ragged shapes
-    (off the 64-row and 32-unit tiles, H off the 8-wide vector loads) and
-    at MutanAtt's full width (T 26, B 128, H 2400)."""
+    (off the tiles' rows and units; H 20, 72 and 100 off the 16-unit rule
+    of the TMA path, H 176 on it) and at full width (T 26, H 2400):
+    MutanAtt's B 128, the pretraining cell's B 512, the CX CLI's B 64 and
+    the trainable CX step's B 768."""
     xp, w, b, mask = _gru_inputs(dev, seq, batch, dim_h, mask_kind)
     states, hproj = gru_kernel.gru_recurrence_plain(xp, w, b, mask,
                                                     want_hproj=True)
@@ -337,6 +340,33 @@ def test_gru_bwd_kernel_matches_plain(dev, seq, batch, dim_h, mask_kind):
         assert a.shape == r.shape, name
         _assert_rel(a, r, 2e-2, name)
         assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "shared", "per_gate"])
+def test_gru_bwd_every_tile_gives_the_same_bits(dev, mask_kind):
+    """Every TMA tile of the backward and the plain-load tile, at a batch
+    off every tile's rows (B 70) and H off their units (176: on the TMA
+    path's 16-unit rule, off 48 and 80), at rings of 2 to 4 stages,
+    give the same bits: they sum K in one order.  And they agree with the
+    plain version."""
+    xp, w, b, mask = _gru_inputs(dev, 5, 70, 176, mask_kind, seed=3)
+    states, hproj = gru_kernel.gru_recurrence_plain(xp, w, b, mask,
+                                                    want_hproj=True)
+    ds = _randn(torch.Generator().manual_seed(6), dev, *states.shape)
+    args = (xp, w, mask, states, hproj, ds)
+    ref = gru_kernel.gru_recurrence_bwd_plain(*args)
+    tiles = [gru_kernel.BwdTile(*gru_kernel.BWD_RAGGED_TILE, 2, False)] + [
+        gru_kernel.BwdTile(*t, stages, True) for t in gru_kernel.BWD_TILES
+        for stages in (2, gru_kernel.bwd_max_stages(*t))]
+    first = None
+    for tile in tiles:
+        got = gru_kernel._gru_bwd(*args, tile)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dxp", "dW", "db"), got, ref):
+            _assert_rel(g, r, 2e-2, name)
+        if first is None:
+            first = got
+        assert all(torch.equal(g, f) for g, f in zip(got, first)), tile
 
 
 def test_gru_function_grads_match_plain_autograd(dev):

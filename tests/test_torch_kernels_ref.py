@@ -329,3 +329,58 @@ def test_gru_fwd_tiles_match_the_kernels_instances():
             for ng in (1, 3)}
     want |= {(ng,) + gru_kernel.RAGGED_TILE + (False,) for ng in (1, 3)}
     assert got == want
+
+
+@pytest.mark.parametrize("dim_h", [64, 72, 2400])
+@pytest.mark.parametrize("batch", [16, 64, 128, 512, 768])
+def test_gru_bwd_tile_chooser(batch, dim_h):
+    """The backward's tile for each (B, H) on the H100's 132 SMs: H off
+    the 16-unit rule takes the plain-load tile, the rest the TMA tile of
+    the kernel's table that pulls the fewest bytes from L2 per SM, at 2 to
+    BWD_MAX_STAGES stages that fit the block's shared memory.  Where a
+    tile's grid covers 90% of the SMs (B 512 and B 768 at H 2400), the
+    chosen one's first wave does too: 120 blocks of 128 x 80 at B 512, 132
+    of its 180 at B 768; B 128 takes 64 x 48 (100 blocks, the most any
+    tile of the table gives there)."""
+    tile = gru_kernel.bwd_tile(batch, dim_h, 132, dim_h % 16 == 0)
+    assert tile.tma == (dim_h % 16 == 0)
+    shape = (tile.bm, tile.bn)
+    assert shape in (gru_kernel.BWD_TILES if tile.tma
+                     else (gru_kernel.BWD_RAGGED_TILE,))
+    assert 2 <= tile.stages <= gru_kernel.BWD_MAX_STAGES
+    assert (tile.stages * gru_kernel.bwd_stage_bytes(*shape)
+            <= gru_kernel.SMEM_BLOCK)
+
+    def grid(bm, bn):
+        return gru_kernel.bwd_waves(batch, dim_h, bm, bn, 132)
+
+    if tile.tma:
+        costs = [grid(*t)[1] * sum(t) for t in gru_kernel.BWD_TILES]
+        assert grid(*shape)[1] * sum(shape) == min(costs)
+        if max(grid(*t)[0] for t in gru_kernel.BWD_TILES) >= 0.9 * 132:
+            assert min(grid(*shape)[0], 132) >= 0.9 * 132
+    if dim_h == 2400:
+        want = {64: ((64, 48), 50), 128: ((64, 48), 100),
+                512: ((128, 80), 120), 768: ((128, 80), 180)}.get(batch)
+        if want is not None:
+            assert (shape, grid(*shape)[0]) == want
+    # a forced plain-load tile stays the plain-load one
+    assert not gru_kernel.bwd_tile(batch, dim_h, 132, False).tma
+
+
+def test_gru_bwd_tiles_match_the_kernels_instances():
+    """BWD_TILES and BWD_RAGGED_TILE name exactly the instances csrc/gru.cu
+    compiles (VQACX_BWD_TILES)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(gru_kernel.__file__).resolve().parents[2] / "csrc"
+           / "gru.cu").read_text()
+    table = src[src.index("#define VQACX_BWD_TILES"):]
+    table = table[:table.index("\n\n")]
+    got = {(64 * int(wg), int(bn), tma == "true")
+           for wg, bn, tma in re.findall(
+               r"X\((\d), (\d+), (true|false)\)", table)}
+    want = {t + (True,) for t in gru_kernel.BWD_TILES}
+    want.add(gru_kernel.BWD_RAGGED_TILE + (False,))
+    assert got == want

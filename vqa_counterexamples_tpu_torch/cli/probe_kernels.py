@@ -18,10 +18,12 @@ product and of the first, which has none; beside them one bf16
 never calls; and the wrapper's ms with every tile of
 ``gru_kernel.FWD_TILES`` at 3 to 6 stages, as many as fit.
 
-GRU backward, at T 26, H 2400 with per-gate masks, for B 64, 128, 256 and
-512: the wrapper's ms (CUDA events) and, under ``torch.profiler``, the
+GRU backward, at T 26, H 2400 with per-gate masks, for B 64, 128, 256,
+512 and 768: the wrapper's ms (CUDA events) with the tile
+``gru_kernel.backward_tile`` picks and, under ``torch.profiler``, the
 device time of one step launch that carries a back product and of the
-first, which only runs the gate step.
+first, which only runs the gate step; and the wrapper's ms with every
+tile of ``gru_kernel.BWD_TILES`` at 2 to 6 stages, as many as fit.
 
 Mixture (the answer head's softmax), at the CX path's shape (M 18432,
 dz 360, A 2000): the kernel's ms, the plain version's, and the ms of the
@@ -162,7 +164,7 @@ def probe_gru_bwd(dev, gen, batch):
     states, hproj = gru_kernel.gru_recurrence(xp, w, b, mask,
                                               want_hproj=True)
     args = (xp, w, mask, states, hproj, randn(seq, batch, dim_h))
-    out = {"batch": batch,
+    out = {"batch": batch, "tile": list(gru_kernel.backward_tile(*args)),
            "wrapper_ms": _ms(lambda: gru_kernel.gru_recurrence_bwd(*args))}
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -170,6 +172,13 @@ def probe_gru_bwd(dev, gen, batch):
         torch.cuda.synchronize()
     (out["gate_only_step_us"], out["carry_step_us"],
      out["step_launches"]) = _step_us(prof, "gru_bwd_step")
+    out["tiles"] = []
+    for shape in gru_kernel.BWD_TILES:
+        fit = gru_kernel.SMEM_BLOCK // gru_kernel.bwd_stage_bytes(*shape)
+        for stages in sorted({min(s, fit) for s in (2, 3, 4, 5, 6)}):
+            t = gru_kernel.BwdTile(*shape, stages, True)
+            out["tiles"].append({"tile": list(t), "ms": _ms(
+                lambda: gru_kernel._gru_bwd(*args, t))})
     return out
 
 
@@ -347,7 +356,7 @@ def main(argv=None):
                             for batch in (128, 512, 2048)
                             for per_gate in (False, True)],
         "gru_bwd": lambda: [probe_gru_bwd(dev, gen, batch)
-                            for batch in (64, 128, 256, 512)],
+                            for batch in (64, 128, 256, 512, 768)],
         "mixture": lambda: probe_mixture(dev, gen),
         "mutan": lambda: [probe_mutan(dev, gen, *shape) for shape in (
             (512, 360, 360, 10, 360), (128, 620, 310, 5, 510))],

@@ -1,8 +1,8 @@
 // Shared helpers for the hand-written sm_90a kernels of this package.
 //
-// Every kernel here is a tiled GEMM with a fused epilogue: in the kNN and
-// GRU-backward kernels, mma.sync fed by a cp.async ring; in the GRU
-// forward and the mixture kernel, Hopper's wgmma fed by TMA through an
+// Every kernel here is a tiled GEMM with a fused epilogue: in the kNN
+// kernel, mma.sync fed by a cp.async ring; in the GRU forward and
+// backward and the mixture kernel, Hopper's wgmma fed by TMA through an
 // mbarrier ring; in the vfeat forward and backward, the folded MUTAN
 // forward and backward and the MUTAN Tucker kernel, wgmma (K- and
 // MN-major operands) fed by a cp.async ring (``load_box`` and the vfeat
@@ -78,7 +78,7 @@ inline bool aligned16(const void* p) {
 }
 
 // ------------------------------------------------ async copies, mma.sync
-// (used by the redesigned kNN and GRU-backward kernels)
+// (used by the kNN kernel and the wgmma kernels' cp.async rings)
 
 // Copy 16 (or 4) bytes global -> shared without passing through registers;
 // ``src_bytes`` 0 writes zeros (the source is then not read).
@@ -111,37 +111,6 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
-// Four 8x8 b16 matrices from shared memory (lane l gives the row address
-// of matrix l / 8), optionally transposed.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
-                                            const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulators.
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const unsigned (&a)[4],
-                                               unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // d += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulators.
 __device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
                                               const unsigned (&a)[4],
@@ -155,7 +124,8 @@ __device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
 
 
 // ------------------------------------------- Hopper: TMA, mbarrier, wgmma
-// (used by the GRU forward, the mixture kernel and the folded backward)
+// (used by the GRU forward and backward, the mixture kernel and the folded
+// backward)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -232,6 +202,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // One TMA tile store, shared -> global, in the bulk group of this thread;
 // the tile's layout is the map's (box and swizzle), out-of-bounds parts
 // are not written.
@@ -253,10 +233,10 @@ __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// Byte offset of bf16 element (r, k) in a K-major tile of rows of RB
-// bytes (RB = 64 or 128) under the matching TMA swizzle (64B / 128B):
-// the 16-byte chunk index is XORed with address bits 7 and up.  The
-// tile's base must be 1024-byte aligned.
+// Byte offset of bf16 element (r, k) in a tile of rows of RB bytes (RB =
+// 32, 64 or 128) under the matching TMA swizzle (32B / 64B / 128B): the
+// 16-byte chunk index is XORed with address bits 7 and up.  The tile's
+// base must be 1024-byte aligned.
 template <int RB>
 __device__ __forceinline__ int swizzled(int r, int k) {
   const int o = r * RB + k * 2;
@@ -357,20 +337,23 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 }
 
 // wgmma shared-memory descriptor of an MN-major bf16 operand (the M or N
-// index contiguous: TA / TB = 1 below) in the 128B-swizzled layout: rows
-// of 64 elements (128 bytes) along M or N, one row per K index, 8 rows a
-// 1024-byte swizzle atom, as a TMA box of 64 x rows with 128B swizzle (or
-// ``swizzled<128>(k, mn)``) lays them out.  SBO (1024 bytes) steps 8 K
-// rows; LBO steps to the next 64 elements along M or N, so an operand
-// more than 64 wide keeps its 64-wide column blocks ``lbo`` bytes apart
-// (the vfeat backward's g tile: blocks of 64 K rows, 8192 bytes); a
-// 64-wide operand never reads it.  Adding 128 advances K by 16 (16 rows
-// of 128 bytes).
+// index contiguous: TA / TB = 1 below) in the RB-byte swizzled layout
+// (RB = 128, 64 or 32): rows of RB / 2 elements along M or N, one row per
+// K index, 8 rows a swizzle atom of 8 RB bytes, as a TMA box of RB / 2 x
+// rows with the RB-byte swizzle (or ``swizzled<RB>(k, mn)``) lays them
+// out.  SBO (8 RB bytes) steps 8 K rows; LBO steps to the next RB / 2
+// elements along M or N, so an operand wider than that keeps its column
+// blocks ``lbo`` bytes apart (the vfeat backward's g tile: blocks of 64 K
+// rows, 8192 bytes; the GRU backward's W: 16-unit chunks of 32 K rows,
+// 1024 bytes); an operand one block wide never reads it.  Adding RB
+// advances K by 16 (16 rows of RB bytes).
+template <int RB = 128>
 __device__ __forceinline__ uint64_t gmma_desc_mn(const void* smem,
                                                  int lbo = 1024) {
+  static_assert(RB == 32 || RB == 64 || RB == 128, "32B, 64B or 128B");
   return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)((8 * RB) >> 4) << 32) |
+         ((uint64_t)(RB == 128 ? 1 : RB == 64 ? 2 : 3) << 62);
 }
 
 // d (64 x N, f32, the warpgroup's fragment) += A (64 x 16) B (16 x N)^T,
@@ -384,8 +367,8 @@ __device__ __forceinline__ uint64_t gmma_desc_mn(const void* smem,
 template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t a,
                                               uint64_t b, int scale_d = 1) {
-  static_assert(N == 8 || N == 40 || N == 64 || N == 80 || N == 128 ||
-                    N == 152 || N == 160,
+  static_assert(N == 8 || N == 40 || N == 48 || N == 64 || N == 80 ||
+                    N == 128 || N == 152 || N == 160,
                 "an instantiated wgmma width");
   if constexpr (false) {
   } else if constexpr (N == 8) {
@@ -407,6 +390,19 @@ __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t a,
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 48) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+        "}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   } else if constexpr (N == 64) {
     asm volatile(
@@ -595,30 +591,44 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor map over a contiguous row-major bf16 array of ``rank`` (2 or 3)
-// dimensions, innermost first, read in boxes of ``box``, swizzled for
-// rows of ``swizzle`` bytes (64 or 128); zeros outside the array.
-inline bool bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
-                            const uint64_t* dims, const uint32_t* box,
-                            int swizzle) {
+// A tensor map over a bf16 array of ``rank`` (2 to 4) dimensions,
+// innermost (contiguous) first, with ``strides`` the byte strides of
+// dimensions 1 .. rank - 1 (multiples of 16, in any order), read in boxes
+// of ``box``, swizzled for rows of ``swizzle`` bytes (32, 64 or 128);
+// zeros outside the array.
+inline bool bf16_tensor_map_strided(CUtensorMap* map, const void* base,
+                                    int rank, const uint64_t* dims,
+                                    const uint64_t* strides,
+                                    const uint32_t* box, int swizzle) {
   EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t gdim[3], gstride[2];
-  cuuint32_t bdim[3], estride[3];
-  uint64_t stride = 2;
+  if (fn == nullptr || rank < 2 || rank > 4) return false;
+  cuuint64_t gdim[4], gstride[3];
+  cuuint32_t bdim[4], estride[4];
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     bdim[i] = box[i];
     estride[i] = 1;
-    if (i + 1 < rank) gstride[i] = stride *= dims[i];
+    if (i + 1 < rank) gstride[i] = strides[i];
   }
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
             const_cast<void*>(base), gdim, gstride, bdim, estride,
             CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                           : CU_TENSOR_MAP_SWIZZLE_64B,
+            swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+            : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same over a contiguous row-major array (rank 2 or 3).
+inline bool bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
+                            const uint64_t* dims, const uint32_t* box,
+                            int swizzle) {
+  uint64_t strides[2];
+  uint64_t stride = 2;
+  for (int i = 0; i + 1 < rank && i < 2; ++i) strides[i] = stride *= dims[i];
+  return bf16_tensor_map_strided(map, base, rank, dims, strides, box,
+                                 swizzle);
 }
 
 }  // namespace vqacx

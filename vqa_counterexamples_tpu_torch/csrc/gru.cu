@@ -37,17 +37,41 @@
 // template with TMA = false: the producer warp fills the same swizzled
 // stages with plain loads.
 //
-// Backward: one launch per timestep, T in all.  The launch for step s
-// first finishes the carry of step s + 1, dh += sum_g bf16(dh_proj_g) @
-// W_g * mask_g (skipped for s = T - 1), then, in the same block's epilogue,
-// recomputes r, z, n of step s from the bf16 residuals, emits its gate
-// cotangents and leaves g * z in dh.  A block owns 64 batch rows x 32
-// hidden units and all three gates' accumulators: one K loop over depth 3H
-// (the three gates' tiles share each stage of a 3-stage cp.async ring),
-// bf16 mma.sync with ldmatrix (.trans for W, which is MN-major here); 4
-// warps of 16 rows x 32 units x 3 gates.  Step s's product needs whole
-// dh_proj rows of step s + 1, a grid-wide dependency: hence a launch per
-// step.
+// Backward (replaces gru_bwd_pallas, gru_kernel.py:423, kernels
+// _bwd_kernel / _bwd_kernel_pg): one launch per timestep, T in all.  The
+// launch for step s first finishes the carry of step s + 1, dh += sum_g
+// bf16(dh_proj_g) @ W_g * mask_g (skipped for s = T - 1), then, in the
+// same block's epilogue, recomputes r, z, n of step s from the bf16
+// residuals, emits its gate cotangents and leaves g * z in dh.  Step s's
+// product needs whole dh_proj rows of step s + 1, a grid-wide dependency:
+// hence a launch per step.  Each is the forward's product transposed, the
+// same FLOPs on the same L2-resident W_hh, and takes the forward's recipe:
+// - A block owns BM = 64 WG batch rows x BN hidden units of dh and one
+//   f32 accumulator per gate over a K loop of depth H per gate, so the
+//   gate epilogue needs nothing from other blocks.  The tile is chosen per
+//   (B, H) by the wrapper (gru_kernel.bwd_tile): the fewest L2 bytes per
+//   SM (B 512: one wave of 120 blocks of 128 x 80).  Nine warps a block
+//   leave 168 registers a thread (three warps share an SM quarter's
+//   register file): 128 x 80 takes 166, a wider tile spills.
+// - One producer warp keeps a ring of 32-deep stages full with TMA loads:
+//   per gate an A box (dh_proj_g of step s + 1, K-major, 64B-swizzled;
+//   the map's gate dimension puts zeros past H) and a W_g box, read
+//   MN-major (units contiguous) as BN / 16 chunks of 16 units, 32B-
+//   swizzled, through a map whose chunk dimension is 32 bytes apart: one
+//   box a gate, and no bytes past the tile.
+// - WG consumer warpgroups, 64 rows each, run wgmma m64nBNk16 per gate
+//   with W through the transposed-B (MN-major) descriptor, one group in
+//   flight while the next stage is waited for.  Every tile sums K in the
+//   same order, so every tile gives the same bits.
+// - The gate math as the forward's: the sums go through the idle ring,
+//   then each thread takes 8 units of one row, so dh, ds, xp, h_proj,
+//   h_{t-1}, the masks, dxp and dh_proj move in 16-byte accesses; the
+//   epilogue's operands are prefetched to L2 while the product runs.
+// The back product is bound, like the forward's, by what the blocks pull
+// from L2 (a 128 x 80 block reads 3 MB a step), not by the tensor cores;
+// the gate math follows it in each block, not overlapped with it.
+// Shapes off the TMA rules (H % 16 != 0: W's chunks are 16 units wide;
+// unaligned operands) take the same template with TMA = false.
 #include "common.cuh"
 
 namespace vqacx {
@@ -362,237 +386,328 @@ gru_fwd_step_kernel(const __grid_constant__ CUtensorMap tmA,
 
 // ---------------------------------------------------------------- backward
 
-constexpr int KBM = 64;          // batch rows per block
-constexpr int KBN = 32;          // hidden units per block
-constexpr int KBK = 32;          // depth per stage, per gate
-constexpr int KSTAGES = 3;
-constexpr int KNT = 128;         // 4 warps of 16 rows x 32 units x 3 gates
-constexpr int KLD = KBK + 8;     // bf16 stage row stride (= KBN + 8): the
-                                 // 8 rows an ldmatrix phase reads hit
-                                 // distinct 16-byte bank groups
-static_assert(KBK == KBN, "A and W stage rows share the stride KLD");
-constexpr int KA = 3 * KBM * KLD;                 // A: (gate, row, depth)
-constexpr int KSTAGE = KA + 3 * KBK * KLD;        // + W: (gate, depth, unit)
-constexpr int KLDC = KBN + 4;
-constexpr int KRING = KSTAGES * KSTAGE * 2;
-constexpr int KCS = 3 * KBM * KLDC * 4;
-constexpr int KSMEM = KRING > KCS ? KRING : KCS;
+// One reverse step's operands.  dhp_next == nullptr means s == T - 1 (no
+// carry in, so no product); h_prev == nullptr means s == 0.  mask ==
+// nullptr means ones; gstride is 0 for one shared (B, H) mask.
+struct BwdStep {
+  const bf16* dhp_next;  // (B, 3H): dh_proj of step s + 1 (tmA's when TMA)
+  const bf16* w;         // (3H, H) (tmW's when TMA)
+  const bf16* mask;      // (B, H) or (3, B, H), or null
+  size_t gstride;
+  float* dh;             // (B, H) f32 carry, in and out
+  const bf16* ds;        // (B, H)
+  const bf16* xp;        // (B, 3H)
+  const bf16* hp;        // (B, 3H)
+  const bf16* h_prev;    // (B, H) or null
+  bf16* dxp;             // (B, 3H)
+  bf16* dhp;             // (B, 3H)
+  int a_t;               // s + 1: A's index along the map's dim 3
+  int B, H, nk, stages;
+};
 
-// One stage: the three gates' A tiles, dh_proj[b0 + r, g*H + j0 + d], and
-// W tiles, W[g*H + j0 + d, k0 + c]; zeros past B and H.
+template <int WG, int BN>
+struct BwdTile {
+  static constexpr int BM = 64 * WG;
+  static constexpr int BK = 32;                      // depth a stage, a gate
+  static constexpr int A_BYTES = BM * BK * 2;        // one gate's A box
+  static constexpr int W_CHUNK = BK * 32;            // 16 units x BK rows
+  static constexpr int W_BYTES = BN / 16 * W_CHUNK;  // one gate's W box
+  static constexpr int STAGE = 3 * A_BYTES + 3 * W_BYTES;
+  static constexpr int NT = WG * 128 + 32;           // + the producer warp
+  static constexpr int LDC = BN + 4;                 // staged sums' row
+  static constexpr int CS = 3 * BM * LDC * 4;        // bytes, in the ring
+  __host__ __device__ static constexpr int RING(int stages) {
+    return stages * STAGE > CS ? stages * STAGE : CS;
+  }
+  static_assert(A_BYTES % 1024 == 0 && W_BYTES % 1024 == 0, "alignment");
+  static_assert(BN % 16 == 0, "W's 32B-swizzled chunks are 16 units wide");
+};
+
+// Eight f32 of a row at q, as load8 / store8.
 template <bool VEC>
-__device__ __forceinline__ void bwd_load_stage(bf16* st,
-                                               const bf16* __restrict__ dhp,
-                                               const bf16* __restrict__ w,
-                                               int b0, int k0, int j0, int B,
-                                               int H) {
-  const size_t h3 = (size_t)3 * H;
-  bf16* As = st;
-  bf16* Ws = st + KA;
-  if constexpr (VEC) {   // H % 8 == 0: an 8-wide chunk is wholly in or out
-    constexpr int CH = KBK / 8;
-#pragma unroll
-    for (int i = threadIdx.x; i < 3 * KBM * CH; i += KNT) {
-      const int g = i / (KBM * CH), r = (i / CH) % KBM, d = (i % CH) * 8;
-      const bool ok = b0 + r < B && j0 + d < H;
-      cp_async16(As + (g * KBM + r) * KLD + d,
-                 ok ? dhp + (b0 + r) * h3 + (size_t)g * H + j0 + d : dhp,
-                 ok ? 16 : 0);
-    }
-    constexpr int CW = KBN / 8;
-#pragma unroll
-    for (int i = threadIdx.x; i < 3 * KBK * CW; i += KNT) {
-      const int g = i / (KBK * CW), d = (i / CW) % KBK, c = (i % CW) * 8;
-      const bool ok = j0 + d < H && k0 + c < H;
-      cp_async16(Ws + (g * KBK + d) * KLD + c,
-                 ok ? w + ((size_t)g * H + j0 + d) * H + k0 + c : w,
-                 ok ? 16 : 0);
-    }
+__device__ __forceinline__ void load8f(const float* q, int n,
+                                       float (&v)[8]) {
+  if constexpr (VEC) {
+    const float4 lo = reinterpret_cast<const float4*>(q)[0];
+    const float4 hi = reinterpret_cast<const float4*>(q)[1];
+    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
   } else {
-    for (int i = threadIdx.x; i < 3 * KBM * KBK; i += KNT) {
-      const int g = i / (KBM * KBK), r = (i / KBK) % KBM, d = i % KBK;
-      As[(g * KBM + r) * KLD + d] =
-          (b0 + r < B && j0 + d < H)
-              ? dhp[(b0 + r) * h3 + (size_t)g * H + j0 + d]
-              : bf16_zero();
+    for (int e = 0; e < 8; ++e) v[e] = e < n ? q[e] : 0.0f;
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store8f(float* q, const float (&v)[8],
+                                        int n) {
+  if constexpr (VEC) {
+    reinterpret_cast<float4*>(q)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(q)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    for (int e = 0; e < n; ++e) q[e] = v[e];
+  }
+}
+
+// The consumer warpgroups of gru_bwd_step_kernel: the back product of step
+// s + 1, then step s's gate math.  Per (b, k), in JAX's order:
+//   dh += acc_r * mask_r;  dh += acc_z * mask_z;  dh += acc_n * mask_n
+//   g = ds + dh;  dxp = bf16([dsr, dsz, dsn]);  dh_proj = bf16([dsr, dsz,
+//   dhn]);  dh <- g * z
+template <int WG, int BN, bool TMA>
+__device__ __forceinline__ void bwd_consume(const BwdStep& p,
+                                            unsigned char* ring,
+                                            uint64_t* full, uint64_t* empty,
+                                            int n0, int b0) {
+  using Tl = BwdTile<WG, BN>;
+  constexpr int BM = Tl::BM;
+  const int S = p.stages, H = p.H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const bool carry = p.dhp_next != nullptr;
+  constexpr int LDC = Tl::LDC, CH = BN / 8, NC = WG * 128, KB = 2;
+  constexpr int PER = (BM * CH + NC - 1) / NC;
+  float* cs = reinterpret_cast<float*>(ring);
+  if (carry) {
+    // the epilogue's operands, cold in device memory, start toward L2 now
+    // and arrive while the product runs: per row, the first, middle and
+    // last units of ds, h_prev, the masks, the three gates of xp and
+    // h_proj, and dh
+    constexpr int PA = 12;
+    for (int i = threadIdx.x; i < BM * PA * 3; i += NC) {
+      const int r = i / (PA * 3), a = (i / 3) % PA, part = i % 3;
+      const int b = b0 + r;
+      if (b >= p.B) continue;
+      const int k = min(n0 + part * (BN - 1) / 2, H - 1);
+      const size_t o = (size_t)b * H + k, x0 = (size_t)b * 3 * H + k;
+      const void* q = nullptr;
+      if (a == 0) q = p.ds + o;
+      else if (a == 1) q = p.h_prev != nullptr ? p.h_prev + o : nullptr;
+      else if (a < 5) q = p.mask != nullptr ? p.mask + (a - 2) * p.gstride + o
+                                            : nullptr;
+      else if (a < 8) q = p.xp + x0 + (size_t)(a - 5) * H;
+      else if (a < 11) q = p.hp + x0 + (size_t)(a - 8) * H;
+      else q = p.dh + o;
+      if (q != nullptr) prefetch_l2(q);
     }
-    for (int i = threadIdx.x; i < 3 * KBK * KBN; i += KNT) {
-      const int g = i / (KBK * KBN), d = (i / KBN) % KBK, c = i % KBN;
-      Ws[(g * KBK + d) * KLD + c] =
-          (j0 + d < H && k0 + c < H)
-              ? w[((size_t)g * H + j0 + d) * H + k0 + c]
-              : bf16_zero();
+    float acc[3][BN / 2];
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) acc[g][e] = 0.0f;
+    for (int kt = 0; kt < p.nk; ++kt) {
+      const int s = kt % S;
+      mbar_wait(full + s, (kt / S) & 1);
+      const unsigned char* st = ring + (size_t)s * Tl::STAGE;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) fence_acc(acc[g]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < Tl::BK / 16; ++kk) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          // A: this warpgroup's dh_proj_g rows, K-major (64-byte rows);
+          // W_g: BK depth rows, MN-major (16-unit chunks of 32-byte rows)
+          const unsigned char* a_tile = st + g * Tl::A_BYTES + wg * 64 * 64;
+          const unsigned char* w_tile = st + 3 * Tl::A_BYTES +
+              g * Tl::W_BYTES;
+          wgmma_bf16_ss<BN, 0, 1>(acc[g], gmma_desc<64>(a_tile) + 2 * kk,
+                                  gmma_desc_mn<32>(w_tile, Tl::W_CHUNK) +
+                                      32 * kk);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int g = 0; g < 3; ++g) fence_acc(acc[g]);
+      // stage kt - 1 has been read: the producer may refill it
+      if (kt > 0) mbar_arrive(empty + (kt - 1) % S);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int g = 0; g < 3; ++g) fence_acc(acc[g]);
+    // the sums go through the ring, idle now, so that each thread then
+    // takes 8 units of one row at a time in 16-byte accesses
+    consumers_sync<WG>();   // every warpgroup is done with the ring
+    const int rw = wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(cs + (g * BM + rw + 8 * h) * LDC +
+                                     i * 8 + (lane % 4) * 2) =
+              make_float2(acc[g][4 * i + 2 * h], acc[g][4 * i + 2 * h + 1]);
+    consumers_sync<WG>();
+  }
+
+  // ---- the gate math: KB tasks' loads go out before any of them is used
+  const size_t h3 = (size_t)3 * H;
+#pragma unroll
+  for (int k0 = 0; k0 < PER; k0 += KB) {
+    float dv[KB][8];
+    Pack8 dsv[KB], xs[KB][3], hs[KB][3], hv[KB], ms[KB][3];
+#pragma unroll
+    for (int k = 0; k < KB && k0 + k < PER; ++k) {
+      const int task = threadIdx.x + (k0 + k) * NC;
+      const int b = b0 + task / CH, j = n0 + (task % CH) * 8;
+      if (task >= BM * CH || b >= p.B || j >= H) continue;
+      const int n = min(8, H - j);
+      const size_t o = (size_t)b * H + j, x0 = (size_t)b * h3 + j;
+      if (carry) load8f<TMA>(p.dh + o, n, dv[k]);
+      dsv[k] = load8<TMA>(p.ds + o, n);
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        xs[k][g] = load8<TMA>(p.xp + x0 + g * H, n);
+        hs[k][g] = load8<TMA>(p.hp + x0 + g * H, n);
+      }
+      if (p.h_prev != nullptr) hv[k] = load8<TMA>(p.h_prev + o, n);
+      else hv[k].u = make_uint4(0, 0, 0, 0);
+      if (p.mask != nullptr)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          ms[k][g] = load8<TMA>(p.mask + g * p.gstride + o, n);
+    }
+#pragma unroll
+    for (int k = 0; k < KB && k0 + k < PER; ++k) {
+      const int task = threadIdx.x + (k0 + k) * NC;
+      const int r = task / CH, c0 = (task % CH) * 8;
+      const int b = b0 + r, j = n0 + c0;
+      if (task >= BM * CH || b >= p.B || j >= H) continue;
+      const int n = min(8, H - j);
+      const size_t o = (size_t)b * H + j, x0 = (size_t)b * h3 + j;
+      float d[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d[e] = carry ? dv[k][e] : 0.0f;
+      if (carry) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const float4* c4 =
+              reinterpret_cast<const float4*>(cs + (g * BM + r) * LDC + c0);
+          const float4 lo = c4[0], hi = c4[1];
+          const float v[8] = {lo.x, lo.y, lo.z, lo.w,
+                              hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float m = p.mask != nullptr ? f32(lane8(ms[k][g], e))
+                                              : 1.0f;
+            d[e] = __fmaf_rn(v[e], m, d[e]);
+          }
+        }
+      }
+      Pack8 ox[3], oh[3];
+      float carry_out[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float hn = f32(lane8(hs[k][2], e));
+        const float gg = f32(lane8(dsv[k], e)) + d[e];
+        const float rg = sigmoid(f32(lane8(xs[k][0], e)) +
+                                 f32(lane8(hs[k][0], e)));
+        const float z = sigmoid(f32(lane8(xs[k][1], e)) +
+                                f32(lane8(hs[k][1], e)));
+        const float nn = tanhf(f32(lane8(xs[k][2], e)) + rg * hn);
+        const float dn = gg * (1.0f - z);
+        const float dsz = gg * (f32(lane8(hv[k], e)) - nn) * z * (1.0f - z);
+        const float dsn = dn * (1.0f - nn * nn);
+        const float dhn = dsn * rg;
+        const float dsr = dsn * hn * rg * (1.0f - rg);
+        set_lane8(ox[0], e, rn(dsr));
+        set_lane8(ox[1], e, rn(dsz));
+        set_lane8(ox[2], e, rn(dsn));
+        set_lane8(oh[0], e, rn(dsr));
+        set_lane8(oh[1], e, rn(dsz));
+        set_lane8(oh[2], e, rn(dhn));
+        carry_out[e] = gg * z;
+      }
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        store8<TMA>(p.dxp + x0 + g * H, ox[g], n);
+        store8<TMA>(p.dhp + x0 + g * H, oh[g], n);
+      }
+      store8f<TMA>(p.dh + o, carry_out, n);
     }
   }
 }
 
-// Reverse timestep s.  dhp_next == nullptr means s == T - 1 (no carry in);
-// h_prev == nullptr means s == 0.  mask == nullptr means ones; gstride is
-// 0 for one shared (B, H) mask.  Per (b, k), in JAX's order:
-//   dh += acc_r * mask_r;  dh += acc_z * mask_z;  dh += acc_n * mask_n
-//   g = ds + dh;  dxp = bf16([dsr, dsz, dsn]);  dh_proj = bf16([dsr, dsz,
-//   dhn]);  dh <- g * z
-template <bool VEC>
-__global__ void __launch_bounds__(KNT)
-gru_bwd_step_kernel(const bf16* __restrict__ dhp_next,  // (B, 3H) or null
-                    const bf16* __restrict__ w,         // (3H, H)
-                    const bf16* __restrict__ mask,      // (B, H) / (3, B, H)
-                    size_t gstride,
-                    float* __restrict__ dh,             // (B, H) in / out
-                    const bf16* __restrict__ ds_s,      // (B, H)
-                    const bf16* __restrict__ xp_s,      // (B, 3H)
-                    const bf16* __restrict__ hp_s,      // (B, 3H)
-                    const bf16* __restrict__ h_prev,    // (B, H) or null
-                    bf16* __restrict__ dxp_s,           // (B, 3H)
-                    bf16* __restrict__ dhp_s,           // (B, 3H)
-                    int B, int H) {
-  extern __shared__ __align__(128) unsigned char kdyn[];
-  bf16* ring = reinterpret_cast<bf16*>(kdyn);
-  float* Cs = reinterpret_cast<float*>(kdyn);  // (3, KBM, KLDC) afterwards
-  const int k0 = blockIdx.x * KBN;
-  const int b0 = blockIdx.y * KBM;
-  const bool carry = dhp_next != nullptr;
+// Reverse timestep s.  tmA: dh_proj (T, B, 3H) as dims (H, 3, B, T), boxes
+// (BK, 1, BM, 1), 64B-swizzled; tmW: W_hh (3H, H) as dims (16, H, 3,
+// H / 16) (units within a chunk, depth rows, gates, 16-unit chunks),
+// boxes (16, BK, 1, BN / 16), 32B-swizzled.  Unused when TMA is false.
+template <int WG, int BN, bool TMA>
+__global__ void __launch_bounds__(BwdTile<WG, BN>::NT, 1)
+gru_bwd_step_kernel(const __grid_constant__ CUtensorMap tmA,
+                    const __grid_constant__ CUtensorMap tmW,
+                    const BwdStep p) {
+  using Tl = BwdTile<WG, BN>;
+  constexpr int BM = Tl::BM, BK = Tl::BK;
+  extern __shared__ unsigned char bdyn[];
+  // the swizzled tiles need 1024-byte aligned shared addresses
+  unsigned char* ring = bdyn + ((1024 - (smem_u32(bdyn) & 1023)) & 1023);
+  const int S = p.stages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Tl::RING(S));
+  uint64_t* empty = full + S;
+  const int n0 = blockIdx.x * BN;
+  const int b0 = blockIdx.y * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  if (carry) {
-    // the epilogue's operands, cold in device memory, start toward L2 now
-    // and arrive while the product runs: per row, 64-byte runs of ds,
-    // h_prev, the masks, the three gates of xp and h_proj, and dh
-    for (int i = threadIdx.x; i < KBM * 12; i += KNT) {
-      const int r = i / 12, a = i % 12, b = b0 + r;
-      if (b >= B) continue;
-      const size_t o = (size_t)b * H + k0;
-      const size_t x0 = (size_t)b * 3 * H + k0;
-      const void* p = nullptr;
-      if (a == 0) p = ds_s + o;
-      else if (a == 1) p = h_prev != nullptr ? h_prev + o : nullptr;
-      else if (a < 5) p = mask != nullptr ? mask + (a - 2) * gstride + o
-                                          : nullptr;
-      else if (a < 8) p = xp_s + x0 + (size_t)(a - 5) * H;
-      else if (a < 11) p = hp_s + x0 + (size_t)(a - 8) * H;
-      else p = dh + o;
-      if (p != nullptr) prefetch_l2(p);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, WG * 128);
     }
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    float acc[3][4][4];
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == WG * 4) {
+    // ---- the producer warp: keeps the ring full
+    if (p.dhp_next == nullptr) return;
+    for (int kt = 0; kt < p.nk; ++kt) {
+      const int s = kt % S;
+      if (kt >= S) mbar_wait(empty + s, ((kt / S) + 1) & 1);
+      unsigned char* st = ring + (size_t)s * Tl::STAGE;
+      const int j0 = kt * BK;
+      if constexpr (TMA) {
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full + s, Tl::STAGE);
 #pragma unroll
-    for (int g = 0; g < 3; ++g)
+          for (int g = 0; g < 3; ++g)
+            tma_load_4d(st + g * Tl::A_BYTES, &tmA, full + s, j0, g, b0,
+                        p.a_t);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[g][j][e] = 0.0f;
-    const int nk = (H + KBK - 1) / KBK;
-#pragma unroll
-    for (int p = 0; p < KSTAGES - 1; ++p) {
-      if (p < nk)
-        bwd_load_stage<VEC>(ring + p * KSTAGE, dhp_next, w, b0, k0, p * KBK,
-                            B, H);
-      cp_async_commit();
-    }
-    // ldmatrix row addresses: A rows of this warp, W depth rows / units
-    const int a_row = warp * 16 + lane % 16, a_col = (lane / 16) * 8;
-    const int w_row = lane % 8 + ((lane / 8) % 2) * 8;
-    const int w_col = (lane / 16) * 8;
-    for (int kc = 0; kc < nk; ++kc) {
-      cp_async_wait<KSTAGES - 2>();
-      __syncthreads();
-      const int nx = kc + KSTAGES - 1;
-      if (nx < nk)
-        bwd_load_stage<VEC>(ring + (nx % KSTAGES) * KSTAGE, dhp_next, w, b0,
-                            k0, nx * KBK, B, H);
-      cp_async_commit();
-      const bf16* As = ring + (kc % KSTAGES) * KSTAGE;
-      const bf16* Ws = As + KA;
-#pragma unroll
-      for (int ks = 0; ks < KBK; ks += 16) {
-#pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          unsigned a[4];
-          ldmatrix_x4(a, As + (g * KBM + a_row) * KLD + ks + a_col);
-#pragma unroll
-          for (int p = 0; p < 2; ++p) {   // units 16 p .. 16 p + 15
-            unsigned b[4];
-            ldmatrix_x4_trans(b, Ws + (g * KBK + ks + w_row) * KLD + p * 16
-                                     + w_col);
-            mma_bf16_16816(acc[g][2 * p], a, b[0], b[1]);
-            mma_bf16_16816(acc[g][2 * p + 1], a, b[2], b[3]);
-          }
+          for (int g = 0; g < 3; ++g)
+            tma_load_4d(st + 3 * Tl::A_BYTES + g * Tl::W_BYTES, &tmW,
+                        full + s, 0, j0, g, n0 / 16);
         }
+      } else {
+        const size_t h3 = (size_t)3 * p.H;
+        for (int i = lane; i < 3 * BM * BK; i += 32) {
+          const int g = i / (BM * BK), r = (i / BK) % BM, c = i % BK;
+          const int b = b0 + r, j = j0 + c;
+          const bf16 v = b < p.B && j < p.H
+                             ? p.dhp_next[(size_t)b * h3 + g * p.H + j]
+                             : bf16_zero();
+          *reinterpret_cast<bf16*>(st + g * Tl::A_BYTES +
+                                   swizzled<64>(r, c)) = v;
+        }
+        for (int i = lane; i < 3 * BK * BN; i += 32) {
+          const int g = i / (BK * BN), c = (i / BN) % BK, u = i % BN;
+          const int j = j0 + c, k = n0 + u;
+          const bf16 v = j < p.H && k < p.H
+                             ? p.w[((size_t)g * p.H + j) * p.H + k]
+                             : bf16_zero();
+          *reinterpret_cast<bf16*>(st + 3 * Tl::A_BYTES + g * Tl::W_BYTES +
+                                   (u / 16) * Tl::W_CHUNK +
+                                   swizzled<32>(c, u % 16)) = v;
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full + s);
       }
     }
-    cp_async_wait<0>();
-    __syncthreads();   // the ring is free: stage the sums for the epilogue
-    const int g_id = lane / 4, t = lane % 4;
-#pragma unroll
-    for (int g = 0; g < 3; ++g)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          Cs[(g * KBM + warp * 16 + g_id + (e / 2) * 8) * KLDC + j * 8
-             + 2 * t + e % 2] = acc[g][j][e];
-    __syncthreads();
+    return;
   }
-
-  // elementwise over the block's (row, unit) tile, a warp along one row;
-  // each thread loads EU elements' operands before it computes any
-  constexpr int EU = 4;
-  const size_t h3 = (size_t)3 * H;
-  for (int i0 = threadIdx.x; i0 < KBM * KBN; i0 += EU * KNT) {
-    bool ok[EU];
-    float d[EU], dsv[EU], xr[EU], xz[EU], xn[EU], hr[EU], hz[EU], hn[EU],
-        hprev[EU];
-#pragma unroll
-    for (int u = 0; u < EU; ++u) {
-      const int i = i0 + u * KNT;
-      const int r = i / KBN, c = i % KBN;
-      const int b = b0 + r, k = k0 + c;
-      ok[u] = i < KBM * KBN && b < B && k < H;
-      if (!ok[u]) continue;
-      const size_t o = (size_t)b * H + k;
-      const size_t x0 = (size_t)b * h3 + k;
-      d[u] = 0.0f;
-      if (carry) {
-        d[u] = dh[o];
-#pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          const float m = mask != nullptr ? f32(mask[g * gstride + o]) : 1.0f;
-          d[u] = __fmaf_rn(Cs[(g * KBM + r) * KLDC + c], m, d[u]);
-        }
-      }
-      dsv[u] = f32(ds_s[o]);
-      xr[u] = f32(xp_s[x0]);
-      xz[u] = f32(xp_s[x0 + H]);
-      xn[u] = f32(xp_s[x0 + 2 * H]);
-      hr[u] = f32(hp_s[x0]);
-      hz[u] = f32(hp_s[x0 + H]);
-      hn[u] = f32(hp_s[x0 + 2 * H]);
-      hprev[u] = h_prev != nullptr ? f32(h_prev[o]) : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < EU; ++u) {
-      if (!ok[u]) continue;
-      const int i = i0 + u * KNT;
-      const int b = b0 + i / KBN, k = k0 + i % KBN;
-      const size_t o = (size_t)b * H + k;
-      const size_t x0 = (size_t)b * h3 + k;
-      const float gg = dsv[u] + d[u];
-      const float rg = sigmoid(xr[u] + hr[u]);
-      const float z = sigmoid(xz[u] + hz[u]);
-      const float nn = tanhf(xn[u] + rg * hn[u]);
-      const float dn = gg * (1.0f - z);
-      const float dsz = gg * (hprev[u] - nn) * z * (1.0f - z);
-      const float dsn = dn * (1.0f - nn * nn);
-      const float dhn = dsn * rg;
-      const float dsr = dsn * hn[u] * rg * (1.0f - rg);
-      dxp_s[x0] = rn(dsr);
-      dxp_s[x0 + H] = rn(dsz);
-      dxp_s[x0 + 2 * H] = rn(dsn);
-      dhp_s[x0] = rn(dsr);
-      dhp_s[x0 + H] = rn(dsz);
-      dhp_s[x0 + 2 * H] = rn(dhn);
-      dh[o] = gg * z;
-    }
-  }
+  bwd_consume<WG, BN, TMA>(p, ring, full, empty, n0, b0);
 }
 
 // The forward's instances, (NG, WG = BM / 64, BJ, BK, TMA), mirrored by
@@ -629,6 +744,43 @@ cudaError_t fwd_launch(const CUtensorMap& tmA, const CUtensorMap& tmW,
     p.hproj_t = hproj != nullptr ? hproj + t * step_x : nullptr;
     p.hm_out = masked && t + 1 < T ? scratch + (t & 1) * NG * step_h
                                    : nullptr;
+    kernel<<<grid, Tl::NT, smem, s>>>(tmA, tmW, p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The backward's instances, (WG = BM / 64, BN, TMA), mirrored by
+// ops/cuda/gru_kernel.BWD_TILES (the TMA ones) and BWD_RAGGED_TILE.
+#define VQACX_BWD_TILES(X) \
+  X(2, 80, true)           \
+  X(1, 48, true)           \
+  X(1, 48, false)
+
+template <int WG, int BN, bool TMA>
+cudaError_t bwd_launch(const CUtensorMap& tmA, const CUtensorMap& tmW,
+                       BwdStep p, int T, const bf16* xp,
+                       const bf16* states, const bf16* hproj,
+                       const bf16* ds, bf16* dxp, bf16* dhp,
+                       cudaStream_t s) {
+  using Tl = BwdTile<WG, BN>;
+  auto kernel = gru_bwd_step_kernel<WG, BN, TMA>;
+  const size_t smem = 1024 + Tl::RING(p.stages) + 16 * p.stages;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.H + BN - 1) / BN, (p.B + Tl::BM - 1) / Tl::BM);
+  const size_t step_h = (size_t)p.B * p.H, step_x = 3 * step_h;
+  for (int t = T - 1; t >= 0; --t) {
+    p.dhp_next = t < T - 1 ? dhp + (t + 1) * step_x : nullptr;
+    p.a_t = t + 1;
+    p.ds = ds + t * step_h;
+    p.xp = xp + t * step_x;
+    p.hp = hproj + t * step_x;
+    p.h_prev = t > 0 ? states + (t - 1) * step_h : nullptr;
+    p.dxp = dxp + t * step_x;
+    p.dhp = dhp + t * step_x;
     kernel<<<grid, Tl::NT, smem, s>>>(tmA, tmW, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -697,46 +849,57 @@ extern "C" int vqacx_gru_fwd(const void* xp, const void* w, const void* b,
 // The reverse sweep over the forward's residuals: dxp and dh_proj
 // (T, B, 3H) bf16 from the state cotangents dstates (T, B, H) bf16, in T
 // launches.  dh is an f32 (B, H) scratch (not read before it is written).
-// mask_gates as for the forward.
+// mask_gates as for the forward.  The tile (bm, bn, tma) must be one of
+// VQACX_BWD_TILES'; TMA needs H % 16 == 0; ``stages`` deep ring.
 extern "C" int vqacx_gru_bwd(const void* xp, const void* w, const void* mask,
                              int mask_gates, const void* states,
                              const void* hproj, const void* dstates,
                              void* dxp, void* dhproj, void* dh, int T, int B,
-                             int H, void* stream) {
-  using vqacx::bf16;
+                             int H, int bm, int bn, int tma, int stages,
+                             void* stream) {
+  using namespace vqacx;
   if (mask_gates != 0 && mask_gates != 1 && mask_gates != 3)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (T <= 0 || B <= 0 || H <= 0 || stages < 2 || (tma && H % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdStep p{};
+  p.w = static_cast<const bf16*>(w);
+  p.mask = mask_gates > 0 ? static_cast<const bf16*>(mask) : nullptr;
+  p.gstride = mask_gates == 3 ? (size_t)B * H : 0;
+  p.dh = static_cast<float*>(dh);
+  p.B = B;
+  p.H = H;
+  p.nk = (H + 31) / 32;
+  p.stages = stages;
+  bf16* dhp_ = static_cast<bf16*>(dhproj);
+  CUtensorMap tmA{}, tmW{};
+  if (tma) {
+    const uint64_t h = (uint64_t)H;
+    // dh_proj (T, B, 3H) as (H, 3, B, T): a gate's K runs end at H (zeros
+    // past it, not the next gate's columns)
+    const uint64_t adims[4] = {h, 3, (uint64_t)B, (uint64_t)T};
+    const uint64_t astrides[3] = {2 * h, 6 * h, 6 * h * B};
+    const uint32_t abox[4] = {32, 1, (uint32_t)bm, 1};
+    // W_hh (3H, H) as (16, H, 3, H / 16): a box is BK depth rows of
+    // bn / 16 chunks of 16 units, each chunk's rows 32 bytes apart
+    const uint64_t wdims[4] = {16, h, 3, h / 16};
+    const uint64_t wstrides[3] = {2 * h, 2 * h * h, 32};
+    const uint32_t wbox[4] = {16, 32, 1, (uint32_t)bn / 16};
+    if (!bf16_tensor_map_strided(&tmA, dhp_, 4, adims, astrides, abox, 64) ||
+        !bf16_tensor_map_strided(&tmW, w, 4, wdims, wstrides, wbox, 32))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* xp_ = static_cast<const bf16*>(xp);
-  const bf16* w_ = static_cast<const bf16*>(w);
-  const bf16* mask_ = mask_gates > 0 ? static_cast<const bf16*>(mask)
-                                     : nullptr;
   const bf16* states_ = static_cast<const bf16*>(states);
   const bf16* hproj_ = static_cast<const bf16*>(hproj);
   const bf16* ds_ = static_cast<const bf16*>(dstates);
   bf16* dxp_ = static_cast<bf16*>(dxp);
-  bf16* dhp_ = static_cast<bf16*>(dhproj);
-  float* dh_ = static_cast<float*>(dh);
-  const size_t step_h = (size_t)B * H;
-  const size_t step_x = (size_t)B * 3 * H;
-  const size_t gstride = mask_gates == 3 ? step_h : 0;
-  const bool vec = (H % 8 == 0) && vqacx::aligned16(w) &&
-                   vqacx::aligned16(dhproj);
-  auto kernel = vec ? vqacx::gru_bwd_step_kernel<true>
-                    : vqacx::gru_bwd_step_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, vqacx::KSMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((H + vqacx::KBN - 1) / vqacx::KBN,
-                  (B + vqacx::KBM - 1) / vqacx::KBM);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int t = T - 1; t >= 0; --t) {
-    kernel<<<grid, vqacx::KNT, vqacx::KSMEM, s>>>(
-        t < T - 1 ? dhp_ + (t + 1) * step_x : nullptr, w_, mask_, gstride,
-        dh_, ds_ + t * step_h, xp_ + t * step_x, hproj_ + t * step_x,
-        t > 0 ? states_ + (t - 1) * step_h : nullptr, dxp_ + t * step_x,
-        dhp_ + t * step_x, B, H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+#define VQACX_BWD_CASE(WG_, BN_, TMA_)                                     \
+  if (bm == 64 * WG_ && bn == BN_ && (tma != 0) == TMA_)                   \
+    return static_cast<int>(bwd_launch<WG_, BN_, TMA_>(                    \
+        tmA, tmW, p, T, xp_, states_, hproj_, ds_, dxp_, dhp_, s));
+  VQACX_BWD_TILES(VQACX_BWD_CASE)
+#undef VQACX_BWD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

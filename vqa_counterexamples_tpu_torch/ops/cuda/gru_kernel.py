@@ -54,12 +54,24 @@ The backward's launch for step s first adds step s + 1's back product
 ``dh_proj @ W`` to the f32 carry (it needs whole dh_proj rows, a
 grid-wide dependency, hence a launch per step), then runs step s's gate
 math in the same block's epilogue: the carry makes one round trip per
-step.  A backward block owns 64 rows x 32 hidden units, so B 128 gives
-150 blocks for the H100's 132 SMs, and holds one accumulator per gate over
-one K loop of depth 3H: bf16 ``mma.sync`` fed by a 3-stage ``cp.async``
-ring, W read MN-major through ``ldmatrix.trans``.  The gates fold into dh
-with each gate's mask in JAX's order r, z, n; the shared-mask case is the
-same kernels with a gate stride of 0.  No atomics: reruns are bit-equal.
+step.  The product is the forward's transposed, and takes the forward's
+recipe: a block owns BM batch rows x BN hidden units of the carry and one
+accumulator per gate over a K loop of depth H per gate; a producer warp
+streams the A tiles (dh_proj_g of step s + 1) and the W_g tiles through a
+TMA + mbarrier ring, W read MN-major (units contiguous) in 32B-swizzled
+chunks of 16 units through ``wgmma``'s transposed-B descriptor; one or two
+consumer warpgroups run ``wgmma`` per gate; the sums go through shared
+memory so that the gate math moves dh, ds, xp, h_proj, h_{t-1}, the masks
+and its outputs 16 bytes at a time along rows.  :func:`bwd_tile` picks
+(BM, BN, stages) from (B, H) and the SM count: the fewest L2 bytes per
+SM (B 512: one wave of 120 blocks of 128 x 80; B 768: 180 of them, two
+waves; B 128: 100 blocks of 64 x 48).  Like the forward's, the back
+product is bound by what its blocks pull from L2, not by the tensor cores.
+H % 16 != 0 (W's chunks are 16 units) and unaligned operands run the same
+template with plain loads (``tma=False``).  The gates fold into dh with
+each gate's mask in JAX's order r, z, n; the shared-mask case is the same
+kernels with a gate stride of 0.  No atomics: reruns are bit-equal, and
+every tile sums K in the same order, so every tile gives the same bits.
 
 The backward does not compute the mask's cotangent (JAX's kernel does):
 the masks are drawn, never trained, so nothing consumes it.  dW and db are
@@ -142,6 +154,66 @@ def fwd_tile(batch: int, dim_h: int, gates: int, sm_count: int,
         stages = fwd_max_stages(gates, bm, bj, bk)
         if stages >= 3 and (best is None or cost < best[0]):
             best = (cost, FwdTile(bm, bj, bk, stages, True))
+    return best[1]
+
+
+# The backward's kernel instances (``VQACX_BWD_TILES`` in csrc/gru.cu):
+# (BM, BN) of the TMA path, and the plain-load path's; every stage is 32
+# deep.  A mirror of the C table, as FWD_TILES; a CPU test holds the two
+# equal.
+BWD_TILES = ((128, 80), (64, 48))
+BWD_RAGGED_TILE = (64, 48)
+BWD_BK = 32
+BWD_MAX_STAGES = 4
+
+
+class BwdTile(NamedTuple):
+    """A backward launch's tile: BM batch rows x BN hidden units a block,
+    ``stages`` stages of BWD_BK depth in the ring, TMA or plain loads."""
+    bm: int
+    bn: int
+    stages: int
+    tma: bool
+
+
+def bwd_stage_bytes(bm: int, bn: int) -> int:
+    """One ring stage: an A box and a W box per gate, plus its two
+    mbarriers."""
+    return 3 * (bm + bn) * BWD_BK * 2 + 16
+
+
+def bwd_max_stages(bm: int, bn: int) -> int:
+    """The deepest ring of this tile that fits a block's shared memory,
+    capped at BWD_MAX_STAGES (the epilogue's staged sums reuse the ring;
+    they fit it at every tile of the table)."""
+    return min(BWD_MAX_STAGES, SMEM_BLOCK // bwd_stage_bytes(bm, bn))
+
+
+def bwd_waves(batch: int, dim_h: int, bm: int, bn: int,
+              sm_count: int) -> tuple:
+    """(blocks, waves) of a (bm, bn) grid over (B, H)."""
+    blocks = -(-batch // bm) * -(-dim_h // bn)
+    return blocks, -(-blocks // sm_count)
+
+
+def bwd_tile(batch: int, dim_h: int, sm_count: int,
+             tma: bool = True) -> BwdTile:
+    """The backward's tile for (B, H) on a card of ``sm_count`` SMs.  Off
+    TMA's rules the plain-load tile; else the TMA tile whose blocks pull
+    the fewest bytes from L2 per SM, waves x (BM + BN) x 3H: 128 x 80 at
+    B 512 (one wave of 120 blocks), B 768 (180 blocks) and B 256 (60), 64
+    x 48 at B 128 (100 blocks) and below; at each of these the fastest
+    tile of the table on the card.  Ties go to the earlier entry of
+    BWD_TILES.  The mask changes no tile: the A and W boxes are the same
+    with or without it."""
+    if not tma:
+        return BwdTile(*BWD_RAGGED_TILE,
+                       bwd_max_stages(*BWD_RAGGED_TILE), False)
+    best = None
+    for bm, bn in BWD_TILES:
+        cost = bwd_waves(batch, dim_h, bm, bn, sm_count)[1] * (bm + bn)
+        if best is None or cost < best[0]:
+            best = (cost, BwdTile(bm, bn, bwd_max_stages(bm, bn), True))
     return best[1]
 
 
@@ -371,6 +443,18 @@ def gru_recurrence_bwd_plain(xp: torch.Tensor, w_hh: torch.Tensor,
     return dxp, dw, db
 
 
+def backward_tile(xp: torch.Tensor, w_hh: torch.Tensor,
+                  mask: torch.Tensor | None, states: torch.Tensor,
+                  hproj: torch.Tensor, dstates: torch.Tensor) -> BwdTile:
+    """The tile :func:`gru_recurrence_bwd` launches with on these operands
+    (CUDA tensors'): TMA needs H % 16 == 0 and 16-byte aligned operands."""
+    batch, dim_h = states.shape[1], states.shape[2]
+    tma = dim_h % 16 == 0 and all(
+        t.data_ptr() % 16 == 0
+        for t in (xp, w_hh, mask, states, hproj, dstates) if t is not None)
+    return bwd_tile(batch, dim_h, _sm_count(xp.device), tma)
+
+
 def gru_recurrence_bwd(xp: torch.Tensor, w_hh: torch.Tensor,
                        mask: torch.Tensor | None, states: torch.Tensor,
                        hproj: torch.Tensor, dstates: torch.Tensor):
@@ -378,11 +462,20 @@ def gru_recurrence_bwd(xp: torch.Tensor, w_hh: torch.Tensor,
     docstring) -> (dxp, dW_hh bf16, db_hh f32).
 
     On CPU tensors this is :func:`gru_recurrence_bwd_plain`; on CUDA
-    tensors it launches the reverse sweep (T launches) or raises.
+    tensors it launches the reverse sweep (T launches) with
+    :func:`backward_tile`'s tile or raises.
     """
     if xp.device.type == "cpu":
         return gru_recurrence_bwd_plain(xp, w_hh, mask, states, hproj,
                                         dstates)
+    return _gru_bwd(xp, w_hh, mask, states, hproj, dstates, None)
+
+
+def _gru_bwd(xp, w_hh, mask, states, hproj, dstates, tile: BwdTile | None):
+    """Launch the reverse sweep on CUDA tensors with ``tile`` (None: the
+    one :func:`backward_tile` picks), then the dW / db products.  The
+    probe's tile sweep and the every-tile card test pass a tile; every tile
+    gives the same bits."""
     seq_len, batch, dim_h = _check_operands("gru_recurrence_bwd", xp, w_hh,
                                             mask)
     for name, t in (("states", states), ("dstates", dstates)):
@@ -393,6 +486,7 @@ def gru_recurrence_bwd(xp: torch.Tensor, w_hh: torch.Tensor,
         raise ValueError("gru_recurrence_bwd: hproj must be (T, B, 3H) bf16")
     build.require_cuda("gru_recurrence_bwd", xp, w_hh, states, hproj,
                        dstates, *([mask] if mask is not None else []))
+    tile = tile or backward_tile(xp, w_hh, mask, states, hproj, dstates)
     lib = _lib()
     dxp = torch.empty_like(xp)
     dhproj = torch.empty_like(xp)
@@ -401,8 +495,10 @@ def gru_recurrence_bwd(xp: torch.Tensor, w_hh: torch.Tensor,
                            _mask_gates(mask), build.ptr(states),
                            build.ptr(hproj), build.ptr(dstates),
                            build.ptr(dxp), build.ptr(dhproj), build.ptr(dh),
-                           seq_len, batch, dim_h, build.stream_of(xp.device))
-    build.check(lib, rc, "gru_recurrence_bwd")
+                           seq_len, batch, dim_h, tile.bm, tile.bn,
+                           int(tile.tma), tile.stages,
+                           build.stream_of(xp.device))
+    build.check(lib, rc, "gru_recurrence_bwd (tile %s)" % (tile,))
     gru_recurrence_bwd.launches += 1
     dw, db = _weight_grads(dhproj, states, mask, dim_h)
     return dxp, dw, db
@@ -443,7 +539,7 @@ def _lib():
     # (name, pointer arguments before mask_gates, pointer arguments after,
     # int arguments before the stream)
     for name, before, after, ints in (("vqacx_gru_fwd", 4, 3, 8),
-                                      ("vqacx_gru_bwd", 3, 6, 3)):
+                                      ("vqacx_gru_bwd", 3, 6, 7)):
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.argtypes = ([ctypes.c_void_p] * before + [ctypes.c_int]
