@@ -370,8 +370,8 @@ TOL = {
 # GRU backward (every encoder here trains its embedding), so
 # read_counters holds them to the GRU's counters
 XPROJ = ("xproj", "xproj_dx", "xproj_dw")
-# each other CUDA kernel wrapper (``ops/cuda.launch_counters``) by name:
-# its source
+# each other CUDA kernel wrapper (its launch counter in ``core/spans``,
+# ``kernels.launches.<name>``) by name: its source
 SOURCES = {"gru": "gru", "gru_pg": "gru", "gru_bwd": "gru", "vfeat": "vfeat",
            "vfeat_bwd": "vfeat", "mixture": "mixture", "mutan": "mutan",
            "attmutan": "attmutan", "attmutan_bwd": "attmutan", "knn": "knn"}
@@ -1196,23 +1196,33 @@ def serve_kernel_rows(dev, gen, randn):
 
 
 def counters():
-    from vqa_counterexamples_tpu_torch.ops.cuda import launch_counters
+    """Every kernel wrapper's launch count in the port's counter store
+    (``core/spans``), by wrapper name."""
+    import vqa_counterexamples_tpu_torch.ops.cuda  # noqa: F401 (declares)
+    from vqa_counterexamples_tpu_torch.core import spans
 
-    wrappers = launch_counters()
-    if set(wrappers) != set(SOURCES) | set(XPROJ):
+    prefix = "kernels.launches."
+    got = {k[len(prefix):]: n for k, n in spans.counters().items()
+           if k.startswith(prefix)}
+    if set(got) != set(SOURCES) | set(XPROJ):
         raise AssertionError("kernel wrappers %s, expected %s"
-                             % (sorted(wrappers),
+                             % (sorted(got),
                                 sorted(set(SOURCES) | set(XPROJ))))
-    return wrappers
+    return got
+
+
+# the store's counts at the last reset_counters: the phases read each
+# wrapper's launches since then
+_AT_RESET = {}
 
 
 def reset_counters():
-    for fn in counters().values():
-        fn.launches = 0
+    _AT_RESET.update(counters())
 
 
 def read_all_counters():
-    return {name: fn.launches for name, fn in counters().items()}
+    return {name: n - _AT_RESET.get(name, 0)
+            for name, n in counters().items()}
 
 
 def read_counters(everything=False):

@@ -48,6 +48,7 @@ from vqa_counterexamples_tpu.ops.pallas.attmutan_kernel import (
     folded_mutan_pallas)
 from vqa_counterexamples_tpu_torch.cli import train as port_cli
 from vqa_counterexamples_tpu_torch.core import config as port_config
+from vqa_counterexamples_tpu_torch.core import spans
 from vqa_counterexamples_tpu_torch.data.features import FeatureStore
 from vqa_counterexamples_tpu_torch.data.vqa_dataset import VQAArrays
 from vqa_counterexamples_tpu_torch.engines import vqa_engine as port_engine
@@ -150,10 +151,11 @@ def test_folded_function_grads_match_jax_vjp():
     leaves = [_t(x_v, BF16).requires_grad_(),
               _t(_port_w(w3), BF16).requires_grad_(),
               _t(b3.reshape(-1)).requires_grad_(), _t(hq).requires_grad_()]
-    before = attmutan_kernel.folded_mutan.launches
+    before = spans.counters()["kernels.launches.attmutan"]
     out = port_fusion.FoldedMutan.apply(*leaves)
     out.backward(_t(g, BF16))
-    assert attmutan_kernel.folded_mutan.launches == before  # CPU: plain
+    # the CPU: plain
+    assert spans.counters()["kernels.launches.attmutan"] == before
     assert [t.grad.dtype for t in leaves] == [BF16, BF16, torch.float32,
                                               torch.float32]
     refs = [np.asarray(ref[0], np.float32),

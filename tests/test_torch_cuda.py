@@ -20,10 +20,23 @@ import numpy as np
 import pytest
 import torch
 
+from vqa_counterexamples_tpu_torch.core import spans
 from vqa_counterexamples_tpu_torch.ops.cuda import (
     gru_kernel, mixture_kernel, mutan_kernel, vfeat_kernel, xproj_kernel)
 
 pytestmark = pytest.mark.cuda
+
+
+def launches() -> dict:
+    """Every kernel wrapper's launch count in the port's counter store
+    (``core/spans``), by wrapper name."""
+    return {k[len("kernels.launches."):]: n
+            for k, n in spans.counters().items()
+            if k.startswith("kernels.launches.")}
+
+
+def launched(name: str) -> int:
+    return launches()[name]
 
 
 @pytest.fixture
@@ -46,11 +59,11 @@ def test_gru_kernel_matches_plain(dev, seq, batch, dim_h, masked):
     b = _randn(gen, dev, 3 * dim_h, scale=0.1, dtype=torch.float32)
     mask = (((torch.rand(batch, dim_h, generator=gen) > 0.3) * 1.5)
             .to(torch.bfloat16).to(dev) if masked else None)
-    before = gru_kernel.gru_recurrence.launches
+    before = launched("gru")
     s1, h1 = gru_kernel.gru_recurrence(xp, w, b, mask, want_hproj=True)
     s2, h2 = gru_kernel.gru_recurrence_plain(xp, w, b, mask, want_hproj=True)
     torch.cuda.synchronize()
-    assert gru_kernel.gru_recurrence.launches == before + 1
+    assert launched("gru") == before + 1
     torch.testing.assert_close(s1.float(), s2.float(), atol=5e-2, rtol=5e-2)
     torch.testing.assert_close(h1.float(), h2.float(), atol=5e-2, rtol=5e-2)
 
@@ -70,11 +83,11 @@ def test_vfeat_kernel_matches_plain(dev, n_rows, dim_v, batch, knn, dim_h):
         torch.int32).to(dev)
     w_o = _randn(gen, dev, dim_h, dim_v, scale=dim_v ** -0.5)
     w_m = _randn(gen, dev, dim_h, dim_v, scale=dim_v ** -0.5)
-    before = vfeat_kernel.vfeat_scores.launches
+    before = launched("vfeat")
     h1, d1 = vfeat_kernel.vfeat_scores(table, idx, w_o, w_m)
     h2, d2 = vfeat_kernel.vfeat_scores_plain(table, idx, w_o, w_m)
     torch.cuda.synchronize()
-    assert vfeat_kernel.vfeat_scores.launches == before + 1
+    assert launched("vfeat") == before + 1
     torch.testing.assert_close(h1.float(), h2.float(), atol=3e-2, rtol=3e-2)
     torch.testing.assert_close(d1, d2, atol=1e-4, rtol=1e-4)
     # fixed sums: the same inputs give the same bits
@@ -106,11 +119,11 @@ def _assert_grads_close(got, ref, rel=1e-4):
 def test_vfeat_bwd_kernel_matches_plain(dev, n_rows, dim_v, batch, knn,
                                         dim_h):
     table, idx, g = _vfeat_bwd_inputs(dev, n_rows, dim_v, batch, knn, dim_h)
-    before = vfeat_kernel.vfeat_weight_grads.launches
+    before = launched("vfeat_bwd")
     dwo, dwm = vfeat_kernel.vfeat_weight_grads(table, idx, g)
     ro, rm = vfeat_kernel.vfeat_weight_grads_plain(table, idx, g)
     torch.cuda.synchronize()
-    assert vfeat_kernel.vfeat_weight_grads.launches == before + 1
+    assert launched("vfeat_bwd") == before + 1
     assert dwo.dtype == torch.float32 and dwo.shape == (dim_h, dim_v)
     _assert_grads_close(dwo, ro)
     _assert_grads_close(dwm, rm)
@@ -170,12 +183,12 @@ def test_mixture_kernel_matches_plain(dev, rows, dim_z, n_ans):
     z = _randn(gen, dev, rows, dim_z)
     w = _randn(gen, dev, n_ans, dim_z, scale=0.3)
     b = _randn(gen, dev, n_ans)
-    before = mixture_kernel.classify_softmax.launches
+    before = launched("mixture")
     p1 = mixture_kernel.classify_softmax(z, w, b)
     p2 = mixture_kernel.classify_softmax_plain(z, w, b)
     again = mixture_kernel.classify_softmax(z, w, b)
     torch.cuda.synchronize()
-    assert mixture_kernel.classify_softmax.launches == before + 2
+    assert launched("mixture") == before + 2
     # bit-equal to the plain version, no tolerance (a probability is about
     # 5e-4 at A 2000, so an atol would hide a lost answer tile): the same
     # rounding points, and the product summed in the order cuBLAS sums it
@@ -244,14 +257,12 @@ def _assert_rel(got, ref, rel, name=""):
                                              (2, 65, 36)])
 def test_gru_pg_kernel_matches_plain(dev, seq, batch, dim_h):
     xp, w, b, mask = _gru_inputs(dev, seq, batch, dim_h, "per_gate")
-    before = (gru_kernel.gru_recurrence.launches,
-              gru_kernel.gru_recurrence_pg.launches)
+    before = (launched("gru"), launched("gru_pg"))
     s1, h1 = gru_kernel.gru_recurrence(xp, w, b, mask, want_hproj=True)
     s2, h2 = gru_kernel.gru_recurrence_plain(xp, w, b, mask, want_hproj=True)
     torch.cuda.synchronize()
-    assert (gru_kernel.gru_recurrence.launches,
-            gru_kernel.gru_recurrence_pg.launches) == (before[0],
-                                                       before[1] + 1)
+    assert (launched("gru"), launched("gru_pg")) == (before[0],
+                                                     before[1] + 1)
     torch.testing.assert_close(s1.float(), s2.float(), atol=5e-2, rtol=5e-2)
     torch.testing.assert_close(h1.float(), h2.float(), atol=5e-2, rtol=5e-2)
 
@@ -329,12 +340,12 @@ def test_gru_bwd_kernel_matches_plain(dev, seq, batch, dim_h, mask_kind):
     states, hproj = gru_kernel.gru_recurrence_plain(xp, w, b, mask,
                                                     want_hproj=True)
     ds = _randn(torch.Generator().manual_seed(2), dev, *states.shape)
-    before = gru_kernel.gru_recurrence_bwd.launches
+    before = launched("gru_bwd")
     got = gru_kernel.gru_recurrence_bwd(xp, w, mask, states, hproj, ds)
     ref = gru_kernel.gru_recurrence_bwd_plain(xp, w, mask, states, hproj, ds)
     again = gru_kernel.gru_recurrence_bwd(xp, w, mask, states, hproj, ds)
     torch.cuda.synchronize()
-    assert gru_kernel.gru_recurrence_bwd.launches == before + 2
+    assert launched("gru_bwd") == before + 2
     assert got[1].dtype == torch.bfloat16 and got[2].dtype == torch.float32
     for name, a, r, c in zip(("dxp", "dW", "db"), got, ref, again):
         assert a.shape == r.shape, name
@@ -421,11 +432,11 @@ _TUCKER_SHAPES = [(5, 24, 24, 3, 24), (70, 40, 36, 2, 50),
 @pytest.mark.parametrize("batch,dhv,dhq,rank,dmm", _TUCKER_SHAPES)
 def test_tucker_kernel_matches_plain(dev, batch, dhv, dhq, rank, dmm):
     xv, xq, wv, bv, wq, bq = _tucker_inputs(dev, batch, dhv, dhq, rank, dmm)
-    before = mutan_kernel.tucker_fusion.launches
+    before = launched("mutan")
     got = mutan_kernel.tucker_fusion(xv, xq, wv, bv, wq, bq, rank)
     ref = mutan_kernel.tucker_fusion_plain(xv, xq, wv, bv, wq, bq, rank)
     torch.cuda.synchronize()
-    assert mutan_kernel.tucker_fusion.launches == before + 1
+    assert launched("mutan") == before + 1
     assert got.dtype == torch.float32 and got.shape == (batch, dmm)
     # f32 sums of exact bf16 products in another order
     torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(),
@@ -495,11 +506,11 @@ def test_attmutan_kernel_matches_plain(dev, batch, k, dh, rank, m):
     from vqa_counterexamples_tpu_torch.ops.cuda import attmutan_kernel
 
     xv, w, b, hq, _ = _attmutan_inputs(dev, batch, k, dh, rank, m)
-    before = attmutan_kernel.folded_mutan.launches
+    before = launched("attmutan")
     got = attmutan_kernel.folded_mutan(xv, w, b, hq)
     ref = attmutan_kernel.folded_mutan_plain(xv, w, b, hq)
     torch.cuda.synchronize()
-    assert attmutan_kernel.folded_mutan.launches == before + 1
+    assert launched("attmutan") == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (batch, k, m)
     torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
                                rtol=8e-3)
@@ -533,12 +544,12 @@ def test_attmutan_bwd_kernel_matches_plain(dev, batch, k, dh, rank, m):
     from vqa_counterexamples_tpu_torch.ops.cuda import attmutan_kernel
 
     xv, w, b, hq, g = _attmutan_inputs(dev, batch, k, dh, rank, m, seed=1)
-    before = attmutan_kernel.folded_mutan_bwd.launches
+    before = launched("attmutan_bwd")
     got = attmutan_kernel.folded_mutan_bwd(xv, w, b, hq, g)
     ref = attmutan_kernel.folded_mutan_bwd_plain(xv, w, b, hq, g)
     again = attmutan_kernel.folded_mutan_bwd(xv, w, b, hq, g)
     torch.cuda.synchronize()
-    assert attmutan_kernel.folded_mutan_bwd.launches == before + 2
+    assert launched("attmutan_bwd") == before + 2
     assert [t.dtype for t in got] == [torch.bfloat16, torch.float32,
                                       torch.float32, torch.bfloat16]
     for name, a, r, c in zip(("dx_v", "dw", "db", "dhq"), got, ref, again):
@@ -583,12 +594,12 @@ def test_knn_kernel_matches_plain(dev, bq, n, dim, k):
     corpus = torch.randn(n, dim, generator=gen).to(dev)
     pick = torch.randperm(n, generator=gen)[:bq].to(dev)
     queries = corpus[pick].contiguous()
-    before = knn_kernel.knn_chunk.launches
+    before = launched("knn")
     d1, i1 = knn_kernel.knn_chunk(queries, corpus, k)
     d2, i2 = knn_kernel.knn_chunk_plain(queries, corpus, k)
     again = knn_kernel.knn_chunk(queries, corpus, k)
     torch.cuda.synchronize()
-    assert knn_kernel.knn_chunk.launches == before + 2
+    assert launched("knn") == before + 2
     # a fixed summation order: the same inputs give the same bits
     assert torch.equal(d1, again[0]) and torch.equal(i1, again[1])
     assert i1.dtype == torch.int32 and d1.shape == (bq, k)
@@ -736,17 +747,14 @@ def _cx_run(model, arrays, tables, capture, epochs=2, batch_size=16,
     """``epochs`` epochs of ``train_epoch`` (3 steps each) -> (state,
     per-step (loss, correct), the step, the launch counts); ``mesh``: the
     step's ``parallel.Mesh``."""
-    from vqa_counterexamples_tpu_torch.core import graphs
     from vqa_counterexamples_tpu_torch.engines import cx_engine
-    from vqa_counterexamples_tpu_torch.ops.cuda import launch_counters
 
     feats, q, _, z = tables
     state = cx_engine.init_cx_state(model, lr=1e-3)
     step = cx_engine.make_cx_train_step(model, state.optimizer,
                                         base_seed=3, use_z_cache=True,
                                         capture=capture, mesh=mesh)
-    ledger = graphs.LaunchLedger(launch_counters().values())
-    before = ledger.read()
+    before = launches()
     metrics = []
     rng = np.random.default_rng(0)
     for _ in range(epochs):
@@ -755,8 +763,8 @@ def _cx_run(model, arrays, tables, capture, epochs=2, batch_size=16,
             z_table=z, print_freq=1,
             log_fn=lambda b, m: metrics.append((m["loss"], m["recall"])))
     torch.cuda.synchronize()
-    launches = [a - b for a, b in zip(ledger.read(), before)]
-    return state, metrics, step, launches
+    return state, metrics, step, {k: n - before[k]
+                                  for k, n in launches().items()}
 
 
 def test_captured_cx_train_step_equals_eager(dev, monkeypatch):
@@ -774,7 +782,7 @@ def test_captured_cx_train_step_equals_eager(dev, monkeypatch):
     assert s_cap.step == s_eag.step == 6    # is padded to B
     assert m_cap == m_eag and all(np.isfinite(m[0]) for m in m_cap)
     # the launch counters count the steps' kernels, replays included
-    assert n_cap == n_eag and max(n_cap) >= 6
+    assert n_cap == n_eag and max(n_cap.values()) >= 6
     _assert_same_training(model, s_cap.optimizer, eager_model,
                           s_eag.optimizer)
 
@@ -1088,9 +1096,7 @@ def test_captured_trainable_cx_step_equals_eager(dev, monkeypatch):
     backward and MUTAN launched once a step."""
     import copy
 
-    from vqa_counterexamples_tpu_torch.core import graphs
     from vqa_counterexamples_tpu_torch.engines import cx_engine
-    from vqa_counterexamples_tpu_torch.ops.cuda import launch_counters
 
     monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
     model, arrays, feats = _tiny_zoo(dev, "NeuralModel", trainable=True)
@@ -1102,8 +1108,7 @@ def test_captured_trainable_cx_step_equals_eager(dev, monkeypatch):
         state = cx_engine.init_cx_state(m, lr=1e-3)
         step = cx_engine.make_cx_train_step(m, state.optimizer, base_seed=3,
                                             capture=capture)
-        ledger = graphs.LaunchLedger(launch_counters().values())
-        before = dict(zip(launch_counters(), ledger.read()))
+        before = launches()
         losses = []
         rng = np.random.default_rng(0)
         for _ in range(2):
@@ -1111,8 +1116,7 @@ def test_captured_trainable_cx_step_equals_eager(dev, monkeypatch):
                 step, state, feats, arrays, 16, rng=rng, print_freq=1,
                 log_fn=lambda b, mt: losses.append(mt["loss"]))
         torch.cuda.synchronize()
-        moved = {k: n - before[k] for k, n in
-                 zip(launch_counters(), ledger.read())}
+        moved = {k: n - before[k] for k, n in launches().items()}
         runs.append((m, state, losses, moved))
     (m_cap, s_cap, l_cap, n_cap), (m_eag, s_eag, l_eag, n_eag) = runs
     assert l_cap == l_eag and all(np.isfinite(l_cap))
@@ -1542,9 +1546,7 @@ def test_xproj_kernels_match_plain(dev, batch, seq_len, dim_in, dim_h,
     launch of each counted."""
     x, w, b, mask, dout = _xproj_inputs(dev, batch, seq_len, dim_in, dim_h,
                                         mask_kind)
-    before = [f.launches for f in (xproj_kernel.x_proj,
-                                   xproj_kernel.x_proj_dx,
-                                   xproj_kernel.x_proj_dw)]
+    before = [launched(n) for n in ("xproj", "xproj_dx", "xproj_dw")]
     out, xm, wp = xproj_kernel._fwd(x, mask, w, b)
     assert torch.equal(wp, w.to(torch.bfloat16))
     dx = xproj_kernel.x_proj_dx(dout, mask, wp)
@@ -1595,9 +1597,7 @@ def test_xproj_kernels_match_plain(dev, batch, seq_len, dim_in, dim_h,
     assert torch.equal(got, out)
     for leaf, want in zip(leaves, (dx, dw, db)):
         assert torch.equal(leaf.grad, want)
-    after = [f.launches for f in (xproj_kernel.x_proj,
-                                  xproj_kernel.x_proj_dx,
-                                  xproj_kernel.x_proj_dw)]
+    after = [launched(n) for n in ("xproj", "xproj_dx", "xproj_dw")]
     assert [a - c for a, c in zip(after, before)] == [3, 3, 3]
 
 
@@ -1606,16 +1606,15 @@ def test_xproj_under_no_grad_launches_the_forward_alone(dev):
     for dW; an operand that requires grad with grad mode on goes through
     the Function, whose backward launches dX only when x needs it."""
     x, w, b, mask, dout = _xproj_inputs(dev, 8, 5, 24, 16, "per_gate")
-    counters = (xproj_kernel.x_proj, xproj_kernel.x_proj_dx,
-                xproj_kernel.x_proj_dw)
-    before = [f.launches for f in counters]
+    counters = ("xproj", "xproj_dx", "xproj_dw")
+    before = [launched(n) for n in counters]
     with torch.no_grad():
         out = xproj_kernel.x_proj(x, mask, w.requires_grad_(True), b)
     assert not out.requires_grad
     out = xproj_kernel.x_proj(x, mask, w, b)
     out.backward(dout)
     torch.cuda.synchronize()
-    assert [f.launches - n for f, n in zip(counters, before)] == [2, 0, 1]
+    assert [launched(f) - n for f, n in zip(counters, before)] == [2, 0, 1]
     assert w.grad is not None and w.grad.dtype == torch.float32
 
 
@@ -1652,7 +1651,7 @@ def test_captured_mutan_noatt_step_at_full_width_equals_eager(dev,
         state = vqa_engine.init_vqa_state(m, lr=1e-3)
         step = vqa_engine.make_vqa_train_step(m, state.optimizer,
                                               base_seed=11, capture=capture)
-        before = xproj_kernel.x_proj_dw.launches
+        before = launched("xproj_dw")
         rng = np.random.default_rng(4)
         metrics = []
         for batch in arrays.batches(64, rng=rng, device_features=feats,
@@ -1661,7 +1660,7 @@ def test_captured_mutan_noatt_step_at_full_width_equals_eager(dev,
             metrics.append([float(out[k]) for k in ("loss", "acc1")])
         torch.cuda.synchronize()
         runs.append((m, state, metrics,
-                     xproj_kernel.x_proj_dw.launches - before))
+                     launched("xproj_dw") - before))
     (m_cap, s_cap, met_cap, n_cap), (m_eag, s_eag, met_eag, n_eag) = runs
     assert s_cap.step == s_eag.step == 3 and n_cap == n_eag == 3
     assert met_cap == met_eag and np.isfinite(met_cap).all()

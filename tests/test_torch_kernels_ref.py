@@ -20,6 +20,7 @@ from vqa_counterexamples_tpu.ops.pallas.mixture_kernel import (
     classify_softmax_pallas)
 from vqa_counterexamples_tpu.ops.pallas.vfeat_kernel import (
     vfeat_scores_pallas)
+from vqa_counterexamples_tpu_torch.core import spans
 from vqa_counterexamples_tpu_torch.ops.cuda import (
     gru_kernel, mixture_kernel, vfeat_kernel)
 
@@ -263,9 +264,7 @@ def test_mixture_plan_refuses_what_does_not_fit():
 def test_wrappers_count_only_kernel_launches():
     """On CPU tensors the wrappers take the plain version and count no
     launch (the count is of kernel launches only)."""
-    before = (gru_kernel.gru_recurrence.launches,
-              vfeat_kernel.vfeat_scores.launches,
-              mixture_kernel.classify_softmax.launches)
+    before = spans.counters()
     gru_kernel.gru_recurrence(torch.zeros(2, 3, 6, dtype=torch.bfloat16),
                               torch.zeros(6, 2, dtype=torch.bfloat16),
                               torch.zeros(6))
@@ -276,9 +275,10 @@ def test_wrappers_count_only_kernel_launches():
     mixture_kernel.classify_softmax(torch.zeros(3, 4, dtype=torch.bfloat16),
                                     torch.zeros(7, 4, dtype=torch.bfloat16),
                                     torch.zeros(7, dtype=torch.bfloat16))
-    assert before == (gru_kernel.gru_recurrence.launches,
-                      vfeat_kernel.vfeat_scores.launches,
-                      mixture_kernel.classify_softmax.launches)
+    after = spans.counters()
+    for name in ("gru", "vfeat", "mixture"):
+        key = "kernels.launches." + name
+        assert type(after[key]) is int and after[key] == before[key]
 
 
 @pytest.mark.parametrize("gates", [0, 1, 3])

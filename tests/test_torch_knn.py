@@ -22,6 +22,7 @@ from vqa_counterexamples_tpu.data.features import FeatureStore as JaxStore
 from vqa_counterexamples_tpu.ops import topk as jax_topk
 from vqa_counterexamples_tpu.ops.pallas.knn_kernel import knn_chunk_pallas
 from vqa_counterexamples_tpu_torch.cli import knn as port_knn_cli
+from vqa_counterexamples_tpu_torch.core import spans
 from vqa_counterexamples_tpu_torch.data.features import FeatureStore
 from vqa_counterexamples_tpu_torch.ops import topk as port_topk
 from vqa_counterexamples_tpu_torch.ops.cuda import knn_kernel
@@ -47,7 +48,7 @@ def test_knn_chunk_plain_matches_jax(n, dim, bq, k, self_query):
                                       jnp.asarray(corpus), k)
     d_pal, i_pal = knn_chunk_pallas(jnp.asarray(queries), jnp.asarray(corpus),
                                     k, tile_n=128, interpret=True)
-    before = knn_kernel.knn_chunk.launches
+    before = spans.counters()["kernels.launches.knn"]
     for fn in (knn_kernel.knn_chunk_plain, knn_kernel.knn_chunk):
         dist, idx = fn(torch.from_numpy(queries), torch.from_numpy(corpus), k)
         assert dist.dtype == torch.float32 and idx.dtype == torch.int32
@@ -58,7 +59,8 @@ def test_knn_chunk_plain_matches_jax(n, dim, bq, k, self_query):
         assert int(idx.max()) < n
         if self_query:
             np.testing.assert_array_equal(idx[:, 0].numpy(), np.arange(bq))
-    assert knn_kernel.knn_chunk.launches == before   # the CPU: plain
+    # the CPU: plain
+    assert spans.counters()["kernels.launches.knn"] == before
 
 
 def _knn_split_tf32(queries, corpus, k):

@@ -52,6 +52,7 @@ from vqa_counterexamples_tpu_torch.core import checkpoint as port_ckpt
 from vqa_counterexamples_tpu_torch.core import config as port_config
 from vqa_counterexamples_tpu_torch.core import experiment as port_experiment
 from vqa_counterexamples_tpu_torch.core import meters as port_meters
+from vqa_counterexamples_tpu_torch.core import spans
 from vqa_counterexamples_tpu_torch.data.vqa_dataset import VQAArrays
 from vqa_counterexamples_tpu_torch.engines import vqa_engine as port_engine
 from vqa_counterexamples_tpu_torch.models import common as port_common
@@ -517,10 +518,10 @@ def test_tucker_function_grads_match_jax():
 def test_tucker_auto_is_plain_on_cpu(monkeypatch):
     monkeypatch.setenv("VQACX_COMPUTE_DTYPE", "bfloat16")
     args = _port_tucker_args(_tucker_inputs())
-    before = mutan_kernel.tucker_fusion.launches
+    before = spans.counters()["kernels.launches.mutan"]
     got = port_fusion.tucker_rank_fusion_auto(*args, rank=3)
     assert torch.equal(got, port_fusion.tucker_rank_fusion(*args, rank=3))
-    assert mutan_kernel.tucker_fusion.launches == before
+    assert spans.counters()["kernels.launches.mutan"] == before
 
 
 # --------------------------------------------------------- model and step

@@ -31,10 +31,10 @@ from vqa_counterexamples_tpu.data import synthetic as jax_synthetic
 from vqa_counterexamples_tpu.engines import cx_engine as jax_engine
 from vqa_counterexamples_tpu_torch.cli import counterexamples as port_cli
 from vqa_counterexamples_tpu_torch.core import graphs, rng as port_rng
+from vqa_counterexamples_tpu_torch.core import spans
 from vqa_counterexamples_tpu_torch.data import vqacx as port_vqacx
 from vqa_counterexamples_tpu_torch.engines import cx_engine as port_engine
 from vqa_counterexamples_tpu_torch.models import seq2vec as port_seq2vec
-from vqa_counterexamples_tpu_torch.ops.cuda import launch_counters
 
 from test_torch_modules import K, SPEC, build_pair
 from test_torch_slice import _tiny_cli_options
@@ -292,9 +292,14 @@ def _fake_cuda(monkeypatch, at_capture):
     return made
 
 
-def _toy_step(counters, calls):
+# launch counters that no kernel wrapper declares
+TOY = ("kernels.launches.toy_a", "kernels.launches.toy_b")
+
+
+def _toy_step(calls):
     """A linear model with dropout trained by Adam; its body counts two
-    kernel launches on ``counters[0]`` and one on ``counters[1]``."""
+    launches on ``TOY[0]`` and one on ``TOY[1]``, and a kernel build at
+    its first call (as a wrapper's first launch builds its library)."""
     model = torch.nn.Linear(4, 3)
     with torch.no_grad():
         model.weight.copy_(torch.arange(12.0).view(3, 4) / 10)
@@ -304,8 +309,10 @@ def _toy_step(counters, calls):
 
     def body(inputs):
         calls.append(1)
-        counters[0].launches += 2
-        counters[1].launches += 1
+        spans.count(TOY[0], 2)
+        spans.count(TOY[1])
+        if len(calls) == 1:
+            spans.count("kernels.builds")
         keep, scale = port_rng.keep_mask(tuple(inputs["x"].shape), 0.75,
                                          gens["dropout"])
         x = torch.where(keep, inputs["x"] * scale, 0.0)
@@ -315,8 +322,7 @@ def _toy_step(counters, calls):
         opt.step()
         return {"loss": loss.detach()}
 
-    run = graphs.GraphedStep(body, "cpu", generators=gens, optimizer=opt,
-                             counters=counters)
+    run = graphs.GraphedStep(body, "cpu", generators=gens, optimizer=opt)
     run.capture = True
     return model, opt, gens, run
 
@@ -345,9 +351,8 @@ def test_warmup_is_undone_bit_for_bit(monkeypatch):
     where the warm-up created it; restored where it existed) and the
     generator hold what they held before the warm-up, and the grads are
     gone."""
-    counters = [SimpleNamespace(launches=0), SimpleNamespace(launches=0)]
     calls, seen = [], []
-    model, opt, gens, run = _toy_step(counters, calls)
+    model, opt, gens, run = _toy_step(calls)
     x = np.linspace(-1, 1, 20, dtype=np.float32).reshape(5, 4)
 
     # the reference: a fresh Adam's state after its lazy init, and the
@@ -378,9 +383,10 @@ def test_launches_recorded_at_capture_and_added_per_replay(monkeypatch):
     warm-up's and the capture's own counts are taken back.  Moved
     optimizer state (``load_state_dict`` makes new tensors) captures
     again; the same state and layout do not."""
-    counters = [SimpleNamespace(launches=10), SimpleNamespace(launches=0)]
+    spans.count(TOY[0], 10)
+    before = spans.counters()
     calls = []
-    model, opt, gens, run = _toy_step(counters, calls)
+    model, opt, gens, run = _toy_step(calls)
     made = _fake_cuda(monkeypatch, lambda g: None)
     x = np.ones((5, 4), np.float32)
     for step in range(3):
@@ -388,11 +394,42 @@ def test_launches_recorded_at_capture_and_added_per_replay(monkeypatch):
         assert set(out) == {"loss"}
     assert len(calls) == 2 and len(made) == 1 and run.n_graphs == 1
     assert made[0].replays == 3 and made[0].gens == [gens["dropout"]]
-    assert [c.launches for c in counters] == [10 + 3 * 2, 3 * 1]
+    assert _moved(before, TOY) == [3 * 2, 3 * 1]
     opt.load_state_dict(copy.deepcopy(opt.state_dict()))
     run({"x": x}, seed=1, step=3)
     assert len(calls) == 4 and len(made) == 2 and run.n_graphs == 1
-    assert [c.launches for c in counters] == [10 + 4 * 2, 4 * 1]
+    assert _moved(before, TOY) == [4 * 2, 4 * 1]
+
+
+def _moved(before, names):
+    """How far each of ``names`` moved in the store since ``before``."""
+    now = spans.counters()
+    return [now.get(k, 0) - before.get(k, 0) for k in names]
+
+
+def test_capture_rolls_back_the_launch_counters_alone(monkeypatch):
+    """A step whose body counts launch counters that no wrapper declared
+    and no one handed the step: each replay adds the capture's counts to
+    the store, the warm-up and the capture leave none of their own;
+    ``kernels.builds`` (the warm-up's build) and ``engine.captures`` keep
+    what the warm-up and the capture added; after the optimizer's state
+    moves the step captures again and goes on counting from there."""
+    names = TOY + ("kernels.builds", "engine.captures")
+    before = spans.counters()
+    calls = []
+    model, opt, gens, run = _toy_step(calls)
+    made = _fake_cuda(monkeypatch, lambda g: None)
+    x = np.ones((5, 4), np.float32)
+    run({"x": x}, seed=2, step=0)
+    assert len(calls) == 2 and made[0].replays == 1
+    assert _moved(before, names) == [2, 1, 1, 1]
+    run({"x": x}, seed=2, step=1)
+    assert len(calls) == 2 and _moved(before, names) == [4, 2, 1, 1]
+    opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+    for step in (2, 3):
+        run({"x": x}, seed=2, step=step)
+    assert len(calls) == 4 and len(made) == 2 and made[1].replays == 2
+    assert _moved(before, names) == [8, 4, 1, 2]
 
 
 def test_static_inputs_keep_their_buffers():
@@ -417,19 +454,41 @@ def test_static_inputs_keep_their_buffers():
                                 "v": np.ones(4, np.float32)}) == layout
 
 
+def test_capture_runs_with_the_collector_off(monkeypatch):
+    """Python's cyclic collector is off while a graph is captured (a
+    collection there could destroy another graph, which invalidates a
+    capture) and on again afterwards."""
+    import gc
+
+    seen = []
+    model, opt, gens, run = _toy_step([])
+    _fake_cuda(monkeypatch, lambda g: seen.append(gc.isenabled()))
+    assert gc.isenabled()
+    run({"x": np.ones((5, 4), np.float32)}, seed=0, step=0)
+    assert seen == [False] and gc.isenabled()
+
+
+def _launches():
+    return {k[len("kernels.launches."):]: n
+            for k, n in spans.counters().items()
+            if k.startswith("kernels.launches.") and k not in TOY}
+
+
 def test_steps_count_every_kernel_wrappers_launches(world):
-    """The engines' steps keep the launch counts of the kernel wrappers
-    that ``ops/cuda.launch_counters`` names: all thirteen, each an int."""
-    wrappers = launch_counters()
-    assert sorted(wrappers) == sorted([
+    """The engines' steps count launches in the one store every kernel
+    wrapper counts in: ``spans.counters()`` reports all thirteen wrappers,
+    each an int, around a CX train epoch and an eval pass, which on the
+    CPU launch none."""
+    before = _launches()
+    assert sorted(before) == sorted([
         "gru", "gru_pg", "gru_bwd", "vfeat", "vfeat_bwd", "mixture", "mutan",
         "attmutan", "attmutan_bwd", "knn", "xproj", "xproj_dx", "xproj_dw"])
-    assert all(type(w.launches) is int for w in wrappers.values())
-    model = copy.deepcopy(world.pmodel)
-    state = port_engine.init_cx_state(model, lr=LR)
-    for step in (port_engine.make_cx_train_step(model, state.optimizer),
-                 port_engine.make_cx_eval_step(model)):
-        assert step.graphed.ledger.counters == list(wrappers.values())
+    assert all(type(n) is int for n in before.values())
+    state, _, _, model = _port_epoch(world, caches=False, scan=False)
+    assert state.step == 7
+    port_engine.eval_model(port_engine.make_cx_eval_step(model),
+                           torch.from_numpy(world.feats), world.arrays, B)
+    assert _launches() == before
 
 
 def test_port_embedding_matches_f_embedding():

@@ -35,7 +35,7 @@ from vqa_counterexamples_tpu.serve.demo_server import (
     DemoEngine as JaxDemoEngine)
 from vqa_counterexamples_tpu_torch.core import checkpoint as port_ckpt
 from vqa_counterexamples_tpu_torch.core import config as port_config
-from vqa_counterexamples_tpu_torch.core import graphs
+from vqa_counterexamples_tpu_torch.core import graphs, spans
 from vqa_counterexamples_tpu_torch.data import synthetic
 from vqa_counterexamples_tpu_torch.data.tokenizers import tokenize_mcb
 from vqa_counterexamples_tpu_torch.engines import vqa_engine
@@ -541,33 +541,34 @@ def _fake_cuda(monkeypatch):
     return made, modes
 
 
-class _Counter:
-    launches = 0
-
-
 def test_graphed_call_captures_once_per_layout(monkeypatch):
     """One graph a layout (warm-up, then capture, in thread-local error
     mode), replays add the capture's launches, outputs are copies, and
     ``exclusive`` blocks calls until it is left."""
     made, modes = _fake_cuda(monkeypatch)
-    counter, bodies = _Counter(), []
+    bodies = []
+    name = "kernels.launches.toy_served"
+
+    def launches():
+        return spans.counters().get(name, 0)
 
     def body(inputs):
         bodies.append(1)
-        counter.launches += 2
+        spans.count(name, 2)
         return {"y": inputs["x"] * 2.0}
 
-    run = graphs.GraphedCall(body, "cpu", counters=[counter])
+    run = graphs.GraphedCall(body, "cpu")
     run.capture = True
     x4 = np.arange(4, dtype=np.float32)
+    before = launches()
     out = run({"x": x4})
     # warm-up and capture ran the body; the counter shows one replay
     assert len(bodies) == 2 and len(made) == 1 and made[0].replays == 1
-    assert counter.launches == 2 and modes == ["thread_local"]
+    assert launches() - before == 2 and modes == ["thread_local"]
     np.testing.assert_array_equal(out["y"].numpy(), x4 * 2)
     again = run({"x": x4 + 1})
     assert len(bodies) == 2 and made[0].replays == 2
-    assert counter.launches == 4
+    assert launches() - before == 4
     assert again["y"].data_ptr() != out["y"].data_ptr()   # copied out
     run({"x": np.zeros(8, np.float32)})                     # a new layout
     assert len(made) == 2 and run.n_graphs == 2

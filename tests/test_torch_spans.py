@@ -119,12 +119,15 @@ def test_counters_count_without_profiler():
     assert got["engine.captures"] == 3
     assert got["kernels.builds"] == 1
     assert got["kernels.build_s"] == t.seconds > 0
-    from vqa_counterexamples_tpu_torch.ops.cuda import launch_counters
-
-    for name, kernel in launch_counters().items():
-        assert got["kernels.launches." + name] == kernel.launches
+    # the wrappers' modules declared their launch counters at import
+    assert got["kernels.launches.mutan"] == got["kernels.launches.knn"] == 0
+    spans.add({"kernels.launches.mutan": 2, "engine.captures": 1})
+    got = spans.counters()
+    assert got["engine.captures"] == 4 and got["kernels.launches.mutan"] == 2
     spans.reset()
-    assert "engine.captures" not in spans.counters()
+    got = spans.counters()
+    assert "engine.captures" not in got and "kernels.builds" not in got
+    assert got["kernels.launches.mutan"] == 0
     assert spans.records() == []
 
 
@@ -266,6 +269,65 @@ def test_frozen_caches_count_their_stages():
         total = got["cx.cache_build_s." + stage]
         assert 0 < stage_s[stage] < total
     assert spans.records() == []
+
+
+LAUNCHES = ("gru", "gru_pg", "gru_bwd", "vfeat", "vfeat_bwd", "mixture",
+            "mutan", "attmutan", "attmutan_bwd", "knn", "xproj", "xproj_dx",
+            "xproj_dw")
+
+
+def test_counters_after_a_cx_epoch_a_vqa_epoch_and_a_served_call():
+    """What ``spans.counters()`` reports after a CX train epoch, a VQA
+    train epoch and a served call on the CPU: every kernel wrapper's
+    launch counter at 0 (the CPU runs the plain versions) and nothing else
+    (nothing is captured, built or cached)."""
+    from vqa_counterexamples_tpu_torch.models import convnets
+    from vqa_counterexamples_tpu_torch.serve.demo_server import DemoEngine
+
+    want = {"kernels.launches." + k: 0 for k in LAUNCHES}
+    opt = synthetic.tiny_vqa_options(dim_v=16, nans=8)
+    dataset, store = synthetic.make_synthetic_cx(
+        n_examples=12, n_images=10, dim_v=16, knn_size=4, n_words=20,
+        n_answers=8, seed=1)
+    vqa = factory.factory_vqa(opt, dataset["vocab_words"],
+                              dataset["vocab_answers"])
+    spec = dict(dim_h=16, n_layers=1, drop_p=0.1, v_emb=True, v_mult=True,
+                v_dist=True, v_rank=True, q_emb=True, a_emb=True,
+                z_emb=True, pretrained_emb=False, trainable_vqa=False)
+    model = cx_engine.init_cx_params(
+        factory.factory_cx("NeuralModel", vqa, knn_size=4, model_spec=spec))
+    arrays = vqacx.CXArrays.from_examples(dataset["examples_list"],
+                                          dataset["name_to_index"])
+    state = cx_engine.init_cx_state(model, lr=1e-3)
+    state, _ = cx_engine.train_epoch(
+        cx_engine.make_cx_train_step(model, state.optimizer), state,
+        torch.from_numpy(store.features), arrays, 5,
+        rng=np.random.default_rng(0))
+    assert state.step == 3 and spans.counters() == want
+
+    examples, vstore, words, answers = synthetic.make_synthetic_vqa(
+        24, 8, maxlength=10, dim_v=16, seed=0)
+    vmodel = factory.factory_vqa(opt, words, answers)
+    vqa_engine.init_vqa_params(vmodel, seed=0)
+    vstate = vqa_engine.init_vqa_state(vmodel, lr=1e-3)
+    loader = list(VQAArrays(examples, vstore).batches(
+        8, rng=np.random.default_rng(1)))
+    vqa_engine.train_epoch(
+        vqa_engine.make_vqa_train_step(vmodel, vstate.optimizer), vstate,
+        loader, _experiment(), 0, print_freq=2)
+    assert vstate.step == 3 and spans.counters() == want
+
+    sopt = synthetic.tiny_vqa_options(dim_v=2048, nans=8)
+    smodel = factory.factory_vqa(sopt, words, answers)
+    vqa_engine.init_vqa_params(smodel, seed=0)
+    cnn = convnets.init_resnet(convnets.ResNet(depths=(1, 1, 1, 1),
+                                               dtype=torch.float32))
+    server = DemoEngine({"vqa": {"maxlength": 8}, "coco": {"size": 32}},
+                        smodel, cnn, words, answers, attention=False)
+    vals, idxs, _ = server.predict_prepared(
+        np.zeros((2, 32, 32, 3), np.uint8), np.ones((2, 8), np.int32))
+    assert vals.shape == idxs.shape == (2, 5)
+    assert server.n_graphs == 0 and spans.counters() == want
 
 
 # ---- the readers, on synthetic traces and records ----

@@ -41,18 +41,18 @@ replaces the state tensors): a graph never reads freed state.  Parameters
 loaded with ``Module.load_state_dict`` are copied in place and keep their
 addresses.
 
-Kernel launch counts: a kernel wrapper counts its Python calls, and a
-replay makes none.  The step records each counter's increase during the
-capture, puts the counters back as they were before the warm-up (neither
-the warm-up nor the capture runs a step that is kept) and adds the
-recorded increase at every replay (:class:`LaunchLedger`), so a counter
-still counts the launches that the steps executed.
+Kernel launch counts: a kernel wrapper counts its Python calls in
+``core/spans`` (``kernels.launches.<name>``), and a replay makes none.
+Every capture (:meth:`_Graphed._capture_graph`) keeps those counters'
+increase over the capture with its graph, puts them back as they were
+before the warm-up (neither runs a step that is kept) and adds the
+increase at every replay, so they count the launches the calls executed.
 
 Under a profiler a step's call is the span ``engine.step`` (``core/spans``)
 with its parts in order: ``engine.stage`` (the inputs' copies),
 ``engine.check`` (the addresses), ``engine.capture`` (a first call or a
 recapture, warm-up included), ``engine.reseed``, ``engine.replay`` (with
-the ledger) and ``engine.outputs``; eagerly ``engine.stage``,
+its launch counts) and ``engine.outputs``; eagerly ``engine.stage``,
 ``engine.reseed`` and ``engine.eager`` (the body).  Every capture, of a
 step or of a :class:`GraphedCall`, counts in ``engine.captures`` and its
 host seconds in ``engine.capture_s``.
@@ -61,6 +61,8 @@ host seconds in ``engine.capture_s``.
 from __future__ import annotations
 
 import contextlib
+import gc
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -72,23 +74,10 @@ from . import spans
 _STAGING_SLOTS = 2
 
 
-class LaunchLedger:
-    """Reads, restores and advances a set of launch counters (objects with
-    an int ``launches``)."""
-
-    def __init__(self, counters):
-        self.counters = list(counters)
-
-    def read(self) -> list:
-        return [c.launches for c in self.counters]
-
-    def restore(self, counts) -> None:
-        for c, n in zip(self.counters, counts):
-            c.launches = n
-
-    def add(self, delta) -> None:
-        for c, d in zip(self.counters, delta):
-            c.launches += d
+def _launches() -> dict:
+    """The counters a capture rolls back and a replay advances."""
+    return {k: n for k, n in spans.counters().items()
+            if k.startswith("kernels.launches.")}
 
 
 def input_layout(inputs: dict) -> tuple:
@@ -191,9 +180,10 @@ def _table_key(t):
 
 class _Snapshot:
     """The trainable parameters, the optimizer's state and the generators'
-    states, restored bit for bit by :meth:`restore`.  A state tensor that
-    did not exist at the snapshot (Adam creates its state at its first
-    step) is zeroed, which is what the optimizer's lazy init holds."""
+    states, restored bit for bit by :meth:`restore`, which also drops the
+    gradients.  A state tensor that did not exist at the snapshot (Adam
+    creates its state at its first step) is zeroed, which is what the
+    optimizer's lazy init holds."""
 
     def __init__(self, optimizer, generators):
         self.optimizer = optimizer
@@ -204,8 +194,7 @@ class _Snapshot:
             self.state = [{k: v.clone() for k, v in
                            optimizer.state.get(p, {}).items()}
                           for p in self.params]
-        self.gens = [(g, g.get_state()) for g in
-                     (generators.values() if generators else ())]
+        self.gens = [(g, g.get_state()) for g in generators]
 
     def restore(self) -> None:
         with torch.no_grad():
@@ -219,17 +208,88 @@ class _Snapshot:
                         v.zero_()
         for g, s in self.gens:
             g.set_state(s)
+        if self.optimizer is not None:
+            self.optimizer.zero_grad(set_to_none=True)
 
 
 @dataclass
 class _Captured:
     graph: object
-    names: tuple
-    packed: torch.Tensor   # the body's outputs, stacked (f32)
-    delta: list            # launch counts the graph adds per replay
+    out: object        # what the captured call returned
+    launches: dict     # the launch counts a replay adds
+
+    def replay(self) -> None:
+        self.graph.replay()
+        spans.add(self.launches)
 
 
-class GraphedStep:
+class _Graphed:
+    """What :class:`GraphedStep` and :class:`GraphedCall` share, the one
+    capture routine among it."""
+
+    def __init__(self, body, device, capture):
+        self.body = body
+        self.device = torch.device(device)
+        self.capture = (self.device.type == "cuda" if capture is None
+                        else bool(capture))
+        if self.capture and self.device.type != "cuda":
+            raise ValueError("a CUDA graph needs a CUDA device, got %s"
+                             % self.device)
+        self._inputs = {}     # layout -> StaticInputs
+        self._graphs = {}     # key -> _Captured
+        self._stream = None
+
+    @property
+    def n_graphs(self) -> int:
+        return len(self._graphs)
+
+    def _load(self, layout, inputs) -> StaticInputs:
+        static = self._inputs.get(layout)
+        if static is None:
+            static = self._inputs[layout] = StaticInputs(layout, self.device)
+        static.load(inputs)
+        return static
+
+    def _capture_graph(self, run, between=None, generators=(),
+                       **kwargs) -> _Captured:
+        """``run()`` on the side stream as the warm-up (it builds kernels
+        and plans), ``between()``, then ``run()`` captured there with
+        ``generators`` registered (``kwargs``: ``torch.cuda.graph``'s);
+        the launch counters as in the module docstring."""
+        current = torch.cuda.current_stream(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        stream = self._stream
+        before = _launches()
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            run()
+        current.wait_stream(stream)
+        if between is not None:
+            between()
+        warm = _launches()
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        # no collection inside the capture: one could destroy another
+        # graph held in a dead reference cycle (a served engine's), and a
+        # graph destroyed while a global-mode capture runs invalidates it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=stream, **kwargs):
+                out = run()
+        finally:
+            if collecting:
+                gc.enable()
+        after = _launches()
+        spans.add({k: before.get(k, 0) - n for k, n in after.items()})
+        return _Captured(graph, out, {k: n - warm.get(k, 0)
+                                      for k, n in after.items()
+                                      if n != warm.get(k, 0)})
+
+
+class GraphedStep(_Graphed):
     """``body`` run as described in the module docstring.
 
     ``generators``: a ``core/rng.StepGenerators`` the body draws from,
@@ -238,38 +298,23 @@ class GraphedStep:
     parameters and state are snapshotted around the warm-up and their
     addresses checked before each replay); None for a step that trains
     nothing.  ``capture``: None captures on a CUDA device and runs eagerly
-    elsewhere.  ``counters``: the launch counters of the kernels the body
-    runs (``ops/cuda.launch_counters``).  ``mesh``: the ``parallel.Mesh``
-    whose collectives the body runs, or None."""
+    elsewhere.  ``mesh``: the ``parallel.Mesh`` whose collectives the body
+    runs, or None."""
 
     def __init__(self, body, device, *, generators=None, optimizer=None,
-                 capture=None, counters=(), mesh=None):
-        self.body = body
-        self.device = torch.device(device)
-        self.generators = generators
-        self.optimizer = optimizer
+                 capture=None, mesh=None):
         gloo = mesh is not None and mesh.backend == "gloo"
         if gloo and capture:
             raise ValueError("a step under a gloo mesh cannot be captured: "
                              "gloo's collectives run on the host (build it "
                              "with capture=False, or use NCCL)")
-        self.capture = (self.device.type == "cuda" and not gloo
-                        if capture is None else bool(capture))
+        super().__init__(body, device, False if gloo else capture)
+        self.generators = generators
+        self.optimizer = optimizer
         self.eager_reason = ("gloo's collectives cannot be captured"
                              if gloo and self.device.type == "cuda" else None)
         self.meshed = mesh is not None
-        if self.capture and self.device.type != "cuda":
-            raise ValueError("a CUDA graph needs a CUDA device, got %s"
-                             % self.device)
-        self.ledger = LaunchLedger(counters)
-        self._inputs = {}     # layout -> StaticInputs
-        self._graphs = {}     # (layout, tables) -> _Captured
-        self._addresses = None
-        self._stream = None
-
-    @property
-    def n_graphs(self) -> int:
-        return len(self._graphs)
+        self._addresses = None   # of the state the graphs read
 
     def __call__(self, inputs: dict, tables=(), *, seed: int = 0,
                  step: int = 0) -> dict:
@@ -279,11 +324,7 @@ class GraphedStep:
     def _run(self, inputs, tables, seed, step) -> dict:
         with spans.span("engine.stage"):
             layout = input_layout(inputs)
-            static = self._inputs.get(layout)
-            if static is None:
-                static = self._inputs[layout] = StaticInputs(layout,
-                                                             self.device)
-            static.load(inputs)
+            static = self._load(layout, inputs)
         if not self.capture:
             with spans.span("engine.reseed"):
                 self._reseed(seed, step)
@@ -304,10 +345,10 @@ class GraphedStep:
         with spans.span("engine.reseed"):
             self._reseed(seed, step)
         with spans.span("engine.replay"):
-            entry.graph.replay()
-            self.ledger.add(entry.delta)
+            entry.replay()
         with spans.span("engine.outputs"):
-            return dict(zip(entry.names, entry.packed.clone().unbind()))
+            names, packed = entry.out
+            return dict(zip(names, packed.clone().unbind()))
 
     def _reseed(self, seed, step) -> None:
         if self.generators is not None:
@@ -325,36 +366,19 @@ class GraphedStep:
         return tuple(out)
 
     def _capture(self, static, tables, seed, step) -> _Captured:
-        current = torch.cuda.current_stream(self.device)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        stream = self._stream
-        counts = self.ledger.read()
-        saved = _Snapshot(self.optimizer, self.generators)
-        # warm-up on the capture stream, then everything put back
+        gens = tuple(self.generators.values()) if self.generators else ()
+        saved = _Snapshot(self.optimizer, gens)
         self._reseed(seed, step)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            self.body(static.tensors, *tables)
-        current.wait_stream(stream)
-        saved.restore()
-        if self.optimizer is not None:
-            self.optimizer.zero_grad(set_to_none=True)
-        warm = self.ledger.read()
-        graph = torch.cuda.CUDAGraph()
-        for gen in (self.generators.values() if self.generators else ()):
-            graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, stream=stream,
-                              **capture_kwargs(self.meshed)):
+
+        def run():
             out = self.body(static.tensors, *tables)
-            names = tuple(out)
-            packed = torch.stack([out[n].float() for n in names])
-        delta = [a - b for a, b in zip(self.ledger.read(), warm)]
-        self.ledger.restore(counts)
-        return _Captured(graph, names, packed, delta)
+            return tuple(out), torch.stack([out[n].float() for n in out])
+
+        return self._capture_graph(run, saved.restore, gens,
+                                   **capture_kwargs(self.meshed))
 
 
-class GraphedCall:
+class GraphedCall(_Graphed):
     """A forward-only sibling of :class:`GraphedStep` for serving:
     ``body(inputs) -> {name: tensor}`` (tensors of any shape), no optimizer,
     no generators.
@@ -377,38 +401,17 @@ class GraphedCall:
     ``thread_local`` error mode.  :meth:`exclusive` holds every layout's
     lock: an in-place weight update under it waits for in-flight calls
     and is read by every later replay, since a graph reads the parameters
-    by address and never copies them.
+    by address and never copies them."""
 
-    Launch counts are kept as :class:`GraphedStep` keeps them (recorded
-    at capture, added per replay)."""
-
-    def __init__(self, body, device, *, capture=None, counters=()):
-        import threading
-
-        self.body = body
-        self.device = torch.device(device)
-        self.capture = (self.device.type == "cuda" if capture is None
-                        else bool(capture))
-        if self.capture and self.device.type != "cuda":
-            raise ValueError("a CUDA graph needs a CUDA device, got %s"
-                             % self.device)
-        self.ledger = LaunchLedger(counters)
-        self._inputs = {}     # layout -> StaticInputs
-        self._graphs = {}     # layout -> (graph, outputs)
+    def __init__(self, body, device, *, capture=None):
+        super().__init__(body, device, capture)
         self._locks = {}      # layout -> threading.Lock
-        self._guard = threading.Lock()        # the dicts above
+        self._guard = threading.Lock()        # the dicts
         # a call's device work on a card; captures exclude the rest
         self._device_lock = (threading.Lock() if self.capture
                              else contextlib.nullcontext())
-        self._stream = None
-
-    @property
-    def n_graphs(self) -> int:
-        return len(self._graphs)
 
     def _lock(self, layout):
-        import threading
-
         with self._guard:
             return self._locks.setdefault(layout, threading.Lock())
 
@@ -428,37 +431,14 @@ class GraphedCall:
     def __call__(self, inputs: dict) -> dict:
         layout = input_layout(inputs)
         with self._lock(layout), self._device_lock:
-            static = self._inputs.get(layout)
-            if static is None:
-                static = self._inputs[layout] = StaticInputs(layout,
-                                                             self.device)
-            static.load(inputs)
+            static = self._load(layout, inputs)
             if not self.capture:
                 return self.body(static.tensors)
             entry = self._graphs.get(layout)
             if entry is None:
                 with spans.timed("engine.capture_s", "engine.captures"):
-                    entry = self._graphs[layout] = self._capture(static)
-            graph, outputs, delta = entry
-            graph.replay()
-            self.ledger.add(delta)
-            return {k: v.clone() for k, v in outputs.items()}
-
-    def _capture(self, static):
-        current = torch.cuda.current_stream(self.device)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        stream = self._stream
-        counts = self.ledger.read()
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            self.body(static.tensors)          # warm-up: builds, cuDNN plans
-        current.wait_stream(stream)
-        warm = self.ledger.read()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream,
-                              capture_error_mode="thread_local"):
-            outputs = self.body(static.tensors)
-        delta = [a - b for a, b in zip(self.ledger.read(), warm)]
-        self.ledger.restore(counts)
-        return graph, outputs, delta
+                    entry = self._graphs[layout] = self._capture_graph(
+                        lambda: self.body(static.tensors),
+                        capture_error_mode="thread_local")
+            entry.replay()
+            return {k: v.clone() for k, v in entry.out.items()}

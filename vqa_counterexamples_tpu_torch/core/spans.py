@@ -12,11 +12,12 @@ profiler's clock.
   thread (-1 for none); ``step`` is given, or taken from that parent, so
   every part of an ``engine.step`` carries its step.  The profiler is the
   only switch: there is no flag or variable of its own.
-- :func:`count` and :func:`timed` are always on: they count rare events
-  (captures, kernel builds, cache builds) and their host seconds.
+- :func:`count`, :func:`add` and :func:`timed` are always on: they count
+  rare events (captures, kernel builds, cache builds), their host seconds
+  and each kernel's launches (``kernels.launches.<name>``, declared by its
+  wrapper's module with :func:`declare`: 0 until it counts).
 - :func:`records`, :func:`counters`, :func:`summary` read the store,
-  :func:`reset` clears it.  :func:`counters` also reads each kernel's launch
-  counter (``ops/cuda.launch_counters``), which keeps its own count.
+  :func:`reset` clears it.
 
 No span stays open across a ``yield``: a generator's span closes before
 the generator hands its item out.
@@ -109,6 +110,7 @@ class Tracer:
         self._seq = itertools.count()
         self._local = threading.local()
         self._counters = {}
+        self._declared = {}
         self._lock = threading.Lock()
 
     def _stack(self) -> list:
@@ -123,8 +125,18 @@ class Tracer:
         return _Span(self, name, step)
 
     def count(self, name: str, n=1) -> None:
+        self.add({name: n})
+
+    def add(self, counts: dict) -> None:
+        """Adds each of ``counts`` to its counter, in one locked update."""
         with self._lock:
-            self._counters[name] = self._counters.get(name, 0) + n
+            for name, n in counts.items():
+                self._counters[name] = self._counters.get(name, 0) + n
+
+    def declare(self, *names: str) -> None:
+        """Reports ``names`` as 0 until they count."""
+        with self._lock:
+            self._declared.update(dict.fromkeys(names, 0))
 
     def timed(self, name: str, counted: str | None = None) -> _Timer:
         """``with timed("engine.capture_s", "engine.captures") as t:``
@@ -141,18 +153,12 @@ class Tracer:
                 for _, name, parent, step, start, end in kept]
 
     def counters(self) -> dict:
-        """Every counter, and each kernel's launches as
-        ``kernels.launches.<name>``."""
-        from ..ops.cuda import launch_counters
-
+        """Every counter, the declared ones that have not counted at 0."""
         with self._lock:
-            out = dict(self._counters)
-        for name, kernel in launch_counters().items():
-            out["kernels.launches." + name] = kernel.launches
-        return out
+            return {**self._declared, **self._counters}
 
     def reset(self) -> None:
-        """Forget every span and counter (not the kernels' launches)."""
+        """Forget every span and count (the declared names stay)."""
         self._records.clear()
         with self._lock:
             self._counters.clear()
@@ -180,6 +186,8 @@ def summary(recs: list, since: int = 0) -> dict:
 TRACER = Tracer()
 span = TRACER.span
 count = TRACER.count
+add = TRACER.add
+declare = TRACER.declare
 timed = TRACER.timed
 records = TRACER.records
 counters = TRACER.counters

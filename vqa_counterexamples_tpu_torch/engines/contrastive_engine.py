@@ -25,7 +25,6 @@ import torch
 
 from ..core import graphs
 from ..core import rng as rng_lib
-from ..ops.cuda import launch_counters
 from ..ops.metrics import pairwise_distance, recall_at_k
 from ..parallel.sharding import all_reduce_grads, batch_split, report_eager
 from .cx_engine import (CXTrainState, _device, _valid_mask, cache_kwargs,
@@ -101,8 +100,7 @@ def make_contrastive_train_step(model, optimizer, *, margin: float = 2.0,
         return out
 
     run = graphs.GraphedStep(body, _device(model), generators=gens,
-                             optimizer=optimizer, capture=capture,
-                             counters=launch_counters().values(), mesh=mesh)
+                             optimizer=optimizer, capture=capture, mesh=mesh)
     if mesh is not None:
         report_eager(run, "the contrastive train step", mesh)
 
@@ -149,8 +147,7 @@ def make_contrastive_eval_step(model, *, recall_k: int = 5,
                                       * mask)}
 
     run = graphs.GraphedStep(body, _device(model), generators=gens,
-                             capture=capture,
-                             counters=launch_counters().values(), mesh=mesh)
+                             capture=capture, mesh=mesh)
     if mesh is not None:
         report_eager(run, "the contrastive eval step", mesh)
 

@@ -54,7 +54,6 @@ from ..core import graphs
 from ..core import rng as rng_lib
 from ..core import spans
 from ..data import vqacx
-from ..ops.cuda import launch_counters
 from ..ops.metrics import nll, recall_at_k
 from ..parallel import RowShard, sharded_gather
 from ..parallel.sharding import (all_reduce_grads, batch_split,
@@ -381,8 +380,7 @@ def make_cx_train_step(model, optimizer, *, recall_k: int = 5,
         return {"loss": loss, "correct": correct}
 
     run = graphs.GraphedStep(body, _device(model), generators=gens,
-                             optimizer=optimizer, capture=capture,
-                             counters=launch_counters().values(), mesh=mesh)
+                             optimizer=optimizer, capture=capture, mesh=mesh)
     if mesh is not None:
         report_eager(run, "the CX train step", mesh)
 
@@ -470,8 +468,7 @@ def make_cx_eval_step(model, *, recall_k: int = 5, base_seed: int = 123,
                 "correct1": torch.sum(recall_at_k(scores, comp, k=1) * mask)}
 
     run = graphs.GraphedStep(body, _device(model), generators=gens,
-                             capture=capture,
-                             counters=launch_counters().values(), mesh=mesh)
+                             capture=capture, mesh=mesh)
     if mesh is not None:
         report_eager(run, "the CX eval step", mesh)
 

@@ -35,7 +35,6 @@ import torch
 from ..core import graphs
 from ..core import rng as rng_lib
 from ..core import spans
-from ..ops.cuda import launch_counters
 from ..ops.metrics import accuracy_topk, cross_entropy_mean, cross_entropy_sum
 from ..parallel.sharding import (all_reduce_grads, batch_split, gather_rows,
                                  report_eager)
@@ -130,8 +129,7 @@ def make_vqa_train_step(model, optimizer, base_seed: int = 42, *,
         return {"loss": loss, "acc1": acc1, "acc5": acc5}
 
     run = graphs.GraphedStep(body, _device(model), generators=gens,
-                             optimizer=optimizer, capture=capture,
-                             counters=launch_counters().values(), mesh=mesh)
+                             optimizer=optimizer, capture=capture, mesh=mesh)
     if mesh is not None:
         report_eager(run, "the VQA train step", mesh)
 

@@ -64,6 +64,7 @@ import functools
 
 import torch
 
+from ...core import spans
 from . import build
 
 _BF16 = torch.bfloat16
@@ -266,7 +267,7 @@ def _fwd_launch(x_v, w, b, hq, config=None):
                                 rank, m, plan["nb"], plan["nwg"],
                                 plan["stages"], build.stream_of(x_v.device))
     build.check(lib, rc, "folded_mutan")
-    folded_mutan.launches += 1
+    spans.count("kernels.launches.attmutan")
     return out
 
 
@@ -301,13 +302,11 @@ def folded_mutan_bwd(x_v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         m, (ctypes.c_int * len(bounds))(*bounds), plan["dx_stages"],
         build.stream_of(dev))
     build.check(lib, rc, "folded_mutan_bwd")
-    folded_mutan_bwd.launches += 1
+    spans.count("kernels.launches.attmutan_bwd")
     return dxv, dw, db, dhq
 
 
-# one count per launch
-folded_mutan.launches = 0
-folded_mutan_bwd.launches = 0
+spans.declare("kernels.launches.attmutan", "kernels.launches.attmutan_bwd")
 # the forward's plans, once per shape (the wrapper never modifies them)
 _fwd_plan = functools.lru_cache(maxsize=64)(fwd_plan)
 

@@ -88,6 +88,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...core import spans
 from . import build
 
 _BF16 = torch.bfloat16
@@ -351,9 +352,9 @@ def _gru_fwd(xp, w_hh, b_hh, mask, want_hproj, tile: FwdTile | None):
                            build.stream_of(xp.device))
     build.check(lib, rc, "gru_recurrence (tile %s)" % (tile,))
     if gates == 3:
-        gru_recurrence_pg.launches += 1
+        spans.count("kernels.launches.gru_pg")
     else:
-        gru_recurrence.launches += 1
+        spans.count("kernels.launches.gru")
     return states, hproj
 
 
@@ -364,13 +365,6 @@ def gru_recurrence_pg(xp: torch.Tensor, w_hh: torch.Tensor,
     if mask is None or mask.dim() != 3:
         raise ValueError("gru_recurrence_pg takes a (3, B, H) mask")
     return gru_recurrence(xp, w_hh, b_hh, mask, want_hproj)
-
-
-# one count per call that launches a forward kernel (T launches, one per
-# step): the shared-mask (or unmasked) variant here, the per-gate one on
-# gru_recurrence_pg
-gru_recurrence.launches = 0
-gru_recurrence_pg.launches = 0
 
 
 def _weight_grads(dhproj, states, mask, dim_h):
@@ -499,13 +493,14 @@ def _gru_bwd(xp, w_hh, mask, states, hproj, dstates, tile: BwdTile | None):
                            int(tile.tma), tile.stages,
                            build.stream_of(xp.device))
     build.check(lib, rc, "gru_recurrence_bwd (tile %s)" % (tile,))
-    gru_recurrence_bwd.launches += 1
+    spans.count("kernels.launches.gru_bwd")
     dw, db = _weight_grads(dhproj, states, mask, dim_h)
     return dxp, dw, db
 
 
-# one count per call that launches the reverse sweep (T launches)
-gru_recurrence_bwd.launches = 0
+# one count a sweep of T launches; gru_pg: a mask a gate
+spans.declare("kernels.launches.gru", "kernels.launches.gru_pg",
+              "kernels.launches.gru_bwd")
 
 
 class GRURecurrence(torch.autograd.Function):

@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from ...core import spans
 from . import build
 
 _TILE = 128        # queries per block and corpus rows per tile (knn.cu)
@@ -127,12 +128,11 @@ def knn_chunk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                        build.ptr(pvals), build.ptr(pidx), bq, n, dim, k,
                        width, build.stream_of(dev))
     build.check(lib, rc, "knn_chunk")
-    knn_chunk.launches += 1
+    spans.count("kernels.launches.knn")
     return dist, idx
 
 
-# one count per launch
-knn_chunk.launches = 0
+spans.declare("kernels.launches.knn")
 
 
 def _lib():

@@ -41,6 +41,7 @@ import ctypes
 
 import torch
 
+from ...core import spans
 from . import build
 
 _BF16 = torch.bfloat16
@@ -116,11 +117,11 @@ def classify_softmax(z: torch.Tensor, w_cls: torch.Tensor,
                                build.ptr(b_cls), n_ans, build.ptr(out), cl,
                                cw, stages, build.stream_of(z.device))
     build.check(lib, rc, "classify_softmax")
-    classify_softmax.launches += 1
+    spans.count("kernels.launches.mixture")
     return out
 
 
-classify_softmax.launches = 0
+spans.declare("kernels.launches.mixture")
 
 
 def _lib():

@@ -40,6 +40,7 @@ import functools
 
 import torch
 
+from ...core import spans
 from . import build
 
 _BF16 = torch.bfloat16
@@ -129,12 +130,11 @@ def tucker_fusion(x_v: torch.Tensor, x_q: torch.Tensor, w_v: torch.Tensor,
                              plan["cl"], plan["rg"],
                              build.stream_of(x_v.device))
     build.check(lib, rc, "tucker_fusion")
-    tucker_fusion.launches += 1
+    spans.count("kernels.launches.mutan")
     return out
 
 
-# one count per launch
-tucker_fusion.launches = 0
+spans.declare("kernels.launches.mutan")
 # the wrapper's plans, once per shape (it never modifies them)
 _plan = functools.lru_cache(maxsize=64)(tucker_plan)
 

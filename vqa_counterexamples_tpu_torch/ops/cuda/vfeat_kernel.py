@@ -61,6 +61,7 @@ import functools
 
 import torch
 
+from ...core import spans
 from . import build
 
 _BF16 = torch.bfloat16
@@ -232,7 +233,7 @@ def _scores_forward(table, image_idxs, w_other, w_mult):
                              build.ptr(h), build.ptr(dist), n_o, stages,
                              build.stream_of(table.device))
     build.check(lib, rc, "vfeat_scores")
-    vfeat_scores.launches += 1
+    spans.count("kernels.launches.vfeat")
     return h, dist
 
 
@@ -279,7 +280,7 @@ def vfeat_weight_grads(table: torch.Tensor, image_idxs: torch.Tensor,
                              build.ptr(dwm), n_o, cl, stages,
                              build.stream_of(dev))
     build.check(lib, rc, "vfeat_weight_grads")
-    vfeat_weight_grads.launches += 1
+    spans.count("kernels.launches.vfeat_bwd")
     return dwo, dwm
 
 
@@ -314,9 +315,7 @@ def vfeat_scores(table: torch.Tensor, image_idxs: torch.Tensor,
     return _VFeatScores.apply(table, image_idxs, w_other, w_mult)
 
 
-# one count per launch of each kernel
-vfeat_scores.launches = 0
-vfeat_weight_grads.launches = 0
+spans.declare("kernels.launches.vfeat", "kernels.launches.vfeat_bwd")
 
 
 @functools.lru_cache(maxsize=None)

@@ -52,6 +52,7 @@ from __future__ import annotations
 import ctypes
 import torch
 
+from ...core import spans
 from . import build
 
 _BF16 = torch.bfloat16
@@ -225,7 +226,7 @@ def _fwd(x, mask, weight_ih, bias_ih):
                              build.ptr(out), rows, padded, h3, gates,
                              stream)
     build.check(lib, rc, "x_proj")
-    x_proj.launches += 1
+    spans.count("kernels.launches.xproj")
     return out, xm[..., :dim_in], wp[:, :dim_in]
 
 
@@ -258,7 +259,7 @@ def _dx(dout, mask, wp):
                             wp.stride(0), h3, _mask_gates(mask),
                             build.stream_of(dout.device))
     build.check(lib, rc, "x_proj_dx")
-    x_proj_dx.launches += 1
+    spans.count("kernels.launches.xproj_dx")
     return dx
 
 
@@ -283,7 +284,7 @@ def _dw(dout, xm, want_db: bool):
                             build.ptr(db), rows, dim_in, xm.stride(1), h3,
                             gates, build.stream_of(dout.device))
     build.check(lib, rc, "x_proj_dw")
-    x_proj_dw.launches += 1
+    spans.count("kernels.launches.xproj_dw")
     return dw, db
 
 
@@ -348,10 +349,8 @@ def x_proj_dw(dout: torch.Tensor, xm: torch.Tensor, want_db: bool = True):
     return _dw(dout.to(_BF16).contiguous(), xm, want_db)
 
 
-# one count per launch of each product's kernel
-x_proj.launches = 0
-x_proj_dx.launches = 0
-x_proj_dw.launches = 0
+spans.declare("kernels.launches.xproj", "kernels.launches.xproj_dx",
+              "kernels.launches.xproj_dw")
 
 
 def _lib():

@@ -125,7 +125,6 @@ class DemoEngine:
         from ..core.graphs import GraphedCall
         from ..data.tokenizers import tokenize_mcb
         from ..models import convnets
-        from ..ops.cuda import launch_counters
 
         self.vocab_answers = list(vocab_answers)
         self.word_to_wid = {w: i + 1 for i, w in enumerate(vocab_words)}
@@ -163,8 +162,7 @@ class DemoEngine:
             return {"vals": vals[:, :5], "idxs": idxs[:, :5],
                     "att": att.float()}
 
-        self._predict = GraphedCall(predict, self.device, capture=capture,
-                                    counters=launch_counters().values())
+        self._predict = GraphedCall(predict, self.device, capture=capture)
 
     @property
     def n_graphs(self) -> int:
